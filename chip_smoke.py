@@ -6,11 +6,21 @@
 Phases, each printed with its seconds:
 1. a CUDA device must be present (else exit 1); print its name and power limit;
 2. build the CUDA kernels with nvcc (one process per source, in parallel);
-3. at full width (N=64, H=256, K=8192) hold each kernel against its plain
-   PyTorch version on the same inputs and time both with CUDA events;
-4. drive the flagship configuration through the user's entry points
-   (VMC.init, warm_up, run) and check that it ran through both kernels,
-   never through a plain version, with finite energies.
+3. at full width hold each kernel against its plain PyTorch version on the
+   same inputs and time both with CUDA events: the sweep and energy kernels
+   at the LITFI flagship's N=64, H=256, K=8192, the exchange kernel at the
+   Hubbard flagship's N=64, H=64, K=4096, B=64 (one sweep of 64 proposals);
+4. drive the LITFI flagship through the user's entry points (VMC.init,
+   warm_up, run) and check that it ran through the sweep and energy
+   kernels, never through a plain version, with finite energies;
+5. drive the Hubbard flagship (the L=32 trap chain, 500 warm-up sweeps, 20
+   SR steps) the same way and check that every sweep ran through the
+   exchange kernel, that every walker kept 5 up and 5 down particles, and
+   that the energies are finite;
+6. the device time of each kernel on phase 3's inputs (torch.profiler);
+7. profile 5 more LITFI SR steps, then 8. 5 more Hubbard SR steps.
+The profiler runs only after the timed phases 4 and 5, so that it cannot
+disturb their step times.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and, as the last line, {"ok": true, "device": {...}}. Any failed
@@ -33,6 +43,10 @@ import time
 LIMIT_S = 300
 N, ALPHA, K = 64, 4, 8192  # RBMTrSymm(n_inputs=64, alpha=4): H = 256, V = 261
 SR_STEPS, WARM_SWEEPS = 20, 100
+# Hubbard flagship: the L=32 trap chain, RBM(n_inputs=64, n_hiddens=64)
+# (V = 4224), two flavor rings (B = 64 bonds), 64 proposals per sweep.
+HUB_L, HUB_H, HUB_K, HUB_PARTICLES = 32, 64, 4096, 5
+HUB_WARM_SWEEPS, HUB_SR_STEPS, HUB_TRAP = 500, 20, 0.05
 # The init weights (~0.006) leave |y| ~ 0.05, where ln cosh is nearly
 # quadratic; the comparisons scale them so that |y| ~ 0.5.
 PARAM_SCALE = 10.0
@@ -40,6 +54,7 @@ ENERGY_RTOL = 1e-5  # max|kernel - plain| / max|plain| over walkers
 SWEEP_MISMATCH_MAX = 1e-3  # share of walkers whose decisions differ (near-ties u ~ exp(2 dln))
 SWEEP_Y_ATOL = 1e-5  # y on walkers with identical decisions
 SWEEP_LNPSI_ATOL = 1e-4  # ln psi on those walkers
+EXCHANGE_MISMATCH_MAX, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL = 1e-3, 1e-5, 1e-4  # as for the sweep
 CACHE_ATOL = 2e-4  # y carried through the warm-up's 6400 proposals vs a fresh forward
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
@@ -47,6 +62,12 @@ PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 # cos, log and atan2 as one each: y' (4), |x| and exp (3), sin/cos (2),
 # 1+-e (2), the planes (2-3), |.|^2 (3), log and scaling (4), sum (1-4).
 SWEEP_OPS, ENERGY_OPS = 20, 25
+# The exchange proposal: 22 per hidden unit (y' takes a second W row), and
+# 2 per bond for the active mask (a product and a compare); the count and
+# pick over the mask (a popcount per 32 bonds) are left out.
+EXCHANGE_OPS_HIDDEN, EXCHANGE_OPS_BOND = 22, 2
+# each wrapper's CUDA kernel, as the profiler names it
+KERNEL_NAMES = {"sweep": "sweep_kernel", "energy": "offdiag_kernel", "exchange": "exchange_kernel"}
 
 _phase = ["start"]
 
@@ -85,6 +106,23 @@ def _time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(torch, fn, reps: int, kernel: str) -> float | None:
+    """Mean device time of the CUDA kernel whose name contains `kernel`
+    over `reps` calls of fn (torch.profiler); None if the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+    count = sum(ev.count for ev in evs)
+    return sum(ev.self_device_time_total for ev in evs) / 1e3 / count if count else None
+
+
 def _bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -114,7 +152,8 @@ def _profile_steps(torch, vmc, params, state, step0: int, n_steps: int = 5) -> N
         return
     print(f"step profile ({n_steps} steps, profiler on): wall {wall_ms / n_steps:.3f} ms/step, device busy "
           f"{busy:.3f} ms/step in {sum(r[1] for r in rows):.0f} device events/step, idle share {1.0 - busy * n_steps / wall_ms:.3f}")
-    for ms, count, key in sorted(rows, reverse=True)[:8]:
+    ranked = sorted(rows, reverse=True)
+    for ms, count, key in ranked[:8] + [r for r in ranked[8:] if any(k in r[2] for k in KERNEL_NAMES.values())]:
         print(f"  {ms:8.4f} ms/step  {count:6.1f} calls/step  {key[:90]}")
 
 
@@ -145,12 +184,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from neural_network_quantum_state_tpu_torch import VMC, VMCConfig
-    from neural_network_quantum_state_tpu_torch.hamiltonians import LITFIChain
-    from neural_network_quantum_state_tpu_torch.models import RBMTrSymm
+    from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain
+    from neural_network_quantum_state_tpu_torch.models import RBM, RBMTrSymm
     from neural_network_quantum_state_tpu_torch.ops import build, engine
     from neural_network_quantum_state_tpu_torch.ops.energy import offdiag_sum_cuda, offdiag_sum_plain
+    from neural_network_quantum_state_tpu_torch.ops.exchange import exchange_cuda, exchange_plain
     from neural_network_quantum_state_tpu_torch.ops.rng import make_generator, random_spins, uniform_block
     from neural_network_quantum_state_tpu_torch.ops.sweep import sweep_cuda, sweep_plain
+
+    wrappers = {"sweep": sweep_cuda, "energy": offdiag_sum_cuda, "exchange": exchange_cuda}
+    plains = (sweep_plain, offdiag_sum_plain, exchange_plain)
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+        for fn in plains:
+            fn.calls = 0
+
+    hub_v = tuple(float(x) for x in [HUB_TRAP * (i - (HUB_L - 1) / 2.0) ** 2 for i in range(HUB_L)] * 2)
+    hubbard = HubbardChain(n_sites=2 * HUB_L, u=4.0, t=1.0, n_up=HUB_PARTICLES, n_down=HUB_PARTICLES, pbc=True, v=hub_v)
+
+    def sector_ok(spins) -> bool:
+        up, dn = (spins[:, :HUB_L] > 0).sum(1), (spins[:, HUB_L:] > 0).sum(1)
+        return bool(((up == HUB_PARTICLES) & (dn == HUB_PARTICLES)).all())
 
     _enter("2 build", t0)
     for b in build.build().values():
@@ -195,73 +251,144 @@ def main() -> int:
     if not (y_err <= SWEEP_Y_ATOL and ln_err <= SWEEP_LNPSI_ATOL):
         failures.append(f"sweep kernel: dy {y_err:.3e}, dlnpsi {ln_err:.3e}")
 
-    timing = {
-        "sweep": (_time_ms(torch, lambda: sweep_cuda(work, cache, sched, u), 20),
-                  _time_ms(torch, lambda: sweep_plain(work, cache, lnpsi, sched, u), 2)),
-        "energy": (_time_ms(torch, lambda: offdiag_sum_cuda(work, cache), 20),
-                   _time_ms(torch, lambda: offdiag_sum_plain(work, cache, lnpsi), 3)),
+    # the exchange kernel at the Hubbard flagship's shapes, one sweep
+    hn, n_unit = 2 * HUB_L, hubbard.n_unit_steps
+    hparams = {k: PARAM_SCALE * v for k, v in RBM(n_inputs=hn, n_hiddens=HUB_H).init_params(g).items()}
+    hwork = RBM(n_inputs=hn, n_hiddens=HUB_H).make_work(hparams)
+    hcache, hlnpsi = engine.full_forward(hwork, hubbard.init_spins(g, HUB_K))
+    bonds = torch.as_tensor(hubbard.bonds, device=dev)
+    u_sel, u_acc = uniform_block(g, (n_unit, HUB_K)), uniform_block(g, (n_unit, HUB_K))
+    xk, xlk, xacc_k = exchange_cuda(hwork, hcache, bonds, u_sel, u_acc)
+    xp, xlp, xacc_p = exchange_plain(hwork, hcache, hlnpsi, bonds, u_sel, u_acc)
+    torch.cuda.synchronize()
+    x_differ = (xk.spins != xp.spins).any(dim=1)
+    x_share = float(x_differ.double().mean())
+    x_same = ~x_differ
+    x_y_err = float((xk.y[x_same] - xp.y[x_same]).abs().max())
+    x_ln_err = float((xlk[x_same] - xlp[x_same]).abs().max())
+    x_sector = sector_ok(xk.spins)
+    print(f"exchange: walkers with other decisions {int(x_differ.sum())}/{HUB_K} = {x_share:.2e} "
+          f"(max {EXCHANGE_MISMATCH_MAX:.0e}); on the others max|dy| {x_y_err:.3e} (tol {EXCHANGE_Y_ATOL:.0e}), "
+          f"max|dlnpsi| {x_ln_err:.3e} (tol {EXCHANGE_LNPSI_ATOL:.0e}); acceptance kernel "
+          f"{float(xacc_k) / (n_unit * HUB_K):.4f}, plain {float(xacc_p) / (n_unit * HUB_K):.4f}; "
+          f"{HUB_PARTICLES}+{HUB_PARTICLES} sectors kept: {x_sector}")
+    if x_share > EXCHANGE_MISMATCH_MAX:
+        failures.append(f"exchange kernel: decision mismatch share {x_share:.2e}")
+    if not (x_y_err <= EXCHANGE_Y_ATOL and x_ln_err <= EXCHANGE_LNPSI_ATOL):
+        failures.append(f"exchange kernel: dy {x_y_err:.3e}, dlnpsi {x_ln_err:.3e}")
+    if not x_sector:
+        failures.append("exchange kernel: a walker left its particle sector")
+
+    calls = {  # (wrapper, plain version) on the same inputs
+        "sweep": (lambda: sweep_cuda(work, cache, sched, u), lambda: sweep_plain(work, cache, lnpsi, sched, u)),
+        "energy": (lambda: offdiag_sum_cuda(work, cache), lambda: offdiag_sum_plain(work, cache, lnpsi)),
+        "exchange": (lambda: exchange_cuda(hwork, hcache, bonds, u_sel, u_acc),
+                     lambda: exchange_plain(hwork, hcache, hlnpsi, bonds, u_sel, u_acc)),
     }
-    for name, (k_ms, p_ms) in timing.items():
-        print(f"{name}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms per call (CUDA events; the sweep call is one sweep)")
+    timing = {name: (_time_ms(torch, fn, 20), _time_ms(torch, plain, 2)) for name, (fn, plain) in calls.items()}
+    for name, (w_ms, p_ms) in timing.items():
+        print(f"{name}: wrapper {w_ms:.4f} ms, plain {p_ms:.3f} ms per call (CUDA events; a sweep or exchange call is one sweep)")
     _require(not failures, "; ".join(failures))
-    c64, f32b = 8, 4
+    c64, f32b, i32b = 8, 4, 4
     sweep_bound = _bound_ms(K * N * h * SWEEP_OPS,
                             2 * K * h * c64 + 2 * K * N * f32b + 2 * K * c64 + N * K * f32b + N * h * c64 + N * c64 + K * f32b)
     energy_bound = _bound_ms(K * N * h * ENERGY_OPS, K * h * c64 + K * N * f32b + N * h * c64 + N * c64 + K * c64)
-
-    _enter("4 flagship SR steps", t0)
-    sweep_cuda.launches = offdiag_sum_cuda.launches = 0
-    sweep_plain.calls = offdiag_sum_plain.calls = 0
-    mem_base = torch.cuda.memory_allocated()  # what phase 3 still holds
-    torch.cuda.reset_peak_memory_stats()
-    t_main = time.perf_counter()
-    vmc = VMC(
-        RBMTrSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32),
-        LITFIChain(n_sites=N, h=-0.5, j=0.866, alpha=2.5, pbc=True),
-        VMCConfig(n_walkers=K, learning_rate=1e-2, solver="cg", use_fused_sweeps=True, seed=3),
+    nb = bonds.shape[0]
+    exchange_bound = _bound_ms(
+        HUB_K * n_unit * (HUB_H * EXCHANGE_OPS_HIDDEN + nb * EXCHANGE_OPS_BOND),
+        2 * HUB_K * HUB_H * c64 + 2 * HUB_K * hn * f32b + 2 * HUB_K * c64 + 2 * n_unit * HUB_K * f32b
+        + hn * HUB_H * c64 + hn * c64 + 2 * nb * i32b + HUB_K * i32b,
     )
-    params, state = vmc.init()
-    state = vmc.warm_up(params, state, WARM_SWEEPS)
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t_main
-    peak_warm = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    fresh, _ = engine.full_forward(vmc.machine.make_work(params), state.cache.spins)
-    drift = float((fresh.y - state.cache.y).abs().max())
-    stamps = [time.perf_counter()]
-    params, state, history, _ = vmc.run(params, state, SR_STEPS, callback=lambda i, s: stamps.append(time.perf_counter()))
-    torch.cuda.synchronize()
-    launches = {"sweep": sweep_cuda.launches, "energy": offdiag_sum_cuda.launches}
-    plain_calls = sweep_plain.calls + offdiag_sum_plain.calls
-    steps_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
-    energies = [r["energy"] for r in history]
-    print(f"init + warm-up ({WARM_SWEEPS} sweeps): {t_warm:.3f} s; y drift vs fresh forward {drift:.3e} (tol {CACHE_ATOL:.0e})")
-    print(f"SR steps: {len(history)}; step ms first {steps_ms[0]:.2f}, mean of the rest "
-          f"{sum(steps_ms[1:]) / max(1, len(steps_ms) - 1):.2f}; cg iters {[r['cg_iters'] for r in history[-3:]]}; "
-          f"acceptance {history[-1]['acceptance']:.4f}")
-    print(f"peak memory above the {mem_base / 2**20:.1f} MiB held before: init + warm-up "
-          f"{(peak_warm - mem_base) / 2**20:.1f} MiB, SR steps {(torch.cuda.max_memory_allocated() - mem_base) / 2**20:.1f} MiB; "
-          f"last energies {energies[-3:]}")
-    print(f"launches in the main path: {launches}; plain-version calls: {plain_calls}")
-    _require(len(history) == SR_STEPS and all(math.isfinite(e) for e in energies), f"energies {energies}")
-    _require(drift <= CACHE_ATOL, f"sweep kernel cache drift {drift:.3e}")
-    _require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
-    _require(plain_calls == 0, f"the main path called a plain version {plain_calls} times")
-    _require(launches == {"sweep": WARM_SWEEPS + SR_STEPS, "energy": SR_STEPS},
+
+    def drive(label, make_vmc, n_warm, n_steps, drift_tol):
+        """Run one configuration through VMC.init, warm_up and run with the
+        counts set to 0 just before; print times and memory; return what
+        the checks need."""
+        reset_counts()
+        mem_base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        t_main = time.perf_counter()
+        vmc = make_vmc()
+        params, state = vmc.init()
+        warm = vmc.warm_up(params, state, n_warm)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t_main
+        peak_warm = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fresh, _ = engine.full_forward(vmc.machine.make_work(params), warm.cache.spins)
+        drift = float((fresh.y - warm.cache.y).abs().max())
+        stamps = [time.perf_counter()]
+        params, state, history, _ = vmc.run(params, warm, n_steps, callback=lambda i, st: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        plain_calls = sum(fn.calls for fn in plains)
+        steps_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        energies = [r["energy"] for r in history]
+        print(f"{label}: init + warm-up ({n_warm} sweeps): {t_warm:.3f} s; y drift vs fresh forward {drift:.3e} (tol {drift_tol:.0e})")
+        print(f"{label}: SR steps: {len(history)}; step ms first {steps_ms[0]:.2f}, mean of the rest "
+              f"{sum(steps_ms[1:]) / max(1, len(steps_ms) - 1):.2f}; cg iters {[r['cg_iters'] for r in history[-3:]]}; "
+              f"acceptance {history[-1]['acceptance']:.4f}")
+        print(f"{label}: peak memory above the {mem_base / 2**20:.1f} MiB held before: init + warm-up "
+              f"{(peak_warm - mem_base) / 2**20:.1f} MiB, SR steps {(torch.cuda.max_memory_allocated() - mem_base) / 2**20:.1f} MiB; "
+              f"last energies {energies[-3:]}")
+        print(f"{label}: launches {launches}; plain-version calls: {plain_calls}")
+        _require(len(history) == n_steps and all(math.isfinite(e) for e in energies), f"{label}: energies {energies}")
+        _require(drift <= drift_tol, f"{label}: cache drift {drift:.3e} after the warm-up")
+        _require(plain_calls == 0, f"{label}: the main path called a plain version {plain_calls} times")
+        return vmc, params, state, warm, launches
+
+    _enter("4 LITFI flagship SR steps", t0)
+    vmc, params, state, _, launches = drive(
+        "LITFI",
+        lambda: VMC(
+            RBMTrSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32),
+            LITFIChain(n_sites=N, h=-0.5, j=0.866, alpha=2.5, pbc=True),
+            VMCConfig(n_walkers=K, learning_rate=1e-2, solver="cg", use_fused_sweeps=True, seed=3),
+        ),
+        WARM_SWEEPS, SR_STEPS, CACHE_ATOL,
+    )
+    _require(launches == {"sweep": WARM_SWEEPS + SR_STEPS, "energy": SR_STEPS, "exchange": 0},
              f"launches {launches}: expected one sweep launch per sweep and one energy launch per step")
 
-    _enter("5 step profile", t0)
+    _enter("5 Hubbard flagship SR steps", t0)
+    hub_vmc, hub_params, hub_state, hub_warm, hub_launches = drive(
+        "Hubbard",
+        lambda: VMC(
+            RBM(n_inputs=2 * HUB_L, n_hiddens=HUB_H, dtype=torch.float32),
+            hubbard,
+            VMCConfig(n_walkers=HUB_K, learning_rate=1e-2, solver="cg", use_fused_sweeps=True, seed=11),
+        ),
+        HUB_WARM_SWEEPS, HUB_SR_STEPS, CACHE_ATOL,
+    )
+    launches["exchange"] = hub_launches["exchange"]
+    _require(hub_launches == {"sweep": 0, "energy": 0, "exchange": HUB_WARM_SWEEPS + HUB_SR_STEPS},
+             f"Hubbard launches {hub_launches}: expected one exchange launch per sweep and nothing else")
+    _require(sector_ok(hub_warm.cache.spins) and sector_ok(hub_state.cache.spins),
+             f"Hubbard: a walker left the {HUB_PARTICLES}+{HUB_PARTICLES} sector")
+    print(f"Hubbard: every walker holds {HUB_PARTICLES} up and {HUB_PARTICLES} down particles after the warm-up and the steps")
+
+    _enter("6 kernel device times", t0)
+    device_ms = {name: _device_ms(torch, fn, 20, KERNEL_NAMES[name]) for name, (fn, _) in calls.items()}
+    for name, d_ms in device_ms.items():
+        print(f"{name}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call (device time, profiler)")
+
+    _enter("7 LITFI step profile", t0)
     _profile_steps(torch, vmc, params, state, SR_STEPS)
 
-    _enter("6 report", t0)
+    _enter("8 Hubbard step profile", t0)
+    _profile_steps(torch, hub_vmc, hub_params, hub_state, HUB_SR_STEPS)
+
+    _enter("9 report", t0)
     errs = {
         "sweep": {"max_abs_err": ln_err, "tolerance": SWEEP_LNPSI_ATOL, "mismatch_share": share},
         "energy": {"max_abs_err": e_abs, "rel_err": e_rel, "tolerance": ENERGY_RTOL},
+        "exchange": {"max_abs_err": x_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": x_share},
     }
-    bounds = {"sweep": sweep_bound, "energy": energy_bound}
+    bounds = {"sweep": sweep_bound, "energy": energy_bound, "exchange": exchange_bound}
     replaces = {
         "sweep": "neural_network_quantum_state_tpu/ops/pallas_sweep.py:100",
         "energy": "neural_network_quantum_state_tpu/ops/pallas_energy.py:61",
+        "exchange": "neural_network_quantum_state_tpu/ops/pallas_exchange.py:65",
     }
     kernels = [
         {
@@ -269,17 +396,18 @@ def main() -> int:
             "source": f"neural_network_quantum_state_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name], "launches": launches[name],
             **errs[name],
-            "ms": timing[name][0], "kernel_ms": timing[name][0], "plain_ms": timing[name][1],
+            # ms: the kernel's device time; the wrapper's time where the profiler saw none
+            "ms": device_ms[name] if device_ms[name] is not None else timing[name][0],
+            "kernel_ms": device_ms[name], "wrapper_ms": timing[name][0], "plain_ms": timing[name][1],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
         }
-        for name in ("sweep", "energy")
+        for name in ("sweep", "energy", "exchange")
     ]
     print(json.dumps({"kernels": kernels}))
     print(_smi())  # the card's name and power limit, as nvidia-smi prints them
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     rc = main()

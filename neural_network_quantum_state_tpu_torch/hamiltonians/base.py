@@ -2,6 +2,8 @@
 
 A Hamiltonian is a frozen config exposing:
 
+- ``sampler_kind``: ``"flip"`` (single-site Metropolis over ``schedule()``)
+  or ``"exchange"`` (Kawasaki pair exchange over ``bonds``),
 - ``schedule()``: site-visit order for the Metropolis sweep,
 - ``init_spins(g, n_walkers, dtype)``: initial spin states on ``g.device``,
 - ``local_energy(work, cache, lnpsi)``: per-walker local energy
@@ -11,6 +13,7 @@ A Hamiltonian is a frozen config exposing:
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -22,6 +25,8 @@ from neural_network_quantum_state_tpu_torch.ops.rng import random_spins
 @dataclasses.dataclass(frozen=True)
 class Hamiltonian:
     n_sites: int
+
+    sampler_kind = "flip"
 
     def schedule(self) -> np.ndarray:
         raise NotImplementedError
@@ -38,3 +43,14 @@ class Hamiltonian:
 
     def local_energy(self, work: Work, cache: Cache, lnpsi: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def device_table(self, name: str, device: torch.device, dtype: torch.dtype, make: Callable[[], np.ndarray]) -> torch.Tensor:
+        """A static table of the local energy (pair indices, couplings, a
+        trap) as a tensor on `device`: built from make() at the first call
+        for (name, device, dtype) and kept, so that a step copies nothing
+        from the host."""
+        tables = self.__dict__.setdefault("_device_tables", {})  # frozen: bypass __setattr__
+        key = (name, torch.device(device), dtype)
+        if key not in tables:
+            tables[key] = torch.as_tensor(make(), dtype=dtype, device=device)
+        return tables[key]

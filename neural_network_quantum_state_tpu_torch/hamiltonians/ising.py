@@ -93,7 +93,7 @@ class LITFIChain(Hamiltonian):
     def local_energy(self, work: Work, cache: Cache, lnpsi: torch.Tensor) -> torch.Tensor:
         s = cache.spins
         offdiag = energy.offdiag_sum(work, cache, lnpsi)
-        sj = s @ torch.as_tensor(self.j_matrix, dtype=s.dtype, device=s.device)  # (K, L)
+        sj = s @ self.device_table("j_matrix", s.device, s.dtype, lambda: self.j_matrix)  # (K, L)
         diag = 0.5 * (sj * s).sum(-1)
         inv_l = 1.0 / self.n_sites
         return torch.complex((diag + self.h * offdiag.real) * inv_l, self.h * offdiag.imag * inv_l)

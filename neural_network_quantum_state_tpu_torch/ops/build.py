@@ -21,7 +21,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-KERNELS = ("sweep", "energy")
+KERNELS = ("sweep", "energy", "exchange")
 # hidden counts the kernels' template dispatch covers (H/32 in 1, 2, 4, 8, 16)
 SUPPORTED_HIDDEN = (32, 64, 128, 256, 512)
 NVCC_FLAGS = [

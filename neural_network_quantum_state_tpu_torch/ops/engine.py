@@ -100,3 +100,50 @@ def all_flip_log_psi(work: Work, cache: Cache, sites: torch.Tensor) -> torch.Ten
     if work.a is not None:
         lnpsi = lnpsi + (-two_s) * work.a[sites][None, :]
     return lnpsi
+
+
+def flip2_log_psi_per_walker(work: Work, cache: Cache, sites1: torch.Tensor, sites2: torch.Tensor) -> torch.Tensor:
+    """ln psi with two per-walker flips, sites1 and sites2 each (K,) int:
+    the pair-exchange proposal of the Kawasaki sampler."""
+    k = torch.arange(cache.spins.shape[0], device=cache.spins.device)
+    t1 = 2.0 * cache.spins[k, sites1]  # (K,) real
+    t2 = 2.0 * cache.spins[k, sites2]
+    y1 = cache.y - t1[:, None] * work.w[sites1] - t2[:, None] * work.w[sites2]
+    lnpsi = logcosh(y1).sum(-1) + cache.sa
+    if work.a is not None:
+        lnpsi = lnpsi + (-t1 * work.a[sites1] - t2 * work.a[sites2])
+    return lnpsi
+
+
+def commit_flip2_per_walker(
+    work: Work, cache: Cache, sites1: torch.Tensor, sites2: torch.Tensor, accept: torch.Tensor
+) -> Cache:
+    """Commit per-walker pair flips where `accept` is True (Kawasaki
+    exchange). Returns a new Cache; the input is left unchanged."""
+    k = torch.arange(cache.spins.shape[0], device=cache.spins.device)
+    acc = accept.to(cache.spins.dtype)
+    t1 = (2.0 * cache.spins[k, sites1]) * acc  # 0 where rejected
+    t2 = (2.0 * cache.spins[k, sites2]) * acc
+    y = cache.y - t1[:, None] * work.w[sites1] - t2[:, None] * work.w[sites2]
+    sa = cache.sa
+    if work.a is not None:
+        sa = sa - t1 * work.a[sites1] - t2 * work.a[sites2]
+    spins = cache.spins.clone()
+    spins[k, sites1] *= 1.0 - 2.0 * acc
+    spins[k, sites2] *= 1.0 - 2.0 * acc
+    return Cache(spins=spins, y=y, sa=sa)
+
+
+def all_flip2_log_psi(work: Work, cache: Cache, sites_a: torch.Tensor, sites_b: torch.Tensor) -> torch.Tensor:
+    """ln psi of every pair flip (a_t, b_t) shared across walkers: (K, T).
+
+    y1[k,t,j] = y[k,j] - 2 s[k,a_t] W[a_t,j] - 2 s[k,b_t] W[b_t,j]; memory
+    O(K * T * H), so callers chunk over the pairs.
+    """
+    ta = 2.0 * cache.spins[:, sites_a]  # (K, T) real
+    tb = 2.0 * cache.spins[:, sites_b]
+    y1 = cache.y[:, None, :] - ta[:, :, None] * work.w[sites_a][None] - tb[:, :, None] * work.w[sites_b][None]
+    lnpsi = logcosh(y1).sum(-1) + cache.sa[:, None]
+    if work.a is not None:
+        lnpsi = lnpsi + (-ta * work.a[sites_a][None, :] - tb * work.a[sites_b][None, :])
+    return lnpsi

@@ -27,3 +27,10 @@ def random_spins(g: torch.Generator, n_walkers: int, n_sites: int, dtype=torch.f
     """Uniform random {-1,+1} spin states (K, N)."""
     bits = torch.randint(0, 2, (n_walkers, n_sites), generator=g, device=g.device)
     return (2 * bits - 1).to(dtype)
+
+
+def sector_spins(g: torch.Generator, n_walkers: int, n_sites: int, n_particles: int, dtype=torch.float32) -> torch.Tensor:
+    """(K, n_sites) states with exactly n_particles sites at +1 (occupied)
+    per walker, placed uniformly at random."""
+    ranks = torch.rand((n_walkers, n_sites), generator=g, device=g.device).argsort(1)
+    return torch.where(ranks < n_particles, 1.0, -1.0).to(dtype)

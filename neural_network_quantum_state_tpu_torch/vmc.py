@@ -7,10 +7,13 @@ One SR iteration:
 
 with the lambda schedule, the ||dx|| trust region, the NaN and
 zero-variance guards and the RSD early stop. The iteration runs eagerly as
-a Python loop. On the card each sweep is one launch of the sweep kernel
-and the off-diagonal local energy one launch of the energy kernel (float32
-only: another machine dtype on the card raises); on the CPU both run as
-plain PyTorch.
+a Python loop. The sampler is chosen once, from the Hamiltonian's
+``sampler_kind``: single-site Metropolis sweeps over its schedule, or
+Kawasaki pair-exchange sweeps over its bonds (the Hubbard chain). On the
+card each sweep is one launch of the sweep or the exchange kernel and the
+spin chains' off-diagonal local energy one launch of the energy kernel
+(float32 only: another machine dtype on the card raises); on the CPU all of
+them run as plain PyTorch.
 
 Options of the JAX package's VMCConfig that this package does not
 implement yet (tempering, meshes, other solvers, ...) raise
@@ -33,7 +36,7 @@ from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache
 from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
 from neural_network_quantum_state_tpu_torch.optim.sr import SRStats, energy_and_rsd, lambda_schedule, sr_cg_solve
-from neural_network_quantum_state_tpu_torch.sampler import metropolis
+from neural_network_quantum_state_tpu_torch.sampler import kawasaki, metropolis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +58,11 @@ class VMCConfig:
     # Each step is one iteration of run()'s Python loop whatever this says;
     # the RSD early stop is checked after every step.
     steps_per_host_loop: int = 1
-    # Parity with the JAX package: requires a float32 machine and selects
-    # nothing, since the card always runs the sweep kernel.
+    # Parity with the JAX package: requires a float32 machine. It selects no
+    # sampler (the card always runs the sweep or the exchange kernel), but,
+    # as in JAX, it chooses the collapse remediation of an exchange
+    # Hamiltonian: True reseeds in the particle sector; False escalates to
+    # tempered exchange, which is not ported and raises when due.
     use_fused_sweeps: bool = False
     block_moves_per_sweep: int = 0  # not implemented
     # torch.float64: S/F reductions and the solve in f64. Defaulted to f64
@@ -111,6 +117,12 @@ class VMC:
             raise ValueError("machine.n_inputs != hamiltonian.n_sites")
         if mesh is not None:
             raise NotImplementedError("VMC(mesh=...): multi-device walker sharding is not ported yet")
+        exchange = hamiltonian.sampler_kind == "exchange"
+        if exchange and config.block_moves_per_sweep > 0:
+            raise ValueError(
+                "block_moves_per_sweep breaks particle conservation - "
+                "not available with the Kawasaki exchange sampler"
+            )
         bad = _not_implemented(config)
         if bad:
             raise NotImplementedError("VMCConfig options not ported yet: " + ", ".join(bad))
@@ -131,6 +143,12 @@ class VMC:
         self.config = config
         self.device = device
         self.schedule = torch.as_tensor(hamiltonian.schedule(), dtype=torch.int32, device=device)
+        if exchange:
+            self.bonds = torch.as_tensor(hamiltonian.bonds, dtype=torch.int32, device=device)
+            n_unit = hamiltonian.n_unit_steps
+            self._sweep = lambda work, state, n: kawasaki.exchange_sweeps(work, state, self.bonds, n, n_unit)
+        else:
+            self._sweep = lambda work, state, n: metropolis.sweeps(work, state, self.schedule, n)
         self._solve_cdtype = complex_dtype(config.solve_dtype or machine.dtype)
         self.n_remediations = 0
 
@@ -145,7 +163,7 @@ class VMC:
         return params, state
 
     def warm_up(self, params: Params, state: metropolis.MCState, n_sweeps: int = 500) -> metropolis.MCState:
-        return metropolis.sweeps(self.machine.make_work(params), state, self.schedule, n_sweeps)
+        return self._sweep(self.machine.make_work(params), state, n_sweeps)
 
     # ------------------------------------------------------------------
     def sr_update(self, params: Params, cache: Cache, lnpsi: torch.Tensor, step_idx: int) -> tuple[Params, SRStats]:
@@ -173,7 +191,7 @@ class VMC:
 
     def step(self, params: Params, state: metropolis.MCState, step_idx: int):
         """One SR iteration; returns (params, state, stats)."""
-        state = metropolis.sweeps(self.machine.make_work(params), state, self.schedule, self.config.n_sweeps_per_step)
+        state = self._sweep(self.machine.make_work(params), state, self.config.n_sweeps_per_step)
         params, stats = self.sr_update(params, state.cache, state.lnpsi, step_idx)
         cache, lnpsi = engine.full_forward(self.machine.make_work(params), state.cache.spins)
         return params, state._replace(cache=cache, lnpsi=lnpsi), stats
@@ -183,6 +201,8 @@ class VMC:
         cfg = self.config
         if cfg.collapse_escalate_nbeta < 0 or cfg.collapse_escalate_nbeta == 1:
             return False
+        if self.hamiltonian.sampler_kind == "exchange" and cfg.use_fused_sweeps:
+            return False  # the exchange kernel has no tempered ladder: reseed in the sector
         if cfg.collapse_escalate_nbeta == 0:
             return any(cfg.n_walkers % nb == 0 for nb in _NBETA_CANDIDATES)
         return cfg.n_walkers % cfg.collapse_escalate_nbeta == 0
