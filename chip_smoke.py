@@ -8,8 +8,13 @@ Phases, each printed with its seconds:
 2. build the CUDA kernels with nvcc (one process per source, in parallel);
 3. at full width hold each kernel against its plain PyTorch version on the
    same inputs and time both with CUDA events: the sweep and energy kernels
-   at the LITFI flagship's N=64, H=256, K=8192, the exchange kernel at the
-   Hubbard flagship's N=64, H=64, K=4096, B=64 (one sweep of 64 proposals);
+   at the LITFI flagship's N=64, H=256, K=8192 (the sweep at n_beta = 1 and
+   at n_beta = 8, with its in-kernel replica exchange), the fused
+   sweep + energy megakernel at that shape against the sweep kernel followed
+   by the energy kernel on the same uniforms and against its plain version
+   (n_beta = 1 and 8), the exchange kernel at the Hubbard flagship's N=64,
+   H=64, K=4096, B=64 (one sweep of 64 proposals); then all four kernels
+   at H = 16, 80 and 384 (widths off the multiples of 32, small K);
 4. drive the LITFI flagship through the user's entry points (VMC.init,
    warm_up, run) and check that it ran through the sweep and energy
    kernels, never through a plain version, with finite energies;
@@ -17,10 +22,16 @@ Phases, each printed with its seconds:
    SR steps) the same way and check that every sweep ran through the
    exchange kernel, that every walker kept 5 up and 5 down particles, and
    that the energies are finite;
-6. the device time of each kernel on phase 3's inputs (torch.profiler);
-7. profile 5 more LITFI SR steps, then 8. 5 more Hubbard SR steps.
-The profiler runs only after the timed phases 4 and 5, so that it cannot
-disturb their step times.
+6. drive the tempered LITFI flagship (n_beta = 4: 2048 chains of 4
+   replicas, the collapse escalation's default) the same way: every sweep
+   through the sweep kernel with its ladder, the energy kernel on the
+   beta = 1 replicas, no plain version, finite energies;
+7. the megakernel A/B (``megakernel_ab``, n_beta = 1 and 8): its
+   cross-check and the time of each arm;
+8. the device time of each kernel on phase 3's inputs (torch.profiler);
+9. profile 5 more LITFI SR steps, then 10. 5 more Hubbard SR steps.
+The profiler runs only after the timed phases 4 to 7, so that it cannot
+disturb their times.
 
 Then one JSON line with the kernels' numbers, the card's name and power
 limit, and, as the last line, {"ok": true, "device": {...}}. Any failed
@@ -34,6 +45,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -56,6 +68,12 @@ SWEEP_Y_ATOL = 1e-5  # y on walkers with identical decisions
 SWEEP_LNPSI_ATOL = 1e-4  # ln psi on those walkers
 EXCHANGE_MISMATCH_MAX, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL = 1e-3, 1e-5, 1e-4  # as for the sweep
 CACHE_ATOL = 2e-4  # y carried through the warm-up's 6400 proposals vs a fresh forward
+TEMPERED_NBETA, CHECK_NBETA = 4, 8  # the tempered flagship's ladder; the phase-3 and A/B ladder
+# Widths off the multiples of 32 (the e2e oracle, the precision anchors,
+# the Binder N=96 leg) at small K; the same tolerances as above.
+WIDTHS, WIDTH_N, WIDTH_K = (16, 80, 384), 32, 512
+WIDTH_MISMATCH_MAX = 1e-2  # at K=512 one near-tie is 2e-3 of the walkers
+OFFDIAG_RTOL = 1e-5  # megakernel vs the two kernels / plain, on walkers with the same decisions
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 # Operations per (walker, proposal or site, hidden unit), counting exp, sin,
@@ -67,7 +85,8 @@ SWEEP_OPS, ENERGY_OPS = 20, 25
 # pick over the mask (a popcount per 32 bonds) are left out.
 EXCHANGE_OPS_HIDDEN, EXCHANGE_OPS_BOND = 22, 2
 # each wrapper's CUDA kernel, as the profiler names it
-KERNEL_NAMES = {"sweep": "sweep_kernel", "energy": "offdiag_kernel", "exchange": "exchange_kernel"}
+KERNEL_NAMES = {"sweep": "sweep_kernel", "energy": "offdiag_kernel", "exchange": "exchange_kernel",
+                "sweep_energy": "sweep_energy_kernel"}
 
 _phase = ["start"]
 
@@ -153,13 +172,55 @@ def _profile_steps(torch, vmc, params, state, step0: int, n_steps: int = 5) -> N
     print(f"step profile ({n_steps} steps, profiler on): wall {wall_ms / n_steps:.3f} ms/step, device busy "
           f"{busy:.3f} ms/step in {sum(r[1] for r in rows):.0f} device events/step, idle share {1.0 - busy * n_steps / wall_ms:.3f}")
     ranked = sorted(rows, reverse=True)
-    for ms, count, key in ranked[:8] + [r for r in ranked[8:] if any(k in r[2] for k in KERNEL_NAMES.values())]:
+    always = (*KERNEL_NAMES.values(), "conj")  # the kernels, and the conjugate copies of the CG solve
+    for ms, count, key in ranked[:8] + [r for r in ranked[8:] if any(k in r[2] for k in always)]:
         print(f"  {ms:8.4f} ms/step  {count:6.1f} calls/step  {key[:90]}")
+
+
+def _ptxas_summary(lines) -> str:
+    """'<template arguments>:<registers>' per instantiation (the kernels'
+    one argument is R = ceil(H/32)), '+<n>B' where it spills."""
+    out, key = [], None
+    for line in lines:
+        m = re.search(r"_kernelI((?:Li\d+E)+)E", line)
+        if "Compiling entry function" in line and m:
+            key, spill = tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(1))), 0
+        elif key is not None and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif key is not None and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((key, ",".join(map(str, key)) + f":{regs}" + (f"+{spill}B" if spill else "")))
+            key = None
+    return " ".join(item for _, item in sorted(out)) or "(already built)"
 
 
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def _compare(label, ck, lk, cp, lp, mismatch_max, y_atol, ln_atol, failures):
+    """Kernel vs plain states from the same inputs and uniforms: the share
+    of walkers with other decisions, and y and ln psi on the others.
+    Appends to `failures`; returns (share, ln_err, mask of agreeing walkers)."""
+    differ = (ck.spins != cp.spins).any(dim=1)
+    share = float(differ.double().mean())
+    same = ~differ
+    y_err = float((ck.y[same] - cp.y[same]).abs().max())
+    ln_err = float((lk[same] - lp[same]).abs().max())
+    k = differ.shape[0]
+    print(f"{label}: walkers with other decisions {int(differ.sum())}/{k} = {share:.2e} (max {mismatch_max:.0e}); "
+          f"on the others max|dy| {y_err:.3e} (tol {y_atol:.0e}), max|dlnpsi| {ln_err:.3e} (tol {ln_atol:.0e})")
+    if share > mismatch_max:
+        failures.append(f"{label}: decision mismatch share {share:.2e}")
+    if not (y_err <= y_atol and ln_err <= ln_atol):
+        failures.append(f"{label}: dy {y_err:.3e}, dlnpsi {ln_err:.3e}")
+    return share, ln_err, same
+
+
+def _rel(a, b, mask=slice(None)) -> float:
+    """max|a - b| / max|b| over the walkers in mask (all by default)."""
+    return float((a[mask] - b[mask]).abs().max() / b[mask].abs().max())
 
 
 def main() -> int:
@@ -183,7 +244,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from neural_network_quantum_state_tpu_torch import VMC, VMCConfig
+    from neural_network_quantum_state_tpu_torch import VMC, VMCConfig, megakernel_ab
     from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain
     from neural_network_quantum_state_tpu_torch.models import RBM, RBMTrSymm
     from neural_network_quantum_state_tpu_torch.ops import build, engine
@@ -191,15 +252,20 @@ def main() -> int:
     from neural_network_quantum_state_tpu_torch.ops.exchange import exchange_cuda, exchange_plain
     from neural_network_quantum_state_tpu_torch.ops.rng import make_generator, random_spins, uniform_block
     from neural_network_quantum_state_tpu_torch.ops.sweep import sweep_cuda, sweep_plain
+    from neural_network_quantum_state_tpu_torch.ops.sweep_energy import sweeps_offdiag_cuda, sweeps_offdiag_plain
 
-    wrappers = {"sweep": sweep_cuda, "energy": offdiag_sum_cuda, "exchange": exchange_cuda}
-    plains = (sweep_plain, offdiag_sum_plain, exchange_plain)
+    wrappers = {"sweep": sweep_cuda, "energy": offdiag_sum_cuda, "exchange": exchange_cuda,
+                "sweep_energy": sweeps_offdiag_cuda}
+    plains = (sweep_plain, offdiag_sum_plain, exchange_plain, sweeps_offdiag_plain)
 
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
         for fn in plains:
             fn.calls = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in wrappers.items()}, sum(fn.calls for fn in plains)
 
     hub_v = tuple(float(x) for x in [HUB_TRAP * (i - (HUB_L - 1) / 2.0) ** 2 for i in range(HUB_L)] * 2)
     hubbard = HubbardChain(n_sites=2 * HUB_L, u=4.0, t=1.0, n_up=HUB_PARTICLES, n_down=HUB_PARTICLES, pbc=True, v=hub_v)
@@ -210,9 +276,7 @@ def main() -> int:
 
     _enter("2 build", t0)
     for b in build.build().values():
-        print(f"built {b.name}: {b.seconds:.1f} s -> {b.path.name}")
-        for line in b.ptxas:
-            print(f"  {line}")
+        print(f"built {b.name}: {b.seconds:.1f} s -> {b.path.name}; ptxas per R = ceil(H/32): {_ptxas_summary(b.ptxas)}")
 
     _enter("3 kernels vs plain", t0)
     dev = torch.device("cuda")
@@ -223,6 +287,7 @@ def main() -> int:
     work = machine.make_work(params)
     cache, lnpsi = engine.full_forward(work, random_spins(g, K, N))
     sched = torch.as_tensor(LITFIChain(n_sites=N).schedule())
+    failures = []
 
     e_kernel = offdiag_sum_cuda(work, cache)
     e_plain = offdiag_sum_plain(work, cache, lnpsi)
@@ -230,26 +295,47 @@ def main() -> int:
     e_abs = float((e_kernel - e_plain).abs().max())
     e_rel = e_abs / float(e_plain.abs().max())
     print(f"energy: max|kernel-plain| {e_abs:.3e}, relative to max|plain| {e_rel:.3e} (tol {ENERGY_RTOL:.0e})")
-    failures = []
     if not (math.isfinite(e_rel) and e_rel <= ENERGY_RTOL):
         failures.append(f"energy kernel vs plain: {e_rel:.3e} > {ENERGY_RTOL:.0e}")
 
     u = uniform_block(g, (N, K))  # one sweep
+    u_swap = uniform_block(g, (1, 2, K))  # its two swap phases, for the ladder
     ck, lk, acc_k = sweep_cuda(work, cache, sched, u)
     cp, lp, acc_p = sweep_plain(work, cache, lnpsi, sched, u)
-    torch.cuda.synchronize()
-    differ = (ck.spins != cp.spins).any(dim=1)
-    share = float(differ.double().mean())
-    same = ~differ
-    y_err = float((ck.y[same] - cp.y[same]).abs().max())
-    ln_err = float((lk[same] - lp[same]).abs().max())
-    print(f"sweep: walkers with other decisions {int(differ.sum())}/{K} = {share:.2e} (max {SWEEP_MISMATCH_MAX:.0e}); "
-          f"on the others max|dy| {y_err:.3e} (tol {SWEEP_Y_ATOL:.0e}), max|dlnpsi| {ln_err:.3e} "
-          f"(tol {SWEEP_LNPSI_ATOL:.0e}); acceptance kernel {float(acc_k) / (N * K):.4f}, plain {float(acc_p) / (N * K):.4f}")
-    if share > SWEEP_MISMATCH_MAX:
-        failures.append(f"sweep kernel: decision mismatch share {share:.2e}")
-    if not (y_err <= SWEEP_Y_ATOL and ln_err <= SWEEP_LNPSI_ATOL):
-        failures.append(f"sweep kernel: dy {y_err:.3e}, dlnpsi {ln_err:.3e}")
+    share, ln_err, _ = _compare("sweep", ck, lk, cp, lp, SWEEP_MISMATCH_MAX, SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL, failures)
+    print(f"sweep: acceptance kernel {float(acc_k) / (N * K):.4f}, plain {float(acc_p) / (N * K):.4f}")
+
+    # the in-kernel ladder: one sweep and its swap phases at n_beta = 8
+    tk, tlk, rows_k = sweep_cuda(work, cache, sched, u, CHECK_NBETA, u_swap, rows=True)
+    tp, tlp, rows_p = sweep_plain(work, cache, lnpsi, sched, u, CHECK_NBETA, u_swap, rows=True)
+    t_share, t_ln_err, _ = _compare(f"sweep n_beta={CHECK_NBETA}", tk, tlk, tp, tlp, SWEEP_MISMATCH_MAX, SWEEP_Y_ATOL,
+                                    SWEEP_LNPSI_ATOL, failures)
+    swaps_k, swaps_p = float(rows_k[1].sum()), float(rows_p[1].sum())
+    print(f"sweep n_beta={CHECK_NBETA}: accepted swaps kernel {swaps_k:.0f}, plain {swaps_p:.0f} of "
+          f"{K // CHECK_NBETA * (CHECK_NBETA - 1)} proposed; flip acceptance kernel {float(rows_k[0].sum()) / (N * K):.4f}")
+    if not 0 < swaps_k < K:
+        failures.append(f"sweep n_beta={CHECK_NBETA}: {swaps_k:.0f} swaps accepted")
+
+    # the megakernel against the sweep kernel + energy kernel, and its plain version
+    mega = {}
+    for nb in (1, CHECK_NBETA):
+        us = u_swap if nb > 1 else None
+        cm, lm, am, om = sweeps_offdiag_cuda(work, cache, sched, u, nb, us)
+        c2, l2, a2 = sweep_cuda(work, cache, sched, u, nb, us)
+        o2 = offdiag_sum_cuda(work, c2)
+        share2, _, same2 = _compare(f"sweep_energy n_beta={nb} vs sweep+energy kernels", cm, lm, c2, l2,
+                                    SWEEP_MISMATCH_MAX, SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL, failures)
+        rel2 = _rel(om, o2, same2)
+        cp, lp, ap, op = sweeps_offdiag_plain(work, cache, lnpsi, sched, u, nb, us)
+        share_p, ln_p, same_p = _compare(f"sweep_energy n_beta={nb} vs plain", cm, lm, cp, lp, SWEEP_MISMATCH_MAX,
+                                         SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL, failures)
+        rel_p = _rel(om, op, same_p)
+        print(f"sweep_energy n_beta={nb}: offdiag on agreeing walkers, relative to max: vs the two kernels {rel2:.3e}, "
+              f"vs plain {rel_p:.3e} (tol {OFFDIAG_RTOL:.0e}); accepted {float(am):.0f} / {float(a2):.0f} / {float(ap):.0f}")
+        if not (rel2 <= OFFDIAG_RTOL and rel_p <= OFFDIAG_RTOL):
+            failures.append(f"sweep_energy n_beta={nb}: offdiag {rel2:.3e} / {rel_p:.3e}")
+        mega[nb] = {"mismatch_vs_kernels": share2, "offdiag_rel_vs_kernels": rel2, "mismatch_share": share_p,
+                    "max_abs_err": ln_p, "offdiag_rel_err": rel_p}
 
     # the exchange kernel at the Hubbard flagship's shapes, one sweep
     hn, n_unit = 2 * HUB_L, hubbard.n_unit_steps
@@ -260,39 +346,71 @@ def main() -> int:
     u_sel, u_acc = uniform_block(g, (n_unit, HUB_K)), uniform_block(g, (n_unit, HUB_K))
     xk, xlk, xacc_k = exchange_cuda(hwork, hcache, bonds, u_sel, u_acc)
     xp, xlp, xacc_p = exchange_plain(hwork, hcache, hlnpsi, bonds, u_sel, u_acc)
-    torch.cuda.synchronize()
-    x_differ = (xk.spins != xp.spins).any(dim=1)
-    x_share = float(x_differ.double().mean())
-    x_same = ~x_differ
-    x_y_err = float((xk.y[x_same] - xp.y[x_same]).abs().max())
-    x_ln_err = float((xlk[x_same] - xlp[x_same]).abs().max())
+    x_share, x_ln_err, _ = _compare("exchange", xk, xlk, xp, xlp, EXCHANGE_MISMATCH_MAX, EXCHANGE_Y_ATOL,
+                                    EXCHANGE_LNPSI_ATOL, failures)
     x_sector = sector_ok(xk.spins)
-    print(f"exchange: walkers with other decisions {int(x_differ.sum())}/{HUB_K} = {x_share:.2e} "
-          f"(max {EXCHANGE_MISMATCH_MAX:.0e}); on the others max|dy| {x_y_err:.3e} (tol {EXCHANGE_Y_ATOL:.0e}), "
-          f"max|dlnpsi| {x_ln_err:.3e} (tol {EXCHANGE_LNPSI_ATOL:.0e}); acceptance kernel "
-          f"{float(xacc_k) / (n_unit * HUB_K):.4f}, plain {float(xacc_p) / (n_unit * HUB_K):.4f}; "
-          f"{HUB_PARTICLES}+{HUB_PARTICLES} sectors kept: {x_sector}")
-    if x_share > EXCHANGE_MISMATCH_MAX:
-        failures.append(f"exchange kernel: decision mismatch share {x_share:.2e}")
-    if not (x_y_err <= EXCHANGE_Y_ATOL and x_ln_err <= EXCHANGE_LNPSI_ATOL):
-        failures.append(f"exchange kernel: dy {x_y_err:.3e}, dlnpsi {x_ln_err:.3e}")
+    print(f"exchange: acceptance kernel {float(xacc_k) / (n_unit * HUB_K):.4f}, plain "
+          f"{float(xacc_p) / (n_unit * HUB_K):.4f}; {HUB_PARTICLES}+{HUB_PARTICLES} sectors kept: {x_sector}")
     if not x_sector:
         failures.append("exchange kernel: a walker left its particle sector")
 
-    calls = {  # (wrapper, plain version) on the same inputs
+    # every kernel at widths off the multiples of 32
+    for wh in WIDTHS:
+        wm = RBM(n_inputs=WIDTH_N, n_hiddens=wh)
+        wwork = wm.make_work({k: PARAM_SCALE * v for k, v in wm.init_params(g).items()})
+        wcache, wln = engine.full_forward(wwork, random_spins(g, WIDTH_K, WIDTH_N))
+        wsched = torch.as_tensor(LITFIChain(n_sites=WIDTH_N).schedule())
+        wu, wus = uniform_block(g, (WIDTH_N, WIDTH_K)), uniform_block(g, (1, 2, WIDTH_K))
+        for nb in (1, TEMPERED_NBETA):
+            wk, wlk, _ = sweep_cuda(wwork, wcache, wsched, wu, nb, wus if nb > 1 else None)
+            wp, wlp, _ = sweep_plain(wwork, wcache, wln, wsched, wu, nb, wus if nb > 1 else None)
+            _compare(f"H={wh} sweep n_beta={nb}", wk, wlk, wp, wlp, WIDTH_MISMATCH_MAX, SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL,
+                     failures)
+        w_rel = _rel(offdiag_sum_cuda(wwork, wcache), offdiag_sum_plain(wwork, wcache, wln))
+        cm, lm, _, om = sweeps_offdiag_cuda(wwork, wcache, wsched, wu)
+        cp, lp, _, op = sweeps_offdiag_plain(wwork, wcache, wln, wsched, wu)
+        _, _, wsame = _compare(f"H={wh} sweep_energy", cm, lm, cp, lp, WIDTH_MISMATCH_MAX, SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL,
+                               failures)
+        wm_rel = _rel(om, op, wsame)
+        wham = HubbardChain(n_sites=WIDTH_N, n_up=4, n_down=4)
+        whc, whl = engine.full_forward(wwork, wham.init_spins(g, WIDTH_K))
+        wb = torch.as_tensor(wham.bonds, device=dev)
+        ws, wa = uniform_block(g, (WIDTH_N, WIDTH_K)), uniform_block(g, (WIDTH_N, WIDTH_K))
+        wk, wlk, _ = exchange_cuda(wwork, whc, wb, ws, wa)
+        wp, wlp, _ = exchange_plain(wwork, whc, whl, wb, ws, wa)
+        _compare(f"H={wh} exchange", wk, wlk, wp, wlp, WIDTH_MISMATCH_MAX, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL, failures)
+        print(f"H={wh}: energy relative error {w_rel:.3e}, sweep_energy offdiag {wm_rel:.3e} (tol {ENERGY_RTOL:.0e})")
+        if not (w_rel <= ENERGY_RTOL and wm_rel <= ENERGY_RTOL):
+            failures.append(f"H={wh}: energy {w_rel:.3e}, sweep_energy {wm_rel:.3e}")
+
+    calls = {  # (wrapper, plain version) on the same inputs at the main paths' shapes
         "sweep": (lambda: sweep_cuda(work, cache, sched, u), lambda: sweep_plain(work, cache, lnpsi, sched, u)),
         "energy": (lambda: offdiag_sum_cuda(work, cache), lambda: offdiag_sum_plain(work, cache, lnpsi)),
         "exchange": (lambda: exchange_cuda(hwork, hcache, bonds, u_sel, u_acc),
                      lambda: exchange_plain(hwork, hcache, hlnpsi, bonds, u_sel, u_acc)),
+        "sweep_energy": (lambda: sweeps_offdiag_cuda(work, cache, sched, u),
+                         lambda: sweeps_offdiag_plain(work, cache, lnpsi, sched, u)),
+    }
+    tempered_calls = {
+        "sweep": lambda: sweep_cuda(work, cache, sched, u, CHECK_NBETA, u_swap),
+        "sweep_energy": lambda: sweeps_offdiag_cuda(work, cache, sched, u, CHECK_NBETA, u_swap),
     }
     timing = {name: (_time_ms(torch, fn, 20), _time_ms(torch, plain, 2)) for name, (fn, plain) in calls.items()}
+    tempered_ms = {name: _time_ms(torch, fn, 20) for name, fn in tempered_calls.items()}
     for name, (w_ms, p_ms) in timing.items():
         print(f"{name}: wrapper {w_ms:.4f} ms, plain {p_ms:.3f} ms per call (CUDA events; a sweep or exchange call is one sweep)")
+    for name, w_ms in tempered_ms.items():
+        print(f"{name} n_beta={CHECK_NBETA}: wrapper {w_ms:.4f} ms per call (one sweep and its swap phases)")
     _require(not failures, "; ".join(failures))
     c64, f32b, i32b = 8, 4, 4
-    sweep_bound = _bound_ms(K * N * h * SWEEP_OPS,
-                            2 * K * h * c64 + 2 * K * N * f32b + 2 * K * c64 + N * K * f32b + N * h * c64 + N * c64 + K * f32b)
-    energy_bound = _bound_ms(K * N * h * ENERGY_OPS, K * h * c64 + K * N * f32b + N * h * c64 + N * c64 + K * c64)
+    sweep_bytes = (2 * K * h * c64 + 2 * K * N * f32b + 2 * K * c64 + N * K * f32b + N * h * c64 + N * c64
+                   + 2 * K * i32b)
+    energy_bytes = K * h * c64 + K * N * f32b + N * h * c64 + N * c64 + K * c64
+    sweep_bound = _bound_ms(K * N * h * SWEEP_OPS, sweep_bytes)
+    energy_bound = _bound_ms(K * N * h * ENERGY_OPS, energy_bytes)
+    # the megakernel: the two kernels' operations; its bytes are the sweep's
+    # and the off-diagonal sum's output (the state is read and written once)
+    sweep_energy_bound = _bound_ms(K * N * h * (SWEEP_OPS + ENERGY_OPS), sweep_bytes + K * c64)
     nb = bonds.shape[0]
     exchange_bound = _bound_ms(
         HUB_K * n_unit * (HUB_H * EXCHANGE_OPS_HIDDEN + nb * EXCHANGE_OPS_BOND),
@@ -320,8 +438,7 @@ def main() -> int:
         stamps = [time.perf_counter()]
         params, state, history, _ = vmc.run(params, warm, n_steps, callback=lambda i, st: stamps.append(time.perf_counter()))
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        plain_calls = sum(fn.calls for fn in plains)
+        launches, plain_calls = read_counts()
         steps_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
         energies = [r["energy"] for r in history]
         print(f"{label}: init + warm-up ({n_warm} sweeps): {t_warm:.3f} s; y drift vs fresh forward {drift:.3e} (tol {drift_tol:.0e})")
@@ -337,6 +454,7 @@ def main() -> int:
         _require(plain_calls == 0, f"{label}: the main path called a plain version {plain_calls} times")
         return vmc, params, state, warm, launches
 
+    path_launches = {}
     _enter("4 LITFI flagship SR steps", t0)
     vmc, params, state, _, launches = drive(
         "LITFI",
@@ -347,8 +465,9 @@ def main() -> int:
         ),
         WARM_SWEEPS, SR_STEPS, CACHE_ATOL,
     )
-    _require(launches == {"sweep": WARM_SWEEPS + SR_STEPS, "energy": SR_STEPS, "exchange": 0},
+    _require(launches == {"sweep": WARM_SWEEPS + SR_STEPS, "energy": SR_STEPS, "exchange": 0, "sweep_energy": 0},
              f"launches {launches}: expected one sweep launch per sweep and one energy launch per step")
+    path_launches["LITFI"] = launches
 
     _enter("5 Hubbard flagship SR steps", t0)
     hub_vmc, hub_params, hub_state, hub_warm, hub_launches = drive(
@@ -360,54 +479,99 @@ def main() -> int:
         ),
         HUB_WARM_SWEEPS, HUB_SR_STEPS, CACHE_ATOL,
     )
-    launches["exchange"] = hub_launches["exchange"]
-    _require(hub_launches == {"sweep": 0, "energy": 0, "exchange": HUB_WARM_SWEEPS + HUB_SR_STEPS},
+    _require(hub_launches == {"sweep": 0, "energy": 0, "exchange": HUB_WARM_SWEEPS + HUB_SR_STEPS, "sweep_energy": 0},
              f"Hubbard launches {hub_launches}: expected one exchange launch per sweep and nothing else")
     _require(sector_ok(hub_warm.cache.spins) and sector_ok(hub_state.cache.spins),
              f"Hubbard: a walker left the {HUB_PARTICLES}+{HUB_PARTICLES} sector")
     print(f"Hubbard: every walker holds {HUB_PARTICLES} up and {HUB_PARTICLES} down particles after the warm-up and the steps")
+    path_launches["Hubbard"] = hub_launches
 
-    _enter("6 kernel device times", t0)
+    _enter("6 tempered LITFI flagship SR steps", t0)
+    _, _, pt_state, _, pt_launches = drive(
+        f"tempered LITFI (n_beta={TEMPERED_NBETA})",
+        lambda: VMC(
+            RBMTrSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32),
+            LITFIChain(n_sites=N, h=-0.5, j=0.866, alpha=2.5, pbc=True),
+            VMCConfig(n_walkers=K, learning_rate=1e-2, solver="cg", use_fused_sweeps=True, n_beta=TEMPERED_NBETA, seed=5),
+        ),
+        WARM_SWEEPS, SR_STEPS, CACHE_ATOL,
+    )
+    _require(pt_launches == {"sweep": WARM_SWEEPS + SR_STEPS, "energy": SR_STEPS, "exchange": 0, "sweep_energy": 0},
+             f"tempered launches {pt_launches}: expected one sweep launch per sweep (the ladder in the kernel) "
+             "and one energy launch per step")
+    _require(tuple(pt_state.cache.spins.shape) == (K, N), f"tempered state {tuple(pt_state.cache.spins.shape)}")
+    path_launches["tempered LITFI"] = pt_launches
+
+    _enter("7 megakernel A/B", t0)
+    reset_counts()
+    ab = {nb: megakernel_ab.run_ab(nb) for nb in (1, CHECK_NBETA)}
+    ab_launches, ab_plain = read_counts()
+    for nb, r in ab.items():
+        print(f"A/B n_beta={nb}: two kernels {r['two_kernel_ms']:.4f} ms, megakernel {r['megakernel_ms']:.4f} ms per "
+              f"(sweep + offdiag) (runs {r['two_kernel_runs_ms']} / {r['megakernel_runs_ms']}), speed-up {r['speedup']:.3f}; "
+              f"cross-check: other decisions {r['mismatch_share']:.2e}, offdiag {r['offdiag_rel_err']:.3e}, "
+              f"y {r['y_max_abs_err']:.3e}")
+        _require(r["mismatch_share"] <= SWEEP_MISMATCH_MAX and r["offdiag_rel_err"] <= OFFDIAG_RTOL,
+                 f"A/B n_beta={nb}: arms disagree: {r}")
+    print(f"A/B: launches {ab_launches}; plain-version calls: {ab_plain}")
+    _require(ab_plain == 0 and ab_launches["sweep_energy"] > 0, f"A/B launches {ab_launches}, plain calls {ab_plain}")
+    path_launches["megakernel A/B"] = ab_launches
+
+    _enter("8 kernel device times", t0)
     device_ms = {name: _device_ms(torch, fn, 20, KERNEL_NAMES[name]) for name, (fn, _) in calls.items()}
+    tempered_device_ms = {name: _device_ms(torch, fn, 20, KERNEL_NAMES[name]) for name, fn in tempered_calls.items()}
     for name, d_ms in device_ms.items():
         print(f"{name}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call (device time, profiler)")
+    for name, d_ms in tempered_device_ms.items():
+        print(f"{name} n_beta={CHECK_NBETA}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call "
+              "(device time, profiler)")
 
-    _enter("7 LITFI step profile", t0)
+    _enter("9 LITFI step profile", t0)
     _profile_steps(torch, vmc, params, state, SR_STEPS)
 
-    _enter("8 Hubbard step profile", t0)
+    _enter("10 Hubbard step profile", t0)
     _profile_steps(torch, hub_vmc, hub_params, hub_state, HUB_SR_STEPS)
 
-    _enter("9 report", t0)
+    _enter("11 report", t0)
+    print(f"launches by path: {json.dumps(path_launches)}")
     errs = {
-        "sweep": {"max_abs_err": ln_err, "tolerance": SWEEP_LNPSI_ATOL, "mismatch_share": share},
+        "sweep": {"max_abs_err": ln_err, "tolerance": SWEEP_LNPSI_ATOL, "mismatch_share": share,
+                  f"nbeta{CHECK_NBETA}_mismatch_share": t_share, f"nbeta{CHECK_NBETA}_max_abs_err": t_ln_err},
         "energy": {"max_abs_err": e_abs, "rel_err": e_rel, "tolerance": ENERGY_RTOL},
         "exchange": {"max_abs_err": x_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": x_share},
+        "sweep_energy": {"tolerance": SWEEP_LNPSI_ATOL, "offdiag_tolerance": OFFDIAG_RTOL, **mega[1],
+                         f"nbeta{CHECK_NBETA}": mega[CHECK_NBETA],
+                         "ab": {f"nbeta{nb}": {k: r[k] for k in ("two_kernel_ms", "megakernel_ms", "speedup")}
+                                for nb, r in ab.items()}},
     }
-    bounds = {"sweep": sweep_bound, "energy": energy_bound, "exchange": exchange_bound}
+    bounds = {"sweep": sweep_bound, "energy": energy_bound, "exchange": exchange_bound, "sweep_energy": sweep_energy_bound}
     replaces = {
         "sweep": "neural_network_quantum_state_tpu/ops/pallas_sweep.py:100",
         "energy": "neural_network_quantum_state_tpu/ops/pallas_energy.py:61",
         "exchange": "neural_network_quantum_state_tpu/ops/pallas_exchange.py:65",
+        "sweep_energy": "neural_network_quantum_state_tpu/ops/pallas_sweep_energy.py:49",
     }
     kernels = [
         {
             "name": name, "route": "cuda",
             "source": f"neural_network_quantum_state_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name], "launches": sum(p[name] for p in path_launches.values()),
             **errs[name],
             # ms: the kernel's device time; the wrapper's time where the profiler saw none
             "ms": device_ms[name] if device_ms[name] is not None else timing[name][0],
             "kernel_ms": device_ms[name], "wrapper_ms": timing[name][0], "plain_ms": timing[name][1],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+            **({f"nbeta{CHECK_NBETA}_kernel_ms": tempered_device_ms[name], f"nbeta{CHECK_NBETA}_wrapper_ms": tempered_ms[name]}
+               if name in tempered_calls else {}),
         }
-        for name in ("sweep", "energy", "exchange")
+        for name in ("sweep", "energy", "exchange", "sweep_energy")
     ]
     print(json.dumps({"kernels": kernels}))
     print(_smi())  # the card's name and power limit, as nvidia-smi prints them
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0
+
 
 if __name__ == "__main__":
     rc = main()

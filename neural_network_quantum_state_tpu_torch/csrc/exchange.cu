@@ -14,7 +14,8 @@
 // The TPU kernel turns every per-walker choice into one-hot selector matmuls
 // because Mosaic has no dynamic indexing; here the choice is a gather.
 // Design: one warp per walker, walkers independent, eight warps per block.
-// Lane l keeps hidden units j = r*32 + l (r < R = H/32) of y in registers for
+// Lane l keeps hidden units j = r*32 + l (r < R = ceil(H/32), tail lanes
+// masked as in rbm.cuh) of y in registers for
 // the whole call. The walker's spins and the block's copy of the bond table
 // sit in shared memory. Each proposal builds the active mask 32 bonds at a
 // time with __ballot_sync: a first pass counts nb with __popc, a second finds
@@ -32,32 +33,15 @@
 // practice by the latency of one proposal's serial chain (mask, count, pick,
 // expf/sincosf/logf, shuffle sum), which the resident warps hide only in part.
 
-#include <cuda_runtime.h>
+#include "rbm.cuh"
 
 namespace {
 
-constexpr float kLn2 = 0.6931471805599453f;
+using nqs::kFull;
+using nqs::logcosh_re;
+using nqs::warp_allsum;
+
 constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFull = 0xffffffffu;
-
-// Re ln cosh(x + iv), the real plane of the stable split formula.
-__device__ __forceinline__ float logcosh_re(float x, float v) {
-  const float ax = fabsf(x);
-  const float e = expf(-2.0f * ax);
-  float s, c;
-  sincosf(v, &s, &c);
-  const float re = (1.0f + e) * c;
-  const float im = (1.0f - e) * s;
-  return 0.5f * logf(re * re + im * im) + (ax - kLn2);
-}
-
-// Sum over the warp, then lane 0's value on every lane (the butterfly sums in
-// lane-dependent order; broadcasting one of them keeps decisions uniform).
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return __shfl_sync(kFull, v, 0);
-}
 
 // Bonds wd*32 .. wd*32+31 that are active (anti-aligned), one bit each.
 __device__ __forceinline__ unsigned active_word(const int* bonds, const float* sp, int B, int wd,
@@ -68,17 +52,16 @@ __device__ __forceinline__ unsigned active_word(const int* bonds, const float* s
 }
 
 template <int R>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+__global__ void __launch_bounds__(32 * kWarpsPerBlock, nqs::min_blocks(R, kWarpsPerBlock))
 exchange_kernel(const float2* __restrict__ w, const float2* __restrict__ a,
                 const int* __restrict__ bonds, const float* __restrict__ spins_in,
                 const float2* __restrict__ y_in, const float2* __restrict__ sa_in,
                 const float* __restrict__ u_sel, const float* __restrict__ u_acc,
                 float* __restrict__ spins_out, float2* __restrict__ y_out,
-                float2* __restrict__ sa_out, int* __restrict__ acc_out, int K, int N, int B,
+                float2* __restrict__ sa_out, int* __restrict__ acc_out, int K, int N, int H, int B,
                 int n_steps) {
   extern __shared__ float smem[];
   int* s_bonds = reinterpret_cast<int*>(smem);  // (B, 2), shared by the block
-  constexpr int H = 32 * R;
   for (int i = threadIdx.x; i < 2 * B; i += blockDim.x) {
     const int v = bonds[i];
     if (v < 0 || v >= N) __trap();  // a bond end outside [0, N)
@@ -94,16 +77,13 @@ exchange_kernel(const float2* __restrict__ w, const float2* __restrict__ a,
   __syncwarp();
 
   float yr[R], yi[R];
+  nqs::load_row<R>(y_in + (size_t)k * H, H, lane, yr, yi);
   float l = 0.0f;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float2 v = y_in[(size_t)k * H + r * 32 + lane];
-    yr[r] = v.x;
-    yi[r] = v.y;
-    l += logcosh_re(v.x, v.y);
-  }
+  for (int r = 0; r < R; ++r)
+    l += nqs::in_row<R>(r, lane, H) ? logcosh_re(yr[r], yi[r]) : 0.0f;
   float2 sa = sa_in[k];
-  float ln0 = warp_sum(l) + sa.x;
+  float ln0 = warp_allsum(l) + sa.x;
   int acc = 0;
   const int n_words = (B + 31) / 32;
 
@@ -134,15 +114,17 @@ exchange_kernel(const float2* __restrict__ w, const float2* __restrict__ a,
     l = 0.0f;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float2 w1 = __ldg(wi + r * 32 + lane);
-      const float2 w2 = __ldg(wj + r * 32 + lane);
+      const bool in = nqs::in_row<R>(r, lane, H);
+      const float2 w1 = in ? __ldg(wi + nqs::hidden(r, lane)) : make_float2(0.0f, 0.0f);
+      const float2 w2 = in ? __ldg(wj + nqs::hidden(r, lane)) : make_float2(0.0f, 0.0f);
       xr[r] = yr[r] - t1 * w1.x - t2 * w2.x;
       xi[r] = yi[r] - t1 * w1.y - t2 * w2.y;
-      l += logcosh_re(xr[r], xi[r]);
+      const float lc = logcosh_re(xr[r], xi[r]);
+      l += in ? lc : 0.0f;
     }
     const float2 ai = __ldg(a + i);
     const float2 aj = __ldg(a + j);
-    const float ln1 = (warp_sum(l) + sa.x) + (-t1 * ai.x - t2 * aj.x);
+    const float ln1 = (warp_allsum(l) + sa.x) + (-t1 * ai.x - t2 * aj.x);
     const float dln = ln1 - ln0;
     const bool accept = __ldg(u_acc + (size_t)t * K + k) < expf(2.0f * fminf(dln, 0.0f));
     if (accept) {
@@ -164,8 +146,7 @@ exchange_kernel(const float2* __restrict__ w, const float2* __restrict__ a,
     __syncwarp();
   }
 
-#pragma unroll
-  for (int r = 0; r < R; ++r) y_out[(size_t)k * H + r * 32 + lane] = make_float2(yr[r], yi[r]);
+  nqs::store_row<R>(y_out + (size_t)k * H, H, lane, yr, yi);
   for (int i = lane; i < N; i += 32) spins_out[(size_t)k * N + i] = sp[i];
   if (lane == 0) {
     sa_out[k] = sa;
@@ -177,12 +158,12 @@ template <int R>
 cudaError_t launch(const float2* w, const float2* a, const int* bonds, const float* spins_in,
                    const float2* y_in, const float2* sa_in, const float* u_sel, const float* u_acc,
                    float* spins_out, float2* y_out, float2* sa_out, int* acc_out, int K, int N,
-                   int B, int n_steps, cudaStream_t stream) {
+                   int H, int B, int n_steps, cudaStream_t stream) {
   const dim3 grid((K + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const size_t smem = sizeof(int) * 2 * B + sizeof(float) * kWarpsPerBlock * N;
   exchange_kernel<R><<<grid, 32 * kWarpsPerBlock, smem, stream>>>(
       w, a, bonds, spins_in, y_in, sa_in, u_sel, u_acc, spins_out, y_out, sa_out, acc_out, K, N,
-      B, n_steps);
+      H, B, n_steps);
   return cudaGetLastError();
 }
 
@@ -191,13 +172,14 @@ cudaError_t launch(const float2* w, const float2* a, const int* bonds, const flo
 // All complex arrays are interleaved (re, im) float pairs, row-major:
 // w (N, H), a (N,), y (K, H), sa (K,); bonds (B, 2) int32 with entries in
 // [0, N); spins (K, N); u_sel and u_acc (n_steps, K); acc_out (K,) accepted
-// proposals per walker. Returns the cudaError_t of the launch (0 on success).
+// proposals per walker; 1 <= H <= 512. Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int nqs_exchange_f32(const void* w, const void* a, const void* bonds,
                                 const void* spins_in, const void* y_in, const void* sa_in,
                                 const void* u_sel, const void* u_acc, void* spins_out, void* y_out,
                                 void* sa_out, void* acc_out, int K, int N, int H, int B,
                                 int n_steps, void* stream) {
-  if (K <= 0 || N <= 0 || B <= 0 || B > N || n_steps <= 0 || H % 32 != 0)
+  if (K <= 0 || N <= 0 || B <= 0 || B > N || n_steps <= 0 || H < 1 || H > 32 * nqs::kMaxR)
     return cudaErrorInvalidValue;
 #define NQS_EXCHANGE_CASE(R)                                                                  \
   case R:                                                                                     \
@@ -206,14 +188,10 @@ extern "C" int nqs_exchange_f32(const void* w, const void* a, const void* bonds,
                      static_cast<const float2*>(y_in), static_cast<const float2*>(sa_in),     \
                      static_cast<const float*>(u_sel), static_cast<const float*>(u_acc),      \
                      static_cast<float*>(spins_out), static_cast<float2*>(y_out),             \
-                     static_cast<float2*>(sa_out), static_cast<int*>(acc_out), K, N, B,       \
+                     static_cast<float2*>(sa_out), static_cast<int*>(acc_out), K, N, H, B,    \
                      n_steps, static_cast<cudaStream_t>(stream));
-  switch (H / 32) {
-    NQS_EXCHANGE_CASE(1)
-    NQS_EXCHANGE_CASE(2)
-    NQS_EXCHANGE_CASE(4)
-    NQS_EXCHANGE_CASE(8)
-    NQS_EXCHANGE_CASE(16)
+  switch ((H + 31) / 32) {
+    NQS_FOR_EACH_R(NQS_EXCHANGE_CASE)
     default:
       return cudaErrorInvalidValue;
   }

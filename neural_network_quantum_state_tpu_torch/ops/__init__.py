@@ -1,2 +1,3 @@
 """Numerics: log-cosh, the batched machine engine, RNG helpers and the CUDA
-kernels (``sweep``, ``energy``, ``exchange``) with their plain PyTorch versions."""
+kernels (``sweep``, ``energy``, ``exchange``, ``sweep_energy``) with their
+plain PyTorch versions."""

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/<name>-<hash>.so`` at first
-use and loaded with ``ctypes``; the hash of the source is in the file name,
-so an edited source is rebuilt and a stale library is never loaded. Nothing
-here runs at import time: this module imports on a machine without CUDA.
+use and loaded with ``ctypes``; the hash of the source and of every shared
+header ``csrc/*.cuh`` is in the file name, so an edited source or header is
+rebuilt and a stale library is never loaded. Nothing here runs at import
+time: this module imports on a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-KERNELS = ("sweep", "energy", "exchange")
-# hidden counts the kernels' template dispatch covers (H/32 in 1, 2, 4, 8, 16)
-SUPPORTED_HIDDEN = (32, 64, 128, 256, 512)
+KERNELS = ("sweep", "energy", "exchange", "sweep_energy")
+# The kernels instantiate R = ceil(H/32) = 1..16 words of hidden units per
+# lane and mask the tail, so they take any 1 <= H <= MAX_HIDDEN.
+MAX_HIDDEN = 512
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,9 +54,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS) -> dict[str, Built]:
@@ -99,11 +102,11 @@ def library(name: str) -> ctypes.CDLL:
 def check_inputs(kernel: str, device, hidden: int, tensors: dict) -> None:
     """Raise unless every ``name: (tensor, dtype, shape)`` is a contiguous
     tensor of that dtype and shape on the CUDA `device`, and the hidden
-    count is one the kernel is built for."""
+    count is one the kernel is built for (1 to MAX_HIDDEN)."""
     if device.type != "cuda":
         raise ValueError(f"{kernel} kernel: tensors must be on a CUDA device, got {device}")
-    if hidden not in SUPPORTED_HIDDEN:
-        raise ValueError(f"{kernel} kernel: hidden count {hidden} not in {SUPPORTED_HIDDEN}")
+    if not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"{kernel} kernel: hidden count {hidden} not in [1, {MAX_HIDDEN}] (the kernels' limit)")
     for name, (t, dtype, shape) in tensors.items():
         if t.device != device or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(

@@ -50,7 +50,8 @@ def force_vector(o_mat: torch.Tensor, htilda: torch.Tensor) -> tuple[torch.Tenso
     """F_i = <Etilde O_i*> - <Etilde><O_i>*; returns (F, aO)."""
     k = o_mat.shape[0]
     a_o = o_mat.mean(0)
-    f = (htilda @ o_mat.conj()) / k - htilda.mean() * a_o.conj()
+    # E @ conj(O) = conj(conj(E) @ O): conjugate vectors, never the (K, V) O
+    f = torch.conj_physical(torch.conj_physical(htilda) @ o_mat) / k - htilda.mean() * a_o.conj()
     return f, a_o
 
 
@@ -66,15 +67,17 @@ def sr_cg_solve(
     tol: float = 1e-5,
     max_iters: int = 1000,
 ) -> tuple[torch.Tensor, CGResult]:
-    """Matrix-free SR solve: never materializes S (O(KV), not O(V^2))."""
+    """Matrix-free SR solve: never materializes S (O(KV), not O(V^2)), nor
+    conj(O): O^H u is formed as conj(conj(u) @ O), which conjugates two
+    vectors (physically, so that no conjugate bit reaches the product)
+    instead of the (K, V) matrix on every matvec."""
     k = o_mat.shape[0]
     f, a_o = force_vector(o_mat, htilda)
     diag = sr_diag(o_mat, a_o)
-    o_h = o_mat.conj().T
     a_o_c = a_o.conj()
 
     def matvec(a: torch.Tensor) -> torch.Tensor:
-        b = (o_h @ (o_mat @ a)) * (1.0 / k)  # O^H O a / K
+        b = torch.conj_physical(torch.conj_physical(o_mat @ a) @ o_mat) * (1.0 / k)  # O^H O a / K
         b = b - a_o_c * (a_o @ a)
         return b + (lam * diag) * a
 

@@ -10,8 +10,10 @@ len(schedule) proposal rounds, each:
 ``sweeps`` runs each sweep through ``ops.sweep.metropolis_sweeps``: one
 launch of the sweep kernel for walkers on the card, the plain PyTorch
 version for walkers on the CPU. Each sweep draws its own (n_sites, K)
-block of acceptance uniforms from the state's generator, so memory does
-not grow with the number of sweeps.
+block of acceptance uniforms from the state's generator, and with
+n_beta > 1 (parallel tempering, ``sampler/tempering.py``) then a (1, 2, K)
+block for its two swap phases, so memory does not grow with the number of
+sweeps.
 """
 
 from __future__ import annotations
@@ -42,14 +44,16 @@ def init_state(work: Work, spins: torch.Tensor, generator: torch.Generator) -> M
     return MCState(cache=cache, lnpsi=lnpsi, generator=generator, n_accepted=zero, n_proposed=zero.clone())
 
 
-def sweeps(work: Work, state: MCState, schedule: torch.Tensor, n_sweeps: int) -> MCState:
+def sweeps(work: Work, state: MCState, schedule: torch.Tensor, n_sweeps: int, n_beta: int = 1) -> MCState:
     """Run ``n_sweeps`` full sweeps over the site schedule, one
-    ``metropolis_sweeps`` call (one kernel launch on the card) per sweep."""
+    ``metropolis_sweeps`` call (one kernel launch on the card) per sweep;
+    with n_beta > 1 each sweep ends with its replica-exchange phases."""
     k, n_rounds = state.lnpsi.shape[0], schedule.shape[0]
     cache, lnpsi, n_acc = state.cache, state.lnpsi, state.n_accepted
     for _ in range(n_sweeps):
         uniforms = uniform_block(state.generator, (n_rounds, k), cache.spins.dtype)
-        cache, lnpsi, acc = metropolis_sweeps(work, cache, lnpsi, schedule, uniforms)
+        swaps = uniform_block(state.generator, (1, 2, k), cache.spins.dtype) if n_beta > 1 else None
+        cache, lnpsi, acc = metropolis_sweeps(work, cache, lnpsi, schedule, uniforms, n_beta, swaps)
         n_acc = n_acc + acc
     return MCState(
         cache=cache,

@@ -8,15 +8,18 @@ One SR iteration:
 with the lambda schedule, the ||dx|| trust region, the NaN and
 zero-variance guards and the RSD early stop. The iteration runs eagerly as
 a Python loop. The sampler is chosen once, from the Hamiltonian's
-``sampler_kind``: single-site Metropolis sweeps over its schedule, or
+``sampler_kind`` and ``n_beta``: single-site Metropolis sweeps over its
+schedule, the same with replica exchange for n_beta > 1 (parallel
+tempering; the estimators read the beta = 1 replicas ``[::n_beta]``), or
 Kawasaki pair-exchange sweeps over its bonds (the Hubbard chain). On the
 card each sweep is one launch of the sweep or the exchange kernel and the
 spin chains' off-diagonal local energy one launch of the energy kernel
 (float32 only: another machine dtype on the card raises); on the CPU all of
-them run as plain PyTorch.
+them run as plain PyTorch. A run whose walkers collapse escalates to
+tempering, or reseeds, as in the JAX package.
 
 Options of the JAX package's VMCConfig that this package does not
-implement yet (tempering, meshes, other solvers, ...) raise
+implement yet (tempered exchange, meshes, other solvers, ...) raise
 NotImplementedError; none is ignored.
 """
 
@@ -35,8 +38,9 @@ from neural_network_quantum_state_tpu_torch.models.base import Machine, Params
 from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache
 from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
+from neural_network_quantum_state_tpu_torch.ops.sweep import MAX_NBETA
 from neural_network_quantum_state_tpu_torch.optim.sr import SRStats, energy_and_rsd, lambda_schedule, sr_cg_solve
-from neural_network_quantum_state_tpu_torch.sampler import kawasaki, metropolis
+from neural_network_quantum_state_tpu_torch.sampler import kawasaki, metropolis, tempering
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +55,13 @@ class VMCConfig:
     cg_tol: float = 1e-5
     cg_max_iters: int = 1000
     rsd_cutoff: Optional[float] = None  # early stop
-    n_beta: int = 1  # >1: parallel tempering (not implemented)
+    n_beta: int = 1  # >1: parallel tempering (flip Hamiltonians; at most 16 on the card)
     # Trust region on ||S^-1 F||: near-singular solves on a collapsed walker
     # distribution emit huge steps that can pin the sampler. None disables.
     max_dx_norm: Optional[float] = 1.0
-    # Each step is one iteration of run()'s Python loop whatever this says;
-    # the RSD early stop is checked after every step.
+    # run() takes chunks of this many steps before it checks the NaN, RSD
+    # and collapse stops and measures acceptance, as the JAX package does
+    # (its chunk is one device call); the last partial chunk runs step by step.
     steps_per_host_loop: int = 1
     # Parity with the JAX package: requires a float32 machine. It selects no
     # sampler (the card always runs the sweep or the exchange kernel), but,
@@ -69,10 +74,11 @@ class VMCConfig:
     # for an f32 CG solve at V >= LARGE_V_THRESHOLD.
     solve_dtype: Optional[Any] = None
     energy_dtype: Optional[Any] = None  # not implemented
-    # Collapse remediation: rsd pinned at zero for collapse_patience steps.
-    # Escalation to tempering is not implemented and raises when due; the
-    # reseed path (collapse_escalate_nbeta = 1 or < 0, or a walker count no
-    # ladder divides) is.
+    # Collapse remediation: rsd pinned at zero for collapse_patience steps
+    # escalates to parallel tempering with collapse_escalate_nbeta replicas
+    # (0: tuned from measured swap acceptance) or, where no ladder applies
+    # (1 or < 0, a walker count no ladder divides, already tempered),
+    # reseeds a fraction of the walkers.
     auto_remediate: bool = True
     collapse_patience: int = 3
     collapse_escalate_nbeta: int = 4
@@ -83,7 +89,7 @@ class VMCConfig:
 
 
 LARGE_V_THRESHOLD = 500
-_NBETA_CANDIDATES = (2, 4, 6, 8, 12, 16)
+_NBETA_CANDIDATES = (2, 4, 6, 8, 12, 16)  # all within the kernel's MAX_NBETA
 # Below any honest Monte-Carlo relative standard deviation: rsd this small
 # only happens when every walker is pinned on one configuration.
 _COLLAPSE_RSD = 1e-12
@@ -93,8 +99,6 @@ def _not_implemented(config: VMCConfig) -> list[str]:
     bad = []
     if config.solver != "cg":
         bad.append(f"solver={config.solver!r} (only 'cg')")
-    if config.n_beta != 1:
-        bad.append(f"n_beta={config.n_beta} (parallel tempering)")
     if config.energy_dtype is not None:
         bad.append(f"energy_dtype={config.energy_dtype!r}")
     if config.precond_ema != 0.0:
@@ -117,7 +121,19 @@ class VMC:
             raise ValueError("machine.n_inputs != hamiltonian.n_sites")
         if mesh is not None:
             raise NotImplementedError("VMC(mesh=...): multi-device walker sharding is not ported yet")
+        if config.n_beta > 1 and config.n_walkers % config.n_beta != 0:
+            raise ValueError("n_walkers must be a multiple of n_beta")
         exchange = hamiltonian.sampler_kind == "exchange"
+        if exchange and config.n_beta > 1:
+            if config.use_fused_sweeps:
+                raise ValueError(
+                    "use_fused_sweeps does not implement tempered exchange; "
+                    "set use_fused_sweeps=False with n_beta > 1"
+                )
+            raise NotImplementedError(
+                "n_beta > 1 with an exchange Hamiltonian: tempered exchange "
+                "(kawasaki.tempered_exchange_sweeps) is not ported yet"
+            )
         if exchange and config.block_moves_per_sweep > 0:
             raise ValueError(
                 "block_moves_per_sweep breaks particle conservation - "
@@ -133,6 +149,8 @@ class VMC:
         device = torch.device(device)
         if device.type != "cpu" and machine.dtype != torch.float32:
             raise NotImplementedError(f"{machine.dtype} on {device}: only float32 kernels are ported (use device='cpu')")
+        if device.type != "cpu" and config.n_beta > MAX_NBETA:
+            raise ValueError(f"n_beta={config.n_beta} on {device}: the sweep kernel's ladder takes at most {MAX_NBETA}")
         if config.solve_dtype not in (None, torch.float32, torch.float64):
             raise ValueError(f"solve_dtype must be None, torch.float32 or torch.float64, got {config.solve_dtype!r}")
         if machine.n_vars >= LARGE_V_THRESHOLD and machine.dtype == torch.float32 and config.solve_dtype is None:
@@ -147,6 +165,8 @@ class VMC:
             self.bonds = torch.as_tensor(hamiltonian.bonds, dtype=torch.int32, device=device)
             n_unit = hamiltonian.n_unit_steps
             self._sweep = lambda work, state, n: kawasaki.exchange_sweeps(work, state, self.bonds, n, n_unit)
+        elif config.n_beta > 1:
+            self._sweep = lambda work, state, n: tempering.tempering_sweeps(work, state, self.schedule, n, config.n_beta)
         else:
             self._sweep = lambda work, state, n: metropolis.sweeps(work, state, self.schedule, n)
         self._solve_cdtype = complex_dtype(config.solve_dtype or machine.dtype)
@@ -192,20 +212,44 @@ class VMC:
     def step(self, params: Params, state: metropolis.MCState, step_idx: int):
         """One SR iteration; returns (params, state, stats)."""
         state = self._sweep(self.machine.make_work(params), state, self.config.n_sweeps_per_step)
-        params, stats = self.sr_update(params, state.cache, state.lnpsi, step_idx)
+        cache, lnpsi, nb = state.cache, state.lnpsi, self.config.n_beta
+        if nb > 1:
+            # the estimators read the beta = 1 replicas (replica-minor rows
+            # [::n_beta]), copied contiguous for the kernels
+            cache = Cache(*(x[::nb].contiguous() for x in cache))
+            lnpsi = lnpsi[::nb].contiguous()
+        params, stats = self.sr_update(params, cache, lnpsi, step_idx)
         cache, lnpsi = engine.full_forward(self.machine.make_work(params), state.cache.spins)
         return params, state._replace(cache=cache, lnpsi=lnpsi), stats
 
     # ------------------------------------------------------------------
     def _can_escalate(self) -> bool:
         cfg = self.config
-        if cfg.collapse_escalate_nbeta < 0 or cfg.collapse_escalate_nbeta == 1:
-            return False
+        if cfg.n_beta > 1 or cfg.collapse_escalate_nbeta < 0 or cfg.collapse_escalate_nbeta == 1:
+            return False  # already tempered / escalation disabled
         if self.hamiltonian.sampler_kind == "exchange" and cfg.use_fused_sweeps:
             return False  # the exchange kernel has no tempered ladder: reseed in the sector
         if cfg.collapse_escalate_nbeta == 0:
             return any(cfg.n_walkers % nb == 0 for nb in _NBETA_CANDIDATES)
         return cfg.n_walkers % cfg.collapse_escalate_nbeta == 0
+
+    def _resolve_escalation_nbeta(self, params: Params, state: metropolis.MCState) -> int:
+        """collapse_escalate_nbeta, or - when 0 - the measured-acceptance
+        choice of tempering.tune_n_beta on the live, collapsed ensemble."""
+        cfg = self.config
+        if cfg.collapse_escalate_nbeta > 1:
+            return cfg.collapse_escalate_nbeta
+        if self.hamiltonian.sampler_kind == "exchange":
+            raise NotImplementedError(
+                "collapse_escalate_nbeta=0 with an exchange Hamiltonian: the tempered-exchange "
+                "probe (kawasaki.tune_n_beta_exchange) is not ported yet"
+            )
+        nb, diags = tempering.tune_n_beta(self.machine.make_work(params), state, self.schedule, candidates=_NBETA_CANDIDATES)
+        for cand, d in diags.items():
+            print(f"#   n_beta={cand}: swap/pair = "
+                  + "/".join(f"{a:.2f}" for a in d["swap"])
+                  + "  flip/replica = " + "/".join(f"{a:.2f}" for a in d["flip"]))
+        return nb
 
     def _reseed_state(self, params: Params, state: metropolis.MCState) -> metropolis.MCState:
         """Replace collapse_reseed_frac of the walkers with fresh random
@@ -225,46 +269,84 @@ class VMC:
         n_iterations: int,
         callback: Optional[Callable[[int, SRStats], None]] = None,
         verbose: bool = False,
+        checkpoint_fn: Optional[Callable[[int, Params, metropolis.MCState], None]] = None,
+        checkpoint_every: int = 100,
         start_step: int = 0,
     ):
         """Optimization loop with RSD early stop, NaN stop and collapse
-        remediation; returns (params, state, history, elapsed_seconds)."""
+        remediation; returns (params, state, history, elapsed_seconds).
+
+        As in the JAX package: with steps_per_host_loop = m > 1 whole chunks
+        of m steps run before the stops are checked (so a stop inside a
+        chunk ends the history there, with the chunk's later steps already
+        taken), acceptance is measured per chunk, and checkpoint_fn(step,
+        params, state) is called after a chunk that crosses a multiple of
+        checkpoint_every. start_step offsets the lambda schedule, the
+        history and the checkpoints for a resumed run. A collapsed run
+        (rsd pinned at zero for collapse_patience steps) escalates to
+        parallel tempering with the remaining iterations, or reseeds."""
         cfg = self.config
         history = []
         t0 = time.perf_counter()
+        m = cfg.steps_per_host_loop
+        n = 0
+        stop = False
         prev_acc, prev_prop = 0.0, 0.0
         collapse_run = 0
-        for n in range(n_iterations):
-            step = start_step + n
-            params, state, stats = self.step(params, state, step)
+        while n < n_iterations and not stop:
+            chunk = []
+            for i in range(m if m > 1 and n + m <= n_iterations else 1):
+                params, state, stats = self.step(params, state, start_step + n + i)
+                chunk.append(stats)
             na, np_ = float(state.n_accepted), float(state.n_proposed)
             acc = (na - prev_acc) / max(np_ - prev_prop, 1.0)
             prev_acc, prev_prop = na, np_
-            e_re, rsd = float(stats.energy.real), float(stats.rsd)
-            history.append({"step": step, "energy": e_re, "rsd": rsd, "cg_iters": stats.cg_iters, "acceptance": acc})
-            if callback is not None:
-                callback(step, stats)
-            if verbose:
-                print(f"{step + 1:5d}  {e_re:+.7f}  rsd={rsd:.3e}  cg={stats.cg_iters}")
-            if not math.isfinite(e_re):
-                print('# "Havg" has non-value type. We stop here.')
-                break
-            collapsed = rsd < _COLLAPSE_RSD
-            collapse_run = collapse_run + 1 if collapsed else 0
-            if cfg.rsd_cutoff is not None and rsd < cfg.rsd_cutoff and not (collapsed and cfg.auto_remediate):
+            if checkpoint_fn is not None and (start_step + n + len(chunk)) // checkpoint_every > (start_step + n) // checkpoint_every:
+                checkpoint_fn(start_step + n + len(chunk), params, state)
+            for stats in chunk:
+                e_re, rsd = float(stats.energy.real), float(stats.rsd)
+                step = start_step + n
+                history.append({"step": step, "energy": e_re, "rsd": rsd, "cg_iters": stats.cg_iters, "acceptance": acc})
+                if callback is not None:
+                    callback(step, stats)
                 if verbose:
-                    print("# We got a converged solution.")
-                break
-            if cfg.auto_remediate and collapse_run >= cfg.collapse_patience and n + 1 < n_iterations:
+                    print(f"{step + 1:5d}  {e_re:+.7f}  rsd={rsd:.3e}  cg={stats.cg_iters}")
+                n += 1
+                if not math.isfinite(e_re):
+                    print('# "Havg" has non-value type. We stop here.')
+                    stop = True
+                    break
+                collapsed = rsd < _COLLAPSE_RSD
+                collapse_run = collapse_run + 1 if collapsed else 0
+                if cfg.rsd_cutoff is not None and rsd < cfg.rsd_cutoff and not (collapsed and cfg.auto_remediate):
+                    if verbose:
+                        print("# We got a converged solution.")
+                    stop = True
+                    break
+            if not stop and cfg.auto_remediate and collapse_run >= cfg.collapse_patience and n < n_iterations:
                 collapse_run = 0
                 self.n_remediations += 1
                 if self._can_escalate():
-                    raise NotImplementedError(
-                        f"walker collapse at step {step + 1}: escalation to parallel tempering "
-                        "is not ported yet (set collapse_escalate_nbeta=1 to reseed instead)"
+                    esc_nbeta = self._resolve_escalation_nbeta(params, state)
+                    print(
+                        f"# walker collapse at step {start_step + n}: escalating to "
+                        f"parallel tempering (n_beta={esc_nbeta}"
+                        + (", auto-tuned from swap acceptance)" if cfg.collapse_escalate_nbeta == 0 else ")")
                     )
+                    esc = VMC(self.machine, self.hamiltonian, dataclasses.replace(cfg, n_beta=esc_nbeta), device=self.device)
+                    esc.n_remediations = self.n_remediations
+                    # the walkers become replica-minor groups (betas by
+                    # position); their caches are consistent as they are
+                    p2, s2, hist2, _ = esc.run(
+                        params, state, n_iterations - n,
+                        callback=callback, verbose=verbose,
+                        checkpoint_fn=checkpoint_fn, checkpoint_every=checkpoint_every,
+                        start_step=start_step + n,
+                    )
+                    self.n_remediations = esc.n_remediations
+                    return p2, s2, history + hist2, time.perf_counter() - t0
                 print(
-                    f"# walker collapse at step {step + 1}: reseeding "
+                    f"# walker collapse at step {start_step + n}: reseeding "
                     f"{cfg.collapse_reseed_frac:.0%} of walkers + "
                     f"{cfg.collapse_requil_sweeps} re-equilibration sweeps"
                 )

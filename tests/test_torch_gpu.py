@@ -12,11 +12,12 @@ import pytest
 import torch
 
 from neural_network_quantum_state_tpu_torch import VMC, VMCConfig
-from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain
+from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain, TFIChain
 from neural_network_quantum_state_tpu_torch.models import RBM, RBMTrSymm
 from neural_network_quantum_state_tpu_torch.ops import energy, engine
 from neural_network_quantum_state_tpu_torch.ops import exchange as exchange_ops
 from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
+from neural_network_quantum_state_tpu_torch.ops import sweep_energy
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
 from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard
@@ -186,15 +187,15 @@ def test_off_cpu_tensors_never_run_the_plain_exchange():
 
 @pytest.mark.gpu
 def test_exchange_kernel_refuses_what_it_does_not_take(cuda):
-    """On the card: float64 is not ported, a hidden count outside the
-    built set and more bonds than sites raise before any launch."""
+    """On the card: float64 is not ported, a hidden count above the
+    kernels' 512 and more bonds than sites raise before any launch."""
     l, k = 4, 64
     ham = HubbardChain(n_sites=2 * l, n_up=2, n_down=2)
     bonds = torch.as_tensor(ham.bonds, device=cuda)
     launches = exchange_ops.exchange_cuda.launches
     for dtype, h, b, err in (
         (torch.float64, 32, bonds, NotImplementedError),
-        (torch.float32, 48, bonds, ValueError),
+        (torch.float32, 513, bonds, ValueError),
         (torch.float32, 32, torch.cat([bonds, bonds]), ValueError),
     ):
         tm = RBM(n_inputs=2 * l, n_hiddens=h, dtype=dtype)
@@ -205,3 +206,132 @@ def test_exchange_kernel_refuses_what_it_does_not_take(cuda):
         with pytest.raises(err):
             exchange_ops.exchange_steps(work, cache, ln, b, u, u)
     assert exchange_ops.exchange_cuda.launches == launches
+
+
+def _scaled_rbm(cuda, n, h, k, seed, scale=5.0):
+    """An RBM of width h with weights scaled so that |y| ~ 0.5, random
+    spins, and its cache on the card."""
+    tm = RBM(n_inputs=n, n_hiddens=h, dtype=torch.float32)
+    g = make_generator(seed, cuda)
+    work = tm.make_work({name: scale * v for name, v in tm.init_params(g).items()})
+    cache, ln = engine.full_forward(work, torch.where(torch.rand((k, n), generator=g, device=cuda) < 0.5, -1.0, 1.0))
+    return work, cache, ln, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_beta, kb", [(2, 61), (6, 41), (16, 20)])
+def test_tempered_sweep_kernel_matches_plain_on_card(cuda, n_beta, kb):
+    """In-kernel replica exchange vs the plain tempered sweep on the same
+    flip and swap uniforms, three sweeps, H=48 (a masked tail), blocks of
+    whole replica groups (n_beta=2: a partial last block of idle warps):
+    the same decisions except at rare near-ties, y and ln psi equal where
+    they agree, the same swaps, y consistent with the spins."""
+    n, h, n_sweeps = 16, 48, 3
+    k = n_beta * kb
+    work, cache, ln, g = _scaled_rbm(cuda, n, h, k, 7 + n_beta)
+    sched = torch.as_tensor(chain_checkerboard(n))
+    u = torch.rand((n_sweeps * n, k), generator=g, device=cuda)
+    us = torch.rand((n_sweeps, 2, k), generator=g, device=cuda)
+    launches = sweep_ops.sweep_cuda.launches
+    ck, lk, rows_k = sweep_ops.metropolis_sweeps(work, cache, ln, sched, u, n_beta, us, rows=True)
+    cp, lp, rows_p = sweep_ops.sweep_plain(work, cache, ln, sched, u, n_beta, us, rows=True)
+    assert sweep_ops.sweep_cuda.launches == launches + 1
+    same = (ck.spins == cp.spins).all(dim=1)
+    assert float(same.double().mean()) >= 1.0 - 1e-2
+    torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=1e-5)
+    torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=1e-4)
+    if bool(same.all()):
+        assert torch.equal(rows_k, rows_p)
+    assert 0 < float(rows_k[1].sum()) < n_sweeps * kb * (n_beta - 1)
+    fresh, _ = engine.full_forward(work, ck.spins)
+    torch.testing.assert_close(ck.y, fresh.y, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_beta", [1, 8])
+def test_megakernel_matches_two_kernels_and_plain_on_card(cuda, n_beta):
+    """The megakernel on the uniforms of the sweep kernel + energy kernel
+    takes the same decisions (it runs their arithmetic) and forms the same
+    sums; against the plain version, the same decisions but at near-ties
+    and sums within 1e-5 relative where they agree."""
+    n, h, k = 32, 64, 8 * 64
+    work, cache, ln, g = _scaled_rbm(cuda, n, h, k, 21)
+    sched = torch.as_tensor(chain_checkerboard(n))
+    u = torch.rand((2 * n, k), generator=g, device=cuda)
+    us = torch.rand((2, 2, k), generator=g, device=cuda) if n_beta > 1 else None
+    launches = sweep_energy.sweeps_offdiag_cuda.launches
+    cm, lm, am, om = sweep_energy.sweeps_offdiag(work, cache, ln, sched, u, n_beta, us)
+    assert sweep_energy.sweeps_offdiag_cuda.launches == launches + 1
+    c2, l2, a2 = sweep_ops.sweep_cuda(work, cache, sched, u, n_beta, us)
+    o2 = energy.offdiag_sum_cuda(work, c2)
+    assert torch.equal(cm.spins, c2.spins) and float(am) == float(a2)
+    torch.testing.assert_close(cm.y, c2.y, rtol=0, atol=1e-6)
+    assert float((om - o2).abs().max() / o2.abs().max()) < 1e-6
+    cp, lp, ap, op = sweep_energy.sweeps_offdiag_plain(work, cache, ln, sched, u, n_beta, us)
+    same = (cm.spins == cp.spins).all(dim=1)
+    assert float(same.double().mean()) >= 1.0 - 1e-2
+    assert float((om[same] - op[same]).abs().max() / op[same].abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [16, 80, 384])
+def test_kernels_match_plain_at_any_hidden_width(cuda, h):
+    """Every kernel at a width that is not a multiple of 32 or above 256:
+    sweep (n_beta = 1 and 4), energy, megakernel and exchange against their
+    plain versions on the same inputs."""
+    n, k = 16, 256
+    work, cache, ln, g = _scaled_rbm(cuda, n, h, k, h)
+    sched = torch.as_tensor(chain_checkerboard(n))
+    u = torch.rand((2 * n, k), generator=g, device=cuda)
+    us = torch.rand((2, 2, k), generator=g, device=cuda)
+    for nb in (1, 4):
+        ck, lk, _ = sweep_ops.sweep_cuda(work, cache, sched, u, nb, us if nb > 1 else None)
+        cp, lp, _ = sweep_ops.sweep_plain(work, cache, ln, sched, u, nb, us if nb > 1 else None)
+        same = (ck.spins == cp.spins).all(dim=1)
+        assert float(same.double().mean()) >= 1.0 - 2e-2, (h, nb)
+        torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=2e-5)
+        torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
+    got, want = energy.offdiag_sum_cuda(work, cache), energy.offdiag_sum_plain(work, cache, ln)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+    cm, _, _, om = sweep_energy.sweeps_offdiag_cuda(work, cache, sched, u)
+    cp, _, _, op = sweep_energy.sweeps_offdiag_plain(work, cache, ln, sched, u)
+    same = (cm.spins == cp.spins).all(dim=1)
+    assert float(same.double().mean()) >= 1.0 - 2e-2
+    assert float((om[same] - op[same]).abs().max() / op[same].abs().max()) < 1e-5
+
+    ham = HubbardChain(n_sites=n, n_up=3, n_down=3)
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    hcache, hln = engine.full_forward(work, ham.init_spins(g, k))
+    u_sel, u_acc = torch.rand((2 * n, k), generator=g, device=cuda), torch.rand((2 * n, k), generator=g, device=cuda)
+    xk, xlk, _ = exchange_ops.exchange_cuda(work, hcache, bonds, u_sel, u_acc)
+    xp, xlp, _ = exchange_ops.exchange_plain(work, hcache, hln, bonds, u_sel, u_acc)
+    same = (xk.spins == xp.spins).all(dim=1)
+    assert float(same.double().mean()) >= 1.0 - 2e-2
+    torch.testing.assert_close(xk.y[same], xp.y[same], rtol=0, atol=2e-5)
+    torch.testing.assert_close(xlk[same], xlp[same], rtol=0, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_tempered_vmc_runs_through_the_kernels_on_card(cuda):
+    """Tempered training on the card at the e2e oracle's H=16 (TFI, N=8):
+    one sweep launch per sweep (the swap phases inside it), one energy
+    launch per step on the beta = 1 replicas, no plain version."""
+    n, nb = 8, 4
+    vmc = VMC(
+        RBM(n_inputs=n, n_hiddens=16, dtype=torch.float32),
+        TFIChain(n_sites=n, h=-1.0, j=-1.0),
+        VMCConfig(n_walkers=512, learning_rate=1e-2, n_beta=nb, seed=17),
+        device=cuda,
+    )
+    sweeps0, energy0 = sweep_ops.sweep_cuda.launches, energy.offdiag_sum_cuda.launches
+    plain0 = sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls
+    params, state = vmc.init()
+    state = vmc.warm_up(params, state, 30)
+    params, state, history, _ = vmc.run(params, state, 20)
+    assert len(history) == 20 and all(np.isfinite(r["energy"]) for r in history)
+    assert sweep_ops.sweep_cuda.launches == sweeps0 + 30 + 20
+    assert energy.offdiag_sum_cuda.launches == energy0 + 20
+    assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain0
+    assert all(0.0 < r["acceptance"] < 1.0 for r in history)
+    fresh, _ = engine.full_forward(vmc.machine.make_work(params), state.cache.spins)
+    torch.testing.assert_close(state.cache.y, fresh.y)

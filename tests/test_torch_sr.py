@@ -17,6 +17,7 @@ from neural_network_quantum_state_tpu_torch.hamiltonians import LITFIChain
 from neural_network_quantum_state_tpu_torch.models import RBMTrSymm, params_from_jax
 from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.optim import sr
+from neural_network_quantum_state_tpu_torch.optim.cg import cg_solve
 
 
 def _np(c):
@@ -68,6 +69,31 @@ def test_sr_cg_solve_matches_jax(lam, rng):
     x, res = sr.sr_cg_solve(_t(o), _t(e), lam, tol=1e-5, max_iters=30)
     assert res.iterations == int(jres.iterations)
     np.testing.assert_allclose(x.numpy(), _np(jx), rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("lam", [100.0, 1e-2])
+def test_sr_cg_solve_matches_the_conj_transpose_matvec(lam, rng):
+    """The solve forms O^H u as conj(conj(u) @ O) and F from conj(E) @ O,
+    never conj(O); it is held to the form that took O^H = O.conj().T
+    explicitly, in float64 at 1e-12, with the same iteration count."""
+    o, e = _o_and_e(rng, k=300, v=40)
+    o_t, e_t = _t(o), _t(e)
+    k = o_t.shape[0]
+    a_o = o_t.mean(0)
+    f = (e_t @ o_t.conj()) / k - e_t.mean() * a_o.conj()
+    diag = sr.sr_diag(o_t, a_o)
+    o_h = o_t.conj().T
+
+    def matvec(a):
+        return (o_h @ (o_t @ a)) / k - a_o.conj() * (a_o @ a) + (lam * diag) * a
+
+    floor = 1e-10 * diag.max() + torch.finfo(diag.dtype).tiny
+    inv_pdiag = 1.0 / ((1.0 + lam) * torch.maximum(diag, floor))
+    want = cg_solve(matvec, f, precond=lambda r: inv_pdiag * r, tol=1e-8, max_iters=40)
+    x, res = sr.sr_cg_solve(o_t, e_t, lam, tol=1e-8, max_iters=40)
+    assert res.iterations == want.iterations > 1
+    np.testing.assert_allclose(sr.force_vector(o_t, e_t)[0].numpy(), f.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(x.numpy(), want.x.numpy(), rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("step, max_dx_norm", [(0, 1.0), (60, 0.05)], ids=["lambda100", "lambda-min-trust-region"])

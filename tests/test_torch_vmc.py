@@ -9,7 +9,7 @@ import torch
 
 from neural_network_quantum_state_tpu.utils.exact import ground_energy, litfi_chain_dense
 from neural_network_quantum_state_tpu_torch import VMC, VMCConfig
-from neural_network_quantum_state_tpu_torch.hamiltonians import LITFIChain, TFIChain
+from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain, TFIChain
 from neural_network_quantum_state_tpu_torch.models import RBM, RBMTrSymm
 from neural_network_quantum_state_tpu_torch.optim import SRStats
 from neural_network_quantum_state_tpu_torch.ops import energy, engine
@@ -50,7 +50,7 @@ def test_litfi_chain_converges_to_exact(dtype):
     "change",
     [
         {"solver": "cholesky"},
-        {"n_beta": 4},
+        {"n_beta": 4, "hamiltonian": HubbardChain(n_sites=4, n_up=1, n_down=1)},
         {"energy_dtype": torch.float64},
         {"precond_ema": 0.9},
         {"block_moves_per_sweep": 1},
@@ -59,11 +59,49 @@ def test_litfi_chain_converges_to_exact(dtype):
     ids=["solver", "n_beta", "energy_dtype", "precond_ema", "block_moves", "mesh"],
 )
 def test_unported_options_raise(change):
+    """Options not ported raise. n_beta > 1 is ported for flip Hamiltonians
+    (test_tempered_vmc_runs_on_the_beta1_replicas); with an exchange
+    Hamiltonian (tempered exchange) it still raises."""
     machine = RBM(n_inputs=4, n_hiddens=4, dtype=torch.float64)
-    ham = TFIChain(n_sites=4)
+    ham = change.pop("hamiltonian", TFIChain(n_sites=4))
     mesh = change.pop("mesh", None)
     with pytest.raises(NotImplementedError):
         VMC(machine, ham, dataclasses.replace(VMCConfig(), **change), mesh=mesh, device="cpu")
+
+
+def test_tempered_vmc_runs_on_the_beta1_replicas(monkeypatch):
+    """n_beta > 1 builds a tempered sampler (one plain sweep call per sweep
+    on the CPU, swap phases inside it), and the estimators see only the
+    beta = 1 replicas [::n_beta], contiguous. A walker count that n_beta
+    does not divide, and n_beta above the kernel's ladder on the card, are
+    refused."""
+    n, k, nb = 6, 48, 4
+    vmc = VMC(RBM(n_inputs=n, n_hiddens=6, dtype=torch.float64), TFIChain(n_sites=n),
+              VMCConfig(n_walkers=k, n_beta=nb, seed=4), device="cpu")
+    params, state = vmc.init()
+    calls = sweep_ops.sweep_plain.calls
+    state = vmc.warm_up(params, state, 5)
+    assert sweep_ops.sweep_plain.calls == calls + 5
+    seen = []
+    sr_update = vmc.sr_update
+
+    def spy(params, cache, lnpsi, step_idx):
+        seen.append((cache.spins.clone(), cache.spins.is_contiguous() and lnpsi.is_contiguous()))
+        return sr_update(params, cache, lnpsi, step_idx)
+
+    monkeypatch.setattr(vmc, "sr_update", spy)
+    before = state.cache.spins.clone()
+    params, state, history, _ = vmc.run(params, state, 3)
+    assert len(history) == 3 and all(np.isfinite(h["energy"]) for h in history)
+    assert all(spins.shape == (k // nb, n) and contiguous for spins, contiguous in seen)
+    assert not torch.equal(before, state.cache.spins)
+    with pytest.raises(ValueError, match="multiple of n_beta"):
+        VMC(RBM(n_inputs=n, n_hiddens=6), TFIChain(n_sites=n), VMCConfig(n_walkers=50, n_beta=4), device="cpu")
+    with pytest.raises(ValueError, match="at most 16"):
+        VMC(RBM(n_inputs=n, n_hiddens=6), TFIChain(n_sites=n), VMCConfig(n_walkers=64, n_beta=32), device="cuda")
+    with pytest.raises(ValueError, match="use_fused_sweeps"):
+        VMC(RBM(n_inputs=4, n_hiddens=4), HubbardChain(n_sites=4, n_up=1, n_down=1),
+            VMCConfig(n_walkers=64, n_beta=4, use_fused_sweeps=True), device="cpu")
 
 
 def test_config_checks_and_large_v_default():
@@ -80,10 +118,12 @@ def test_config_checks_and_large_v_default():
     assert small.config.solve_dtype is None
 
 
-def test_collapse_reseeds_or_refuses_escalation():
+def test_collapse_reseeds_or_refuses_escalation(capsys):
     """rsd pinned at zero (walker collapse) reseeds half of the walkers when
-    no tempering ladder is asked for; the escalation to tempering, not
-    ported, raises instead of being skipped."""
+    no tempering ladder is asked for, and escalates to tempering with the
+    remaining iterations when one is; the escalation of an exchange
+    Hamiltonian to tempered exchange, not ported, raises instead of being
+    skipped."""
     n, k = 8, 64
     machine = RBMTrSymm(n_inputs=n, alpha=1, dtype=torch.float64)
     ham = LITFIChain(n_sites=n, h=-0.5, j=1.0, alpha=2.0)  # Neel start
@@ -106,5 +146,65 @@ def test_collapse_reseeds_or_refuses_escalation():
     vmc = VMC(machine, ham, cfg, device="cpu")
     vmc.step = collapsed_step
     params, state = vmc.init()
-    with pytest.raises(NotImplementedError, match="tempering"):
-        vmc.run(params, state, 4)
+    calls = sweep_ops.sweep_plain.calls
+    _, state, history, _ = vmc.run(params, state, 4)
+    assert "escalating to parallel tempering (n_beta=4)" in capsys.readouterr().out
+    assert vmc.n_remediations == 1 and [h["step"] for h in history] == [0, 1, 2, 3]
+    assert sweep_ops.sweep_plain.calls == calls + 2  # the two tempered steps, one sweep each
+    assert state.cache.spins.shape == (k, n) and all(np.isfinite(h["energy"]) for h in history)
+
+    hub = VMC(RBM(n_inputs=4, n_hiddens=4, dtype=torch.float64), HubbardChain(n_sites=4, n_up=1, n_down=1),
+              VMCConfig(n_walkers=k, seed=1, collapse_patience=2, collapse_requil_sweeps=0), device="cpu")
+    assert hub._can_escalate()
+    hub.step = collapsed_step
+    params, state = hub.init()
+    with pytest.raises(NotImplementedError, match="tempered exchange"):
+        hub.run(params, state, 4)
+
+
+@pytest.fixture(scope="module")
+def jax_chunked_vmc():
+    """The JAX package's VMC with steps_per_host_loop = 3 (one compiled
+    chunk shared by the cases below)."""
+    import jax.numpy as jnp
+
+    import neural_network_quantum_state_tpu as jnqs
+    from neural_network_quantum_state_tpu.hamiltonians import TFIChain as JTFIChain
+    from neural_network_quantum_state_tpu.models import RBM as JRBM
+
+    return jnqs.VMC(JRBM(n_inputs=4, n_hiddens=4, dtype=jnp.float64), JTFIChain(n_sites=4),
+                    jnqs.VMCConfig(n_walkers=32, steps_per_host_loop=3, seed=0))
+
+
+@pytest.mark.parametrize(
+    "n_iter, rsd_cutoff, every, start, steps, fired",
+    [
+        (7, None, 2, 0, list(range(7)), [3, 6]),
+        (7, 1e9, 2, 0, [0], [3]),
+        (7, None, 4, 5, list(range(5, 12)), [8, 12]),
+    ],
+    ids=["chunks-then-single", "rsd-stop-inside-chunk", "resumed"],
+)
+def test_chunked_run_stops_and_checkpoints_as_jax(jax_chunked_vmc, n_iter, rsd_cutoff, every, start, steps, fired):
+    """steps_per_host_loop = 3: whole chunks of 3 steps, then the last
+    partial chunk step by step; the stops are checked after a chunk (an
+    rsd_cutoff met at a chunk's first step ends the history there, with
+    the chunk's three steps taken); checkpoint_fn fires after a chunk that
+    crosses a multiple of checkpoint_every. The history's steps, the
+    checkpoint steps and the proposals made agree with the JAX package."""
+    def record(vmc):
+        params, state = vmc.init()
+        proposed0 = float(state.n_proposed)  # read before run() donates the JAX state
+        got = []
+        _, state, history, _ = vmc.run(params, state, n_iter, checkpoint_fn=lambda s, p, st: got.append(s),
+                                       checkpoint_every=every, start_step=start)
+        return [h["step"] for h in history], got, float(state.n_proposed) - proposed0
+
+    jvmc = jax_chunked_vmc
+    jvmc.config = dataclasses.replace(jvmc.config, rsd_cutoff=rsd_cutoff)
+    want = record(jvmc)
+    got = record(VMC(RBM(n_inputs=4, n_hiddens=4, dtype=torch.float64), TFIChain(n_sites=4),
+                     VMCConfig(n_walkers=32, steps_per_host_loop=3, rsd_cutoff=rsd_cutoff, seed=0), device="cpu"))
+    assert got == want
+    taken = 3 * (n_iter // 3) + n_iter % 3 if rsd_cutoff is None else 3
+    assert (got[0], got[1], got[2]) == (steps, fired, float(taken * 4 * 32))
