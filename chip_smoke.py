@@ -13,8 +13,12 @@ Phases, each printed with its seconds:
    sweep + energy megakernel at that shape against the sweep kernel followed
    by the energy kernel on the same uniforms and against its plain version
    (n_beta = 1 and 8), the exchange kernel at the Hubbard flagship's N=64,
-   H=64, K=4096, B=64 (one sweep of 64 proposals); then all four kernels
-   at H = 16, 80 and 384 (widths off the multiples of 32, small K);
+   H=64, K=4096, B=64 (one sweep of 64 proposals); the instances with
+   output weights c (the FFNN family) of the sweep (n_beta = 1 and 8) and
+   energy kernels with a plain FFNN(64, 256) at that shape and of the
+   exchange kernel with FFNN(64, 64); the sweep and energy kernels without
+   a visible bias (RBMSfSymm, alpha = 4); then every kernel and instance at
+   H = 16, 80 and 384 (widths off the multiples of 32, small K);
 4. drive the LITFI flagship through the user's entry points (VMC.init,
    warm_up, run) and check that it ran through the sweep and energy
    kernels, never through a plain version, with finite energies;
@@ -26,11 +30,19 @@ Phases, each printed with its seconds:
    replicas, the collapse escalation's default) the same way: every sweep
    through the sweep kernel with its ladder, the energy kernel on the
    beta = 1 replicas, no plain version, finite energies;
-7. the megakernel A/B (``megakernel_ab``, n_beta = 1 and 8): its
+7. drive the FFNN flagship (FFNNTrSymm(64, alpha=4) on the LITFI chain,
+   100 warm-up sweeps, 20 SR steps) the same way: every sweep and every
+   energy through the kernels' instances with c, no plain version;
+8. drive FFNN(64, 64) on the Hubbard flagship's trap chain (200 warm-up
+   sweeps, 5 SR steps): every sweep through the exchange kernel's instance
+   with c, the particle sectors kept;
+9. the megakernel A/B (``megakernel_ab``, n_beta = 1 and 8): its
    cross-check and the time of each arm;
-8. the device time of each kernel on phase 3's inputs (torch.profiler);
-9. profile 5 more LITFI SR steps, then 10. 5 more Hubbard SR steps.
-The profiler runs only after the timed phases 4 to 7, so that it cannot
+10. the device time of each kernel and instance on phase 3's inputs
+   (torch.profiler);
+11. profile 5 more LITFI SR steps, 12. 5 more Hubbard SR steps, 13. 5 more
+   FFNN flagship SR steps.
+The profiler runs only after the timed phases 4 to 9, so that it cannot
 disturb their times.
 
 Then one JSON line with the kernels' numbers, the card's name and power
@@ -59,9 +71,15 @@ SR_STEPS, WARM_SWEEPS = 20, 100
 # (V = 4224), two flavor rings (B = 64 bonds), 64 proposals per sweep.
 HUB_L, HUB_H, HUB_K, HUB_PARTICLES = 32, 64, 4096, 5
 HUB_WARM_SWEEPS, HUB_SR_STEPS, HUB_TRAP = 500, 20, 0.05
-# The init weights (~0.006) leave |y| ~ 0.05, where ln cosh is nearly
-# quadratic; the comparisons scale them so that |y| ~ 0.5.
+# The RBM family's init weights (~0.006) leave |y| ~ 0.05, where ln cosh is
+# nearly quadratic; the comparisons scale them so that |y| ~ 0.5. The FFNN
+# family's init already gives |Re y| ~ 0.5 but keeps the imaginary planes at
+# 0.1 of the real ones; the comparisons scale those planes alone, so that
+# both planes of y and of the output weights c are alike.
 PARAM_SCALE = 10.0
+# FFNN flagship: FFNNTrSymm(n_inputs=64, alpha=4) (H = 256, V = 264) on the
+# LITFI flagship's chain; FFNN(64, 64) (V = 4224) on the Hubbard trap chain.
+FFNN_HUB_H, FFNN_HUB_WARM_SWEEPS, FFNN_HUB_SR_STEPS = 64, 200, 5
 ENERGY_RTOL = 1e-5  # max|kernel - plain| / max|plain| over walkers
 SWEEP_MISMATCH_MAX = 1e-3  # share of walkers whose decisions differ (near-ties u ~ exp(2 dln))
 SWEEP_Y_ATOL = 1e-5  # y on walkers with identical decisions
@@ -80,10 +98,15 @@ PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 # cos, log and atan2 as one each: y' (4), |x| and exp (3), sin/cos (2),
 # 1+-e (2), the planes (2-3), |.|^2 (3), log and scaling (4), sum (1-4).
 SWEEP_OPS, ENERGY_OPS = 20, 25
+# With output weights c: the atan2 of the second plane and the two products
+# of Re(c l) per (walker, proposal, hidden unit); the four products of the
+# complex rotation c (l' - l) per (walker, site, hidden unit).
+SWEEP_OPS_C, ENERGY_OPS_C = SWEEP_OPS + 3, ENERGY_OPS + 4
 # The exchange proposal: 22 per hidden unit (y' takes a second W row), and
 # 2 per bond for the active mask (a product and a compare); the count and
 # pick over the mask (a popcount per 32 bonds) are left out.
 EXCHANGE_OPS_HIDDEN, EXCHANGE_OPS_BOND = 22, 2
+EXCHANGE_OPS_HIDDEN_C = EXCHANGE_OPS_HIDDEN + 3  # as SWEEP_OPS_C
 # each wrapper's CUDA kernel, as the profiler names it
 KERNEL_NAMES = {"sweep": "sweep_kernel", "energy": "offdiag_kernel", "exchange": "exchange_kernel",
                 "sweep_energy": "sweep_energy_kernel"}
@@ -178,18 +201,20 @@ def _profile_steps(torch, vmc, params, state, step0: int, n_steps: int = 5) -> N
 
 
 def _ptxas_summary(lines) -> str:
-    """'<template arguments>:<registers>' per instantiation (the kernels'
-    one argument is R = ceil(H/32)), '+<n>B' where it spills."""
+    """'<template arguments>:<registers>' per instantiation (R = ceil(H/32),
+    then 'c' for the instance with output weights c), '+<n>B' where it spills."""
     out, key = [], None
     for line in lines:
-        m = re.search(r"_kernelI((?:Li\d+E)+)E", line)
+        m = re.search(r"_kernelI((?:L[ib]\d+E)+)E", line)
         if "Compiling entry function" in line and m:
-            key, spill = tuple(int(v) for v in re.findall(r"Li(\d+)E", m.group(1))), 0
+            args = re.findall(r"L([ib])(\d+)E", m.group(1))
+            key, spill = tuple(int(v) for t, v in args if t == "i") + tuple(int(v) for t, v in args if t == "b"), 0
         elif key is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif key is not None and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append((key, ",".join(map(str, key)) + f":{regs}" + (f"+{spill}B" if spill else "")))
+            name = f"{key[0]}c" if key[1:] == (1,) else str(key[0])
+            out.append((key, f"{name}:{regs}" + (f"+{spill}B" if spill else "")))
             key = None
     return " ".join(item for _, item in sorted(out)) or "(already built)"
 
@@ -199,17 +224,24 @@ def _require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def _compare(label, ck, lk, cp, lp, mismatch_max, y_atol, ln_atol, failures):
+def _compare(label, ck, lk, cp, lp, mismatch_max, y_atol, ln_atol, failures, cut=False):
     """Kernel vs plain states from the same inputs and uniforms: the share
-    of walkers with other decisions, and y and ln psi on the others.
+    of walkers with other decisions, and y and ln psi on the others. With
+    output weights c (cut=True) a walker whose final y has a hidden unit
+    near the principal log-cosh's branch cut in either state, where ln psi
+    may jump by 2 pi i c_j between them, counts with the other decisions.
     Appends to `failures`; returns (share, ln_err, mask of agreeing walkers)."""
+    from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
+
     differ = (ck.spins != cp.spins).any(dim=1)
-    share = float(differ.double().mean())
-    same = ~differ
+    near = (near_branch_cut(ck.y) | near_branch_cut(cp.y)) & ~differ if cut else differ.new_zeros(differ.shape)
+    same = ~(differ | near)
+    share = float((~same).double().mean())
     y_err = float((ck.y[same] - cp.y[same]).abs().max())
     ln_err = float((lk[same] - lp[same]).abs().max())
     k = differ.shape[0]
-    print(f"{label}: walkers with other decisions {int(differ.sum())}/{k} = {share:.2e} (max {mismatch_max:.0e}); "
+    print(f"{label}: walkers with other decisions {int(differ.sum())}" + (f" + near the cut {int(near.sum())}" if cut else "")
+          + f"/{k} = {share:.2e} (max {mismatch_max:.0e}); "
           f"on the others max|dy| {y_err:.3e} (tol {y_atol:.0e}), max|dlnpsi| {ln_err:.3e} (tol {ln_atol:.0e})")
     if share > mismatch_max:
         failures.append(f"{label}: decision mismatch share {share:.2e}")
@@ -246,9 +278,9 @@ def main() -> int:
 
     from neural_network_quantum_state_tpu_torch import VMC, VMCConfig, megakernel_ab
     from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain
-    from neural_network_quantum_state_tpu_torch.models import RBM, RBMTrSymm
+    from neural_network_quantum_state_tpu_torch.models import FFNN, FFNNTrSymm, RBM, RBMSfSymm, RBMTrSymm
     from neural_network_quantum_state_tpu_torch.ops import build, engine
-    from neural_network_quantum_state_tpu_torch.ops.energy import offdiag_sum_cuda, offdiag_sum_plain
+    from neural_network_quantum_state_tpu_torch.ops.energy import offdiag_near_cut, offdiag_sum_cuda, offdiag_sum_plain
     from neural_network_quantum_state_tpu_torch.ops.exchange import exchange_cuda, exchange_plain
     from neural_network_quantum_state_tpu_torch.ops.rng import make_generator, random_spins, uniform_block
     from neural_network_quantum_state_tpu_torch.ops.sweep import sweep_cuda, sweep_plain
@@ -289,14 +321,24 @@ def main() -> int:
     sched = torch.as_tensor(LITFIChain(n_sites=N).schedule())
     failures = []
 
-    e_kernel = offdiag_sum_cuda(work, cache)
-    e_plain = offdiag_sum_plain(work, cache, lnpsi)
-    torch.cuda.synchronize()
-    e_abs = float((e_kernel - e_plain).abs().max())
-    e_rel = e_abs / float(e_plain.abs().max())
-    print(f"energy: max|kernel-plain| {e_abs:.3e}, relative to max|plain| {e_rel:.3e} (tol {ENERGY_RTOL:.0e})")
-    if not (math.isfinite(e_rel) and e_rel <= ENERGY_RTOL):
-        failures.append(f"energy kernel vs plain: {e_rel:.3e} > {ENERGY_RTOL:.0e}")
+    def energy_vs_plain(label, w_, c_, ln_, tol, max_share):
+        """Kernel vs plain off-diagonal sums: max|difference| / max|plain|
+        over the walkers away from the branch cut (all of them without c),
+        whose share must stay under max_share. Returns (rel, abs, share)."""
+        near = offdiag_near_cut(w_, c_) if w_.c is not None else torch.zeros(c_.y.shape[0], dtype=torch.bool, device=dev)
+        got, want = offdiag_sum_cuda(w_, c_), offdiag_sum_plain(w_, c_, ln_)
+        far = ~near
+        e_abs_ = float((got[far] - want[far]).abs().max())
+        rel = e_abs_ / float(want[far].abs().max())
+        near_share = float(near.double().mean())
+        print(f"{label}: max|kernel-plain| {e_abs_:.3e}, relative to max|plain| {rel:.3e} (tol {tol:.0e})"
+              + (f" on the walkers away from the cut; near the cut {int(near.sum())}/{near.shape[0]} "
+                 f"(max share {max_share:.0e})" if w_.c is not None else ""))
+        if not (math.isfinite(rel) and rel <= tol and near_share <= max_share):
+            failures.append(f"{label}: relative error {rel:.3e}, near-cut share {near_share:.2e}")
+        return rel, e_abs_, near_share
+
+    e_rel, e_abs, _ = energy_vs_plain("energy", work, cache, lnpsi, ENERGY_RTOL, 0.0)
 
     u = uniform_block(g, (N, K))  # one sweep
     u_swap = uniform_block(g, (1, 2, K))  # its two swap phases, for the ladder
@@ -354,7 +396,42 @@ def main() -> int:
     if not x_sector:
         failures.append("exchange kernel: a walker left its particle sector")
 
-    # every kernel at widths off the multiples of 32
+    def ffnn_work(m):
+        return m.make_work({k: torch.complex(v.real, PARAM_SCALE * v.imag) for k, v in m.init_params(g).items()})
+
+    # the instances with output weights c: a plain FFNN, every c_j distinct
+    fwork = ffnn_work(FFNN(n_inputs=N, n_hiddens=h, dtype=torch.float32))
+    fcache, flnpsi = engine.full_forward(fwork, random_spins(g, K, N))
+    ec_rel, ec_abs, ec_near = energy_vs_plain("energy with c", fwork, fcache, flnpsi, ENERGY_RTOL, SWEEP_MISMATCH_MAX)
+    sweep_c = {}
+    for nb in (1, CHECK_NBETA):
+        us = u_swap if nb > 1 else None
+        ck, lk, acc_k = sweep_cuda(fwork, fcache, sched, u, nb, us)
+        cp, lp, acc_p = sweep_plain(fwork, fcache, flnpsi, sched, u, nb, us)
+        sweep_c[nb] = _compare(f"sweep with c n_beta={nb}", ck, lk, cp, lp, SWEEP_MISMATCH_MAX, SWEEP_Y_ATOL,
+                               SWEEP_LNPSI_ATOL, failures, cut=True)[:2]
+        print(f"sweep with c n_beta={nb}: flip acceptance kernel {float(acc_k) / (N * K):.4f}, plain {float(acc_p) / (N * K):.4f}")
+    hfwork = ffnn_work(FFNN(n_inputs=hn, n_hiddens=FFNN_HUB_H, dtype=torch.float32))
+    hfcache, hflnpsi = engine.full_forward(hfwork, hubbard.init_spins(g, HUB_K))
+    xk, xlk, xacc_k = exchange_cuda(hfwork, hfcache, bonds, u_sel, u_acc)
+    xp, xlp, xacc_p = exchange_plain(hfwork, hfcache, hflnpsi, bonds, u_sel, u_acc)
+    xc_share, xc_ln_err, _ = _compare("exchange with c", xk, xlk, xp, xlp, EXCHANGE_MISMATCH_MAX, EXCHANGE_Y_ATOL,
+                                      EXCHANGE_LNPSI_ATOL, failures, cut=True)
+    print(f"exchange with c: acceptance kernel {float(xacc_k) / (n_unit * HUB_K):.4f}, plain "
+          f"{float(xacc_p) / (n_unit * HUB_K):.4f}; sectors kept: {sector_ok(xk.spins)}")
+    if not sector_ok(xk.spins):
+        failures.append("exchange kernel with c: a walker left its particle sector")
+
+    # no visible bias (the kernels read zeros for a): RBMSfSymm, alpha = 4
+    smachine = RBMSfSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32)
+    swork = smachine.make_work({k: PARAM_SCALE * v for k, v in smachine.init_params(g).items()})
+    scache, slnpsi = engine.full_forward(swork, random_spins(g, K, N))
+    energy_vs_plain("energy without a", swork, scache, slnpsi, ENERGY_RTOL, 0.0)
+    ck, lk, _ = sweep_cuda(swork, scache, sched, u)
+    cp, lp, _ = sweep_plain(swork, scache, slnpsi, sched, u)
+    _compare("sweep without a", ck, lk, cp, lp, SWEEP_MISMATCH_MAX, SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL, failures)
+
+    # every kernel and instance at widths off the multiples of 32
     for wh in WIDTHS:
         wm = RBM(n_inputs=WIDTH_N, n_hiddens=wh)
         wwork = wm.make_work({k: PARAM_SCALE * v for k, v in wm.init_params(g).items()})
@@ -382,6 +459,20 @@ def main() -> int:
         print(f"H={wh}: energy relative error {w_rel:.3e}, sweep_energy offdiag {wm_rel:.3e} (tol {ENERGY_RTOL:.0e})")
         if not (w_rel <= ENERGY_RTOL and wm_rel <= ENERGY_RTOL):
             failures.append(f"H={wh}: energy {w_rel:.3e}, sweep_energy {wm_rel:.3e}")
+        # the instances with c at this width
+        wfwork = ffnn_work(FFNN(n_inputs=WIDTH_N, n_hiddens=wh, dtype=torch.float32))
+        wfcache, wfln = engine.full_forward(wfwork, random_spins(g, WIDTH_K, WIDTH_N))
+        for nb in (1, TEMPERED_NBETA):
+            wk, wlk, _ = sweep_cuda(wfwork, wfcache, wsched, wu, nb, wus if nb > 1 else None)
+            wp, wlp, _ = sweep_plain(wfwork, wfcache, wfln, wsched, wu, nb, wus if nb > 1 else None)
+            _compare(f"H={wh} sweep with c n_beta={nb}", wk, wlk, wp, wlp, WIDTH_MISMATCH_MAX, SWEEP_Y_ATOL,
+                     SWEEP_LNPSI_ATOL, failures, cut=True)
+        energy_vs_plain(f"H={wh} energy with c", wfwork, wfcache, wfln, ENERGY_RTOL, WIDTH_MISMATCH_MAX)
+        whc, whl = engine.full_forward(wfwork, wham.init_spins(g, WIDTH_K))
+        wk, wlk, _ = exchange_cuda(wfwork, whc, wb, ws, wa)
+        wp, wlp, _ = exchange_plain(wfwork, whc, whl, wb, ws, wa)
+        _compare(f"H={wh} exchange with c", wk, wlk, wp, wlp, WIDTH_MISMATCH_MAX, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL,
+                 failures, cut=True)
 
     calls = {  # (wrapper, plain version) on the same inputs at the main paths' shapes
         "sweep": (lambda: sweep_cuda(work, cache, sched, u), lambda: sweep_plain(work, cache, lnpsi, sched, u)),
@@ -390,10 +481,16 @@ def main() -> int:
                      lambda: exchange_plain(hwork, hcache, hlnpsi, bonds, u_sel, u_acc)),
         "sweep_energy": (lambda: sweeps_offdiag_cuda(work, cache, sched, u),
                          lambda: sweeps_offdiag_plain(work, cache, lnpsi, sched, u)),
+        # the instances with output weights c, on the FFNN inputs of the same shapes
+        "sweep_c": (lambda: sweep_cuda(fwork, fcache, sched, u), lambda: sweep_plain(fwork, fcache, flnpsi, sched, u)),
+        "energy_c": (lambda: offdiag_sum_cuda(fwork, fcache), lambda: offdiag_sum_plain(fwork, fcache, flnpsi)),
+        "exchange_c": (lambda: exchange_cuda(hfwork, hfcache, bonds, u_sel, u_acc),
+                       lambda: exchange_plain(hfwork, hfcache, hflnpsi, bonds, u_sel, u_acc)),
     }
     tempered_calls = {
         "sweep": lambda: sweep_cuda(work, cache, sched, u, CHECK_NBETA, u_swap),
         "sweep_energy": lambda: sweeps_offdiag_cuda(work, cache, sched, u, CHECK_NBETA, u_swap),
+        "sweep_c": lambda: sweep_cuda(fwork, fcache, sched, u, CHECK_NBETA, u_swap),
     }
     timing = {name: (_time_ms(torch, fn, 20), _time_ms(torch, plain, 2)) for name, (fn, plain) in calls.items()}
     tempered_ms = {name: _time_ms(torch, fn, 20) for name, fn in tempered_calls.items()}
@@ -408,6 +505,9 @@ def main() -> int:
     energy_bytes = K * h * c64 + K * N * f32b + N * h * c64 + N * c64 + K * c64
     sweep_bound = _bound_ms(K * N * h * SWEEP_OPS, sweep_bytes)
     energy_bound = _bound_ms(K * N * h * ENERGY_OPS, energy_bytes)
+    # the instances with c: their operations, and c read once
+    sweep_c_bound = _bound_ms(K * N * h * SWEEP_OPS_C, sweep_bytes + h * c64)
+    energy_c_bound = _bound_ms(K * N * h * ENERGY_OPS_C, energy_bytes + h * c64)
     # the megakernel: the two kernels' operations; its bytes are the sweep's
     # and the off-diagonal sum's output (the state is read and written once)
     sweep_energy_bound = _bound_ms(K * N * h * (SWEEP_OPS + ENERGY_OPS), sweep_bytes + K * c64)
@@ -416,6 +516,11 @@ def main() -> int:
         HUB_K * n_unit * (HUB_H * EXCHANGE_OPS_HIDDEN + nb * EXCHANGE_OPS_BOND),
         2 * HUB_K * HUB_H * c64 + 2 * HUB_K * hn * f32b + 2 * HUB_K * c64 + 2 * n_unit * HUB_K * f32b
         + hn * HUB_H * c64 + hn * c64 + 2 * nb * i32b + HUB_K * i32b,
+    )
+    exchange_c_bound = _bound_ms(
+        HUB_K * n_unit * (FFNN_HUB_H * EXCHANGE_OPS_HIDDEN_C + nb * EXCHANGE_OPS_BOND),
+        2 * HUB_K * FFNN_HUB_H * c64 + 2 * HUB_K * hn * f32b + 2 * HUB_K * c64 + 2 * n_unit * HUB_K * f32b
+        + hn * FFNN_HUB_H * c64 + hn * c64 + FFNN_HUB_H * c64 + 2 * nb * i32b + HUB_K * i32b,
     )
 
     def drive(label, make_vmc, n_warm, n_steps, drift_tol):
@@ -502,7 +607,40 @@ def main() -> int:
     _require(tuple(pt_state.cache.spins.shape) == (K, N), f"tempered state {tuple(pt_state.cache.spins.shape)}")
     path_launches["tempered LITFI"] = pt_launches
 
-    _enter("7 megakernel A/B", t0)
+    _enter("7 FFNN flagship SR steps", t0)
+    ffnn_vmc, ffnn_params, ffnn_state, _, ffnn_launches = drive(
+        "FFNN LITFI",
+        lambda: VMC(
+            FFNNTrSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32),
+            LITFIChain(n_sites=N, h=-0.5, j=0.866, alpha=2.5, pbc=True),
+            VMCConfig(n_walkers=K, learning_rate=1e-2, solver="cg", use_fused_sweeps=True, seed=3),
+        ),
+        WARM_SWEEPS, SR_STEPS, CACHE_ATOL,
+    )
+    _require(ffnn_launches == {"sweep": WARM_SWEEPS + SR_STEPS, "energy": SR_STEPS, "exchange": 0, "sweep_energy": 0},
+             f"FFNN launches {ffnn_launches}: expected one sweep launch per sweep and one energy launch per step")
+    path_launches["FFNN LITFI"] = ffnn_launches
+
+    _enter("8 FFNN Hubbard SR steps", t0)
+    _, _, fh_state, fh_warm, fh_launches = drive(
+        "FFNN Hubbard",
+        lambda: VMC(
+            FFNN(n_inputs=2 * HUB_L, n_hiddens=FFNN_HUB_H, dtype=torch.float32),
+            hubbard,
+            VMCConfig(n_walkers=HUB_K, learning_rate=1e-2, solver="cg", use_fused_sweeps=True, seed=11),
+        ),
+        FFNN_HUB_WARM_SWEEPS, FFNN_HUB_SR_STEPS, CACHE_ATOL,
+    )
+    _require(fh_launches == {"sweep": 0, "energy": 0, "exchange": FFNN_HUB_WARM_SWEEPS + FFNN_HUB_SR_STEPS,
+                             "sweep_energy": 0},
+             f"FFNN Hubbard launches {fh_launches}: expected one exchange launch per sweep and nothing else")
+    _require(sector_ok(fh_warm.cache.spins) and sector_ok(fh_state.cache.spins),
+             f"FFNN Hubbard: a walker left the {HUB_PARTICLES}+{HUB_PARTICLES} sector")
+    print(f"FFNN Hubbard: every walker holds {HUB_PARTICLES} up and {HUB_PARTICLES} down particles after the warm-up "
+          "and the steps")
+    path_launches["FFNN Hubbard"] = fh_launches
+
+    _enter("9 megakernel A/B", t0)
     reset_counts()
     ab = {nb: megakernel_ab.run_ab(nb) for nb in (1, CHECK_NBETA)}
     ab_launches, ab_plain = read_counts()
@@ -517,22 +655,26 @@ def main() -> int:
     _require(ab_plain == 0 and ab_launches["sweep_energy"] > 0, f"A/B launches {ab_launches}, plain calls {ab_plain}")
     path_launches["megakernel A/B"] = ab_launches
 
-    _enter("8 kernel device times", t0)
-    device_ms = {name: _device_ms(torch, fn, 20, KERNEL_NAMES[name]) for name, (fn, _) in calls.items()}
-    tempered_device_ms = {name: _device_ms(torch, fn, 20, KERNEL_NAMES[name]) for name, fn in tempered_calls.items()}
+    _enter("10 kernel device times", t0)
+    device_ms = {name: _device_ms(torch, fn, 20, KERNEL_NAMES[name.removesuffix("_c")]) for name, (fn, _) in calls.items()}
+    tempered_device_ms = {name: _device_ms(torch, fn, 20, KERNEL_NAMES[name.removesuffix("_c")])
+                          for name, fn in tempered_calls.items()}
     for name, d_ms in device_ms.items():
         print(f"{name}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call (device time, profiler)")
     for name, d_ms in tempered_device_ms.items():
         print(f"{name} n_beta={CHECK_NBETA}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call "
               "(device time, profiler)")
 
-    _enter("9 LITFI step profile", t0)
+    _enter("11 LITFI step profile", t0)
     _profile_steps(torch, vmc, params, state, SR_STEPS)
 
-    _enter("10 Hubbard step profile", t0)
+    _enter("12 Hubbard step profile", t0)
     _profile_steps(torch, hub_vmc, hub_params, hub_state, HUB_SR_STEPS)
 
-    _enter("11 report", t0)
+    _enter("13 FFNN flagship step profile", t0)
+    _profile_steps(torch, ffnn_vmc, ffnn_params, ffnn_state, SR_STEPS)
+
+    _enter("14 report", t0)
     print(f"launches by path: {json.dumps(path_launches)}")
     errs = {
         "sweep": {"max_abs_err": ln_err, "tolerance": SWEEP_LNPSI_ATOL, "mismatch_share": share,
@@ -551,10 +693,33 @@ def main() -> int:
         "exchange": "neural_network_quantum_state_tpu/ops/pallas_exchange.py:65",
         "sweep_energy": "neural_network_quantum_state_tpu/ops/pallas_sweep_energy.py:49",
     }
+    # the instances with output weights c: the FFNN paths launched them
+    ffnn_paths = ("FFNN LITFI", "FFNN Hubbard")
+    has_c_errs = {
+        "sweep": {"max_abs_err": sweep_c[1][1], "tolerance": SWEEP_LNPSI_ATOL, "mismatch_share": sweep_c[1][0],
+                  f"nbeta{CHECK_NBETA}_mismatch_share": sweep_c[CHECK_NBETA][0],
+                  f"nbeta{CHECK_NBETA}_max_abs_err": sweep_c[CHECK_NBETA][1]},
+        "energy": {"max_abs_err": ec_abs, "rel_err": ec_rel, "tolerance": ENERGY_RTOL, "near_cut_share": ec_near},
+        "exchange": {"max_abs_err": xc_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": xc_share},
+    }
+    has_c_bounds = {"sweep": sweep_c_bound, "energy": energy_c_bound, "exchange": exchange_c_bound}
+
+    def has_c(name):
+        c = f"{name}_c"
+        return {
+            "launches": sum(path_launches[p][name] for p in ffnn_paths), **has_c_errs[name],
+            "ms": device_ms[c] if device_ms[c] is not None else timing[c][0],
+            "kernel_ms": device_ms[c], "wrapper_ms": timing[c][0], "plain_ms": timing[c][1],
+            "bound_ms": has_c_bounds[name][0], "bound_by": has_c_bounds[name][1], "library_ms": None,
+            **({f"nbeta{CHECK_NBETA}_kernel_ms": tempered_device_ms[c], f"nbeta{CHECK_NBETA}_wrapper_ms": tempered_ms[c]}
+               if c in tempered_calls else {}),
+        }
+
     kernels = [
         {
             "name": name, "route": "cuda",
             "source": f"neural_network_quantum_state_tpu_torch/csrc/{name}.cu",
+            # launches: both instances, over every path; has_c: the instance with c alone
             "replaces": replaces[name], "launches": sum(p[name] for p in path_launches.values()),
             **errs[name],
             # ms: the kernel's device time; the wrapper's time where the profiler saw none
@@ -563,6 +728,7 @@ def main() -> int:
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
             **({f"nbeta{CHECK_NBETA}_kernel_ms": tempered_device_ms[name], f"nbeta{CHECK_NBETA}_wrapper_ms": tempered_ms[name]}
                if name in tempered_calls else {}),
+            **({"has_c": has_c(name)} if name in has_c_errs else {}),
         }
         for name in ("sweep", "energy", "exchange", "sweep_energy")
     ]

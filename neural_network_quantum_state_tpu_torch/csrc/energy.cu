@@ -1,8 +1,10 @@
-// Off-diagonal local-energy sum for the RBM family, float32, Hopper.
+// Off-diagonal local-energy sum for the log-cosh machines, float32, Hopper.
 //
 // Replaces the TPU kernel neural_network_quantum_state_tpu/ops/pallas_energy.py
-// ::_energy_kernel (no output weights c, no phase_product). Per walker k it
-// computes the complex
+// ::_energy_kernel (no phase_product), both of its branches: the RBM family
+// (c = 1, instances C = false) and the FFNN family's complex output weights
+// (has_c: both ln cosh planes rotated by c, instances C = true). Per walker k
+// it computes the complex
 //
 //     out[k] = sum_i exp( ln psi(flip_i s) - ln psi(s) )
 //
@@ -18,9 +20,11 @@
 // expf/sincosf; the phase uses atan2f.
 //
 // Bound on an H100: K*N*H evaluations of the complex ln cosh (exp, sin, cos,
-// log, atan2 and some 25 float operations each) against 16 bytes of y per
-// (walker, hidden unit) read once, so the kernel is bound by operations
-// (K*N*H*25 / 67 TFLOP/s); the library atan2f and sincosf dominate them.
+// log, atan2 and some 25 float operations each, 4 more with c: the products
+// of the rotation c (l' - l)) against 16 bytes of y per (walker, hidden unit)
+// read once, so the kernel is bound by operations (K*N*H*25 / 67 TFLOP/s);
+// the library atan2f and sincosf dominate them. For C = true the block copies
+// c into shared memory once (rbm.cuh load_c).
 
 #include "rbm.cuh"
 
@@ -28,45 +32,57 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
-template <int R>
+template <int R, bool C>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock, nqs::min_blocks(R, kWarpsPerBlock))
-offdiag_kernel(const float2* __restrict__ w, const float2* __restrict__ a,
+offdiag_kernel(const float2* __restrict__ w, const float2* __restrict__ a, const float2* __restrict__ c,
                const float* __restrict__ spins, const float2* __restrict__ y,
                float2* __restrict__ out, int K, int N, int H) {
+  extern __shared__ float2 s_c[];  // (32*R,) for C = true, else empty
+  if constexpr (C) nqs::load_c<R>(c, H, s_c);  // before any warp leaves
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (k >= K) return;  // uniform over the warp
   float yr[R], yi[R];
   nqs::load_row<R>(y + (size_t)k * H, H, lane, yr, yi);
-  const float2 acc = nqs::offdiag_walker<R>(w, a, spins + (size_t)k * N, yr, yi, N, H);
+  const float2 acc = nqs::offdiag_walker<R, C>(w, a, s_c, spins + (size_t)k * N, yr, yi, N, H);
   if (lane == 0) out[k] = acc;
 }
 
-template <int R>
-cudaError_t launch(const float2* w, const float2* a, const float* spins, const float2* y,
+template <int R, bool C>
+cudaError_t launch(const float2* w, const float2* a, const float2* c, const float* spins, const float2* y,
                    float2* out, int K, int N, int H, cudaStream_t stream) {
   const dim3 grid((K + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  offdiag_kernel<R><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(w, a, spins, y, out, K, N, H);
+  const size_t smem = sizeof(float) * nqs::c_floats<R, C>();
+  offdiag_kernel<R, C><<<grid, 32 * kWarpsPerBlock, smem, stream>>>(w, a, c, spins, y, out, K, N, H);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Complex arrays are interleaved (re, im) float pairs, row-major: w (N, H),
-// a (N,), y (K, H), out (K,); spins (K, N); 1 <= H <= 512. Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int nqs_offdiag_f32(const void* w, const void* a, const void* spins, const void* y,
-                               void* out, int K, int N, int H, void* stream) {
-  if (K <= 0 || N <= 0 || H < 1 || H > 32 * nqs::kMaxR) return cudaErrorInvalidValue;
-#define NQS_OFFDIAG_CASE(R)                                                                      \
-  case R:                                                                                        \
-    return launch<R>(static_cast<const float2*>(w), static_cast<const float2*>(a),              \
-                     static_cast<const float*>(spins), static_cast<const float2*>(y),            \
-                     static_cast<float2*>(out), K, N, H, static_cast<cudaStream_t>(stream));
+template <bool C>
+cudaError_t dispatch(const void* w, const void* a, const void* c, const void* spins, const void* y, void* out,
+                     int K, int N, int H, void* stream) {
+#define NQS_OFFDIAG_CASE(R)                                                                       \
+  case R:                                                                                         \
+    return launch<R, C>(static_cast<const float2*>(w), static_cast<const float2*>(a),            \
+                        static_cast<const float2*>(c), static_cast<const float*>(spins),          \
+                        static_cast<const float2*>(y), static_cast<float2*>(out), K, N, H,        \
+                        static_cast<cudaStream_t>(stream));
   switch ((H + 31) / 32) {
     NQS_FOR_EACH_R(NQS_OFFDIAG_CASE)
     default:
       return cudaErrorInvalidValue;
   }
 #undef NQS_OFFDIAG_CASE
+}
+
+}  // namespace
+
+// Complex arrays are interleaved (re, im) float pairs, row-major: w (N, H),
+// a (N,), c (H,) or null (c = 1: the RBM family), y (K, H), out (K,);
+// spins (K, N); 1 <= H <= 512. Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int nqs_offdiag_f32(const void* w, const void* a, const void* c, const void* spins, const void* y,
+                               void* out, int K, int N, int H, void* stream) {
+  if (K <= 0 || N <= 0 || H < 1 || H > 32 * nqs::kMaxR) return cudaErrorInvalidValue;
+  if (c != nullptr) return dispatch<true>(w, a, c, spins, y, out, K, N, H, stream);
+  return dispatch<false>(w, a, c, spins, y, out, K, N, H, stream);
 }

@@ -1,9 +1,21 @@
-// Device code shared by the RBM-family kernels (float32, Hopper): the stable
+// Device code shared by the log-cosh kernels (float32, Hopper): the stable
 // log-cosh, warp sums, the hidden-unit layout, the Metropolis sweep of one
 // walker with its replica-exchange phases, and the off-diagonal local-energy
 // sum of one walker. sweep.cu, energy.cu and sweep_energy.cu run the same
 // functions, so the fused kernel makes the decisions and sums of the two
 // kernels it fuses with the same arithmetic.
+//
+// ln psi = sum_j c_j ln cosh(y_j) + sa. The RBM family has c = 1: the
+// instances with C = false read no c and sum Re ln cosh alone. The FFNN
+// family has complex output weights c (C = true): Re(c_j ln cosh y_j) =
+// c_re Re ln cosh - c_im Im ln cosh needs both planes, so every hidden unit
+// of every proposal takes one atan2f more. Its kernels copy c, zero-padded to
+// 32*R values, into shared memory once per block (at most 4 KB) and the lanes
+// read it lane-contiguous; kept in registers it would take 2R of them. The
+// phase is the principal value atan2f(Im, Re), as the plain version's and the
+// JAX package's, so ln psi jumps by 2 pi i c_j where cosh(y_j) crosses the
+// negative real axis: there the kernel and the plain version may take
+// opposite sides.
 //
 // Layout: one warp per walker. Lane l keeps hidden units j = r*32 + l,
 // r < R = ceil(H/32), in registers. Rows of W and y have stride H; the lanes
@@ -54,6 +66,28 @@ __device__ __forceinline__ void logcosh_ri(float x, float v, float* lr, float* l
   const float im = (1.0f - e) * s * (x < 0.0f ? -1.0f : 1.0f);
   *lr = 0.5f * logf(re * re + im * im) + (ax - kLn2);
   *li = atan2f(im, re);
+}
+
+// Re(c_j ln cosh(x + iv)) of hidden unit j: Re ln cosh for C = false (c is
+// not read), both planes rotated by c_j for C = true.
+template <bool C>
+__device__ __forceinline__ float re_term(float x, float v, const float2* c, int j) {
+  if constexpr (C) {
+    float lr, li;
+    logcosh_ri(x, v, &lr, &li);
+    const float2 cj = c[j];
+    return cj.x * lr - cj.y * li;
+  } else {
+    return logcosh_re(x, v);
+  }
+}
+
+// Copy c (H,) into the block's shared s_c, zero-padded to 32*R values, and
+// synchronise the block. Every thread of the block must call this.
+template <int R>
+__device__ __forceinline__ void load_c(const float2* __restrict__ c, int H, float2* s_c) {
+  for (int j = threadIdx.x; j < 32 * R; j += blockDim.x) s_c[j] = j < H ? c[j] : make_float2(0.0f, 0.0f);
+  __syncthreads();
 }
 
 // Sum over the warp (the value on lane 0 is the one used).
@@ -108,11 +142,16 @@ struct SweepArgs {
   int K, N, H, n_sites, n_steps, n_beta;
 };
 
-// Shared memory of a sweep block of G warps: the spins of each warp's walker,
-// then two buffers of Re ln psi per walker row (one per swap parity), then the
-// per-row counts of accepted flips and of accepted swaps as the lower member.
+// Shared memory of a sweep block of G warps: for C = true the 32*R output
+// weights first (8-byte aligned), then the spins of each warp's walker, two
+// buffers of Re ln psi per walker row (one per swap parity), and the per-row
+// counts of accepted flips and of accepted swaps as the lower member.
+template <int R, bool C>
+__host__ __device__ constexpr int c_floats() { return C ? 2 * 32 * R : 0; }
+
+template <int R, bool C>
 __host__ __device__ constexpr size_t sweep_smem_bytes(int G, int N) {
-  return sizeof(float) * (size_t)G * (N + 2) + sizeof(int) * 2 * (size_t)G;
+  return sizeof(float) * ((size_t)c_floats<R, C>() + (size_t)G * (N + 2)) + sizeof(int) * 2 * (size_t)G;
 }
 
 // One replica-exchange phase: pairs of walker rows (r, r+1) with r of this
@@ -152,11 +191,12 @@ __device__ __forceinline__ void swap_phase(const SweepArgs& p, bool active, int 
 // row `row`; on return they hold its final state and `row` the row it ends
 // in. Flip uniforms are read at the walker's current row, so a label swap
 // takes the same draws as a configuration swap. Re ln psi_0 is recomputed
-// here with the same log-cosh as the proposals. Every warp of the block must
-// call this (idle ones with active = false): the swap phases synchronise it.
-template <int R>
-__device__ __forceinline__ void sweep_walker(const SweepArgs& p, bool active, int base, int& row, float* sp,
-                                             float (&yr)[R], float (&yi)[R], float2& sa, float* s_ln,
+// here with the same log-cosh as the proposals. s_c is the block's copy of c
+// (load_c), read only for C = true. Every warp of the block must call this
+// (idle ones with active = false): the swap phases synchronise it.
+template <int R, bool C>
+__device__ __forceinline__ void sweep_walker(const SweepArgs& p, const float2* s_c, bool active, int base, int& row,
+                                             float* sp, float (&yr)[R], float (&yi)[R], float2& sa, float* s_ln,
                                              int* s_flip, int* s_swap) {
   const int lane = threadIdx.x & 31;
   const int G = blockDim.x >> 5;
@@ -168,7 +208,7 @@ __device__ __forceinline__ void sweep_walker(const SweepArgs& p, bool active, in
     float l = 0.0f;
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      l += in_row<R>(r, lane, p.H) ? logcosh_re(yr[r], yi[r]) : 0.0f;
+      l += in_row<R>(r, lane, p.H) ? re_term<C>(yr[r], yi[r], s_c, hidden(r, lane)) : 0.0f;
     ln0 = warp_allsum(l) + sa.x;
   }
   for (int s = 0; s < n_sweeps; ++s) {
@@ -188,7 +228,7 @@ __device__ __forceinline__ void sweep_walker(const SweepArgs& p, bool active, in
           const float2 wv = in ? __ldg(wrow + hidden(r, lane)) : make_float2(0.0f, 0.0f);
           xr[r] = yr[r] - two_s * wv.x;
           xi[r] = yi[r] - two_s * wv.y;
-          const float lc = logcosh_re(xr[r], xi[r]);
+          const float lc = re_term<C>(xr[r], xi[r], s_c, hidden(r, lane));
           l += in ? lc : 0.0f;
         }
         const float2 av = __ldg(p.a + site);
@@ -222,13 +262,14 @@ __device__ __forceinline__ void sweep_walker(const SweepArgs& p, bool active, in
 // sum_i exp(ln psi(flip_i s) - ln psi(s)) over the N sites of one walker,
 // complex, on lane 0. s points at the walker's N spins (global or shared).
 // Both planes of ln cosh(y_j) are computed once; each site's ratio is formed
-// difference-first, sum_j [ln cosh(y'_j) - ln cosh(y_j)], so ln psi_0 comes
-// from the same log-cosh as ln psi_1 and the O(|ln psi|) totals never cancel
-// in float32 (sa cancels in the ratio and is not read).
-template <int R>
+// difference-first, sum_j c_j [ln cosh(y'_j) - ln cosh(y_j)], so ln psi_0
+// comes from the same log-cosh as ln psi_1 and the O(|ln psi|) totals never
+// cancel in float32 (sa cancels in the ratio and is not read). For C = true
+// both planes of each difference are rotated by c_j (s_c in shared memory).
+template <int R, bool C>
 __device__ __forceinline__ float2 offdiag_walker(const float2* __restrict__ w, const float2* __restrict__ a,
-                                                 const float* s, const float (&yr)[R], const float (&yi)[R],
-                                                 int N, int H) {
+                                                 const float2* s_c, const float* s, const float (&yr)[R],
+                                                 const float (&yi)[R], int N, int H) {
   const int lane = threadIdx.x & 31;
   float l0r[R], l0i[R];
 #pragma unroll
@@ -244,8 +285,15 @@ __device__ __forceinline__ float2 offdiag_walker(const float2* __restrict__ w, c
       const float2 wv = in ? __ldg(wrow + hidden(r, lane)) : make_float2(0.0f, 0.0f);
       float lr, li;
       logcosh_ri(yr[r] - two_s * wv.x, yi[r] - two_s * wv.y, &lr, &li);
-      dr += in ? lr - l0r[r] : 0.0f;
-      di += in ? li - l0i[r] : 0.0f;
+      if constexpr (C) {
+        const float2 cj = s_c[hidden(r, lane)];
+        const float ddr = lr - l0r[r], ddi = li - l0i[r];
+        dr += in ? cj.x * ddr - cj.y * ddi : 0.0f;
+        di += in ? cj.x * ddi + cj.y * ddr : 0.0f;
+      } else {
+        dr += in ? lr - l0r[r] : 0.0f;
+        di += in ? li - l0i[r] : 0.0f;
+      }
     }
     dr = warp_sum(dr);
     di = warp_sum(di);
@@ -269,7 +317,8 @@ __host__ __forceinline__ int sweep_warps(int n_beta) {
 
 }  // namespace nqs
 
-// Expand CASE(R) for every R = 1..16 (H = 1..512), inside a switch on R.
+// Expand CASE(R) for every R = 1..16 (H = 1..512), inside a switch on R;
+// CASE may use the bool C of the enclosing function.
 #define NQS_FOR_EACH_R(CASE) \
   CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) \
   CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)

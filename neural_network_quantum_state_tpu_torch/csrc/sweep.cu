@@ -1,11 +1,13 @@
-// Fused single-flip Metropolis sweeps for the RBM family, float32, Hopper,
-// with in-kernel replica exchange (parallel tempering) for n_beta > 1.
+// Fused single-flip Metropolis sweeps for the log-cosh machines, float32,
+// Hopper, with in-kernel replica exchange (parallel tempering) for n_beta > 1.
 //
 // Replaces the TPU kernel neural_network_quantum_state_tpu/ops/pallas_sweep.py
-// ::_sweep_kernel (no output weights c). Per walker it runs n_steps proposals
-// over the site schedule: y' = y - 2 s_i w_i, Re ln cosh summed over the H
-// hidden units, accept when u < exp(2 beta min(dln, 0)), masked commit of y,
-// sa and the spin. For n_beta > 1 the walkers are replica-minor (row
+// ::_sweep_kernel, both of its branches: the RBM family (c = 1, instances
+// C = false) and the FFNN family's complex output weights (has_c, instances
+// C = true). Per walker it runs n_steps proposals over the site schedule:
+// y' = y - 2 s_i w_i, Re(c_j ln cosh y'_j) summed over the H hidden units,
+// accept when u < exp(2 beta min(dln, 0)), masked commit of y, sa and the
+// spin. For n_beta > 1 the walkers are replica-minor (row
 // w = chain * n_beta + r holds beta_r = (n_beta - r) / n_beta) and each sweep
 // of n_sites proposals is followed by the even-pair and then the odd-pair
 // swap phase: rows (r, r+1) exchange when u < exp(2 (1/n_beta) min(ln_{r+1} -
@@ -22,11 +24,12 @@
 // end each warp writes its state to the row it holds. Idle warps past K stay
 // in the block's barriers.
 //
-// Bound on an H100: about 20 float operations per (walker, step, hidden unit),
+// Bound on an H100: about 20 float operations per (walker, step, hidden unit)
+// (about 23 with c: the atan2f and the two products of Re(c l)),
 // against 16 bytes of y per (walker, hidden unit) read and written once per
 // call, so the kernel is bound by operations (K*n_steps*H*20 / 67 TFLOP/s),
-// and in practice by the latency of the expf/sincosf/logf chain of one
-// proposal, which the resident walkers per SM hide only in part.
+// and in practice by the latency of the expf/sincosf/logf (and atan2f) chain
+// of one proposal, which the resident walkers per SM hide only in part.
 
 #include "rbm.cuh"
 
@@ -34,10 +37,10 @@ namespace {
 
 using nqs::SweepArgs;
 
-template <int R>
+template <int R, bool C>
 __global__ void __launch_bounds__(32 * nqs::kMaxWarps, nqs::min_blocks(R, nqs::kMaxWarps))
-sweep_kernel(SweepArgs p, const float* __restrict__ spins_in, const float2* __restrict__ y_in,
-             const float2* __restrict__ sa_in, float* __restrict__ spins_out,
+sweep_kernel(SweepArgs p, const float2* __restrict__ c, const float* __restrict__ spins_in,
+             const float2* __restrict__ y_in, const float2* __restrict__ sa_in, float* __restrict__ spins_out,
              float2* __restrict__ y_out, float2* __restrict__ sa_out, int* __restrict__ flip_out,
              int* __restrict__ swap_out) {
   extern __shared__ float smem[];
@@ -47,8 +50,9 @@ sweep_kernel(SweepArgs p, const float* __restrict__ spins_in, const float2* __re
   const int base = blockIdx.x * G;
   const int k = base + warp;
   const bool active = k < p.K;  // uniform over the warp
-  float* sp = smem + warp * p.N;
-  float* s_ln = smem + G * p.N;
+  float2* s_c = reinterpret_cast<float2*>(smem);
+  float* sp = smem + nqs::c_floats<R, C>() + warp * p.N;
+  float* s_ln = smem + nqs::c_floats<R, C>() + G * p.N;
   int* s_flip = reinterpret_cast<int*>(s_ln + 2 * G);
   int* s_swap = s_flip + G;
   if (lane == 0) {
@@ -62,10 +66,11 @@ sweep_kernel(SweepArgs p, const float* __restrict__ spins_in, const float2* __re
     nqs::load_row<R>(y_in + (size_t)k * p.H, p.H, lane, yr, yi);
     sa = sa_in[k];
   }
-  __syncthreads();
+  if constexpr (C) nqs::load_c<R>(c, p.H, s_c);  // synchronises the block
+  else __syncthreads();
 
   int row = k;
-  nqs::sweep_walker<R>(p, active, base, row, sp, yr, yi, sa, s_ln, s_flip, s_swap);
+  nqs::sweep_walker<R, C>(p, s_c, active, base, row, sp, yr, yi, sa, s_ln, s_flip, s_swap);
 
   if (active) {
     nqs::store_row<R>(y_out + (size_t)row * p.H, p.H, lane, yr, yi);
@@ -79,36 +84,57 @@ sweep_kernel(SweepArgs p, const float* __restrict__ spins_in, const float2* __re
   }
 }
 
-template <int R>
-cudaError_t launch(const SweepArgs& p, const float* spins_in, const float2* y_in, const float2* sa_in,
-                   float* spins_out, float2* y_out, float2* sa_out, int* flip_out, int* swap_out,
-                   cudaStream_t stream) {
+template <int R, bool C>
+cudaError_t launch(const SweepArgs& p, const float2* c, const float* spins_in, const float2* y_in,
+                   const float2* sa_in, float* spins_out, float2* y_out, float2* sa_out, int* flip_out,
+                   int* swap_out, cudaStream_t stream) {
   const int G = nqs::sweep_warps(p.n_beta);
   const dim3 grid((p.K + G - 1) / G);
-  const size_t smem = nqs::sweep_smem_bytes(G, p.N);
+  const size_t smem = nqs::sweep_smem_bytes<R, C>(G, p.N);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(sweep_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t e = cudaFuncSetAttribute(sweep_kernel<R, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  sweep_kernel<R><<<grid, 32 * G, smem, stream>>>(p, spins_in, y_in, sa_in, spins_out, y_out, sa_out,
-                                                  flip_out, swap_out);
+  sweep_kernel<R, C><<<grid, 32 * G, smem, stream>>>(p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out,
+                                                     flip_out, swap_out);
   return cudaGetLastError();
+}
+
+template <bool C>
+cudaError_t dispatch(const SweepArgs& p, const void* c, const void* spins_in, const void* y_in,
+                     const void* sa_in, void* spins_out, void* y_out, void* sa_out, void* flip_out,
+                     void* swap_out, void* stream) {
+#define NQS_SWEEP_CASE(R)                                                                          \
+  case R:                                                                                          \
+    return launch<R, C>(p, static_cast<const float2*>(c), static_cast<const float*>(spins_in),    \
+                        static_cast<const float2*>(y_in), static_cast<const float2*>(sa_in),       \
+                        static_cast<float*>(spins_out), static_cast<float2*>(y_out),               \
+                        static_cast<float2*>(sa_out), static_cast<int*>(flip_out),                 \
+                        static_cast<int*>(swap_out), static_cast<cudaStream_t>(stream));
+  switch ((p.H + 31) / 32) {
+    NQS_FOR_EACH_R(NQS_SWEEP_CASE)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef NQS_SWEEP_CASE
 }
 
 }  // namespace
 
 // All complex arrays are interleaved (re, im) float pairs, row-major:
-// w (N, H), a (N,), y (K, H), sa (K,); spins (K, N); sched (n_sites,);
-// u (n_steps, K); u_swap (n_steps / n_sites, 2, K), read only for n_beta > 1
-// (n_steps a multiple of n_sites, K a multiple of n_beta, n_beta <= 16).
+// w (N, H), a (N,), c (H,) or null (c = 1: the RBM family), y (K, H),
+// sa (K,); spins (K, N); sched (n_sites,); u (n_steps, K); u_swap
+// (n_steps / n_sites, 2, K), read only for n_beta > 1 (n_steps a multiple of
+// n_sites, K a multiple of n_beta, n_beta <= 16).
 // flip_out (K,): accepted flips while in each row; swap_out (K,): accepted
 // swaps with each row as the lower member. 1 <= H <= 512.
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int nqs_sweep_f32(const void* w, const void* a, const void* spins_in, const void* y_in,
-                             const void* sa_in, const void* sched, const void* u, const void* u_swap,
-                             void* spins_out, void* y_out, void* sa_out, void* flip_out, void* swap_out,
-                             int K, int N, int H, int n_sites, int n_steps, int n_beta, void* stream) {
+extern "C" int nqs_sweep_f32(const void* w, const void* a, const void* c, const void* spins_in,
+                             const void* y_in, const void* sa_in, const void* sched, const void* u,
+                             const void* u_swap, void* spins_out, void* y_out, void* sa_out, void* flip_out,
+                             void* swap_out, int K, int N, int H, int n_sites, int n_steps, int n_beta,
+                             void* stream) {
   if (K <= 0 || N <= 0 || n_sites <= 0 || n_steps <= 0 || H < 1 || H > 32 * nqs::kMaxR ||
       nqs::sweep_warps(n_beta) == 0 || K % n_beta != 0)
     return cudaErrorInvalidValue;
@@ -116,17 +142,7 @@ extern "C" int nqs_sweep_f32(const void* w, const void* a, const void* spins_in,
   const SweepArgs p{static_cast<const float2*>(w), static_cast<const float2*>(a), static_cast<const int*>(sched),
                     static_cast<const float*>(u), static_cast<const float*>(u_swap), K, N, H, n_sites, n_steps,
                     n_beta};
-#define NQS_SWEEP_CASE(R)                                                                          \
-  case R:                                                                                          \
-    return launch<R>(p, static_cast<const float*>(spins_in), static_cast<const float2*>(y_in),    \
-                     static_cast<const float2*>(sa_in), static_cast<float*>(spins_out),           \
-                     static_cast<float2*>(y_out), static_cast<float2*>(sa_out),                   \
-                     static_cast<int*>(flip_out), static_cast<int*>(swap_out),                    \
-                     static_cast<cudaStream_t>(stream));
-  switch ((H + 31) / 32) {
-    NQS_FOR_EACH_R(NQS_SWEEP_CASE)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef NQS_SWEEP_CASE
+  if (c != nullptr)
+    return dispatch<true>(p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out, flip_out, swap_out, stream);
+  return dispatch<false>(p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out, flip_out, swap_out, stream);
 }

@@ -1,5 +1,6 @@
-// Fused sweep + off-diagonal local-energy megakernel for the RBM family,
-// float32, Hopper.
+// Fused sweep + off-diagonal local-energy megakernel for the RBM family
+// (c = 1), float32, Hopper. As the TPU kernel, it takes no output weights c:
+// the entry point refuses them.
 //
 // Replaces the TPU kernel
 // neural_network_quantum_state_tpu/ops/pallas_sweep_energy.py
@@ -61,12 +62,12 @@ sweep_energy_kernel(SweepArgs p, const float* __restrict__ spins_in, const float
   __syncthreads();
 
   int row = k;
-  nqs::sweep_walker<R>(p, active, base, row, sp, yr, yi, sa, s_ln, s_flip, s_swap);
+  nqs::sweep_walker<R, false>(p, nullptr, active, base, row, sp, yr, yi, sa, s_ln, s_flip, s_swap);
 
   if (active) {
     nqs::store_row<R>(y_out + (size_t)row * p.H, p.H, lane, yr, yi);
     for (int i = lane; i < p.N; i += 32) spins_out[(size_t)row * p.N + i] = sp[i];
-    const float2 acc = nqs::offdiag_walker<R>(p.w, p.a, sp, yr, yi, p.N, p.H);
+    const float2 acc = nqs::offdiag_walker<R, false>(p.w, p.a, nullptr, sp, yr, yi, p.N, p.H);
     if (lane == 0) {
       sa_out[row] = sa;
       out[row] = acc;
@@ -85,7 +86,7 @@ cudaError_t launch(const SweepArgs& p, const float* spins_in, const float2* y_in
                    float2* out, cudaStream_t stream) {
   const int G = nqs::sweep_warps(p.n_beta);
   const dim3 grid((p.K + G - 1) / G);
-  const size_t smem = nqs::sweep_smem_bytes(G, p.N);
+  const size_t smem = nqs::sweep_smem_bytes<R, false>(G, p.N);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(sweep_energy_kernel<R>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -100,15 +101,15 @@ cudaError_t launch(const SweepArgs& p, const float* spins_in, const float2* y_in
 }  // namespace
 
 // The arguments of nqs_sweep_f32 (sweep.cu), then out (K,) complex: the
-// off-diagonal sum of each row's post-sweep state. Returns the cudaError_t of
-// the launch (0 on success).
-extern "C" int nqs_sweep_offdiag_f32(const void* w, const void* a, const void* spins_in, const void* y_in,
-                                     const void* sa_in, const void* sched, const void* u, const void* u_swap,
-                                     void* spins_out, void* y_out, void* sa_out, void* flip_out,
-                                     void* swap_out, void* out, int K, int N, int H, int n_sites,
-                                     int n_steps, int n_beta, void* stream) {
+// off-diagonal sum of each row's post-sweep state. c must be null (the RBM
+// family). Returns the cudaError_t of the launch (0 on success).
+extern "C" int nqs_sweep_offdiag_f32(const void* w, const void* a, const void* c, const void* spins_in,
+                                     const void* y_in, const void* sa_in, const void* sched, const void* u,
+                                     const void* u_swap, void* spins_out, void* y_out, void* sa_out,
+                                     void* flip_out, void* swap_out, void* out, int K, int N, int H,
+                                     int n_sites, int n_steps, int n_beta, void* stream) {
   if (K <= 0 || N <= 0 || n_sites <= 0 || n_steps <= 0 || H < 1 || H > 32 * nqs::kMaxR ||
-      nqs::sweep_warps(n_beta) == 0 || K % n_beta != 0)
+      nqs::sweep_warps(n_beta) == 0 || K % n_beta != 0 || c != nullptr)
     return cudaErrorInvalidValue;
   if (n_beta > 1 && (n_steps % n_sites != 0 || u_swap == nullptr)) return cudaErrorInvalidValue;
   const SweepArgs p{static_cast<const float2*>(w), static_cast<const float2*>(a), static_cast<const int*>(sched),

@@ -51,7 +51,7 @@ class Machine:
         raise NotImplementedError
 
     def make_work(self, params: Params) -> Work:
-        """Expand raw params into effective dense (W, b, a)."""
+        """Expand raw params into effective dense (W, b, a, c)."""
         raise NotImplementedError
 
     def grad_log(self, params: Params, cache: Cache) -> torch.Tensor:
@@ -78,11 +78,15 @@ class Machine:
         dx = self.unflatten_params(dx_flat)
         return {k: params[k] - dx[k] * lr for k in params}
 
-    def _normal(self, g: torch.Generator, shape, scale: float) -> torch.Tensor:
-        """Complex Gaussian init: re, im ~ scale * N(0, 1) each."""
+    def _normal(self, g: torch.Generator, shape, scale: float, imag_scale: float | None = None) -> torch.Tensor:
+        """Complex Gaussian init: re ~ scale * N(0, 1), im ~ imag_scale * N(0, 1).
+
+        The RBM family scales both planes alike (imag_scale None); the FFNN
+        family scales only the imaginary plane by a further 0.1.
+        """
         re = torch.randn(shape, generator=g, dtype=self.dtype, device=g.device)
         im = torch.randn(shape, generator=g, dtype=self.dtype, device=g.device)
-        return torch.complex(scale * re, scale * im)
+        return torch.complex(scale * re, (scale if imag_scale is None else imag_scale) * im)
 
     def _zeros(self, shape, device) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.complex_dtype, device=device)

@@ -24,7 +24,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 KERNELS = ("sweep", "energy", "exchange", "sweep_energy")
 # The kernels instantiate R = ceil(H/32) = 1..16 words of hidden units per
-# lane and mask the tail, so they take any 1 <= H <= MAX_HIDDEN.
+# lane and mask the tail, so they take any 1 <= H <= MAX_HIDDEN; sweep,
+# energy and exchange do so once without and once with output weights c.
 MAX_HIDDEN = 512
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

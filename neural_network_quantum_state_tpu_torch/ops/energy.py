@@ -2,8 +2,9 @@
 
 ``offdiag_sum`` returns, per walker, the complex
 ``sum_i exp(ln psi(flip_i s) - ln psi(s))`` over all N sites. A CUDA tensor
-goes to the kernel in ``csrc/energy.cu`` (float32, RBM family); a CPU tensor
-goes to ``offdiag_sum_plain``, the chunked PyTorch computation.
+goes to the kernel in ``csrc/energy.cu`` (float32; an instance for the RBM
+family, c = 1, and one for the FFNN family's complex output weights); a CPU
+tensor goes to ``offdiag_sum_plain``, the chunked PyTorch computation.
 
 Replaces ``neural_network_quantum_state_tpu/ops/pallas_energy.py``.
 """
@@ -16,6 +17,7 @@ import torch
 
 from neural_network_quantum_state_tpu_torch.ops import build, engine
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
+from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
 
 OFFDIAG_CHUNK_ELEMS = 64 * 1024 * 1024  # cap K*chunk*H per flip tensor
 
@@ -37,9 +39,25 @@ def offdiag_sum_plain(work: Work, cache: Cache, lnpsi: torch.Tensor) -> torch.Te
 offdiag_sum_plain.calls = 0
 
 
+def offdiag_near_cut(work: Work, cache: Cache) -> torch.Tensor:
+    """(K,) bool: the walkers whose y, or y after any single flip, has a
+    hidden unit near the principal log-cosh's branch cut
+    (``logcosh.near_branch_cut``). With output weights c the kernel and the
+    plain sum of such a walker may differ by the jump, so comparisons count
+    them apart."""
+    k, n = cache.spins.shape
+    chunk = max(1, min(n, OFFDIAG_CHUNK_ELEMS // max(1, k * work.w.shape[1])))
+    out = near_branch_cut(cache.y)
+    for start in range(0, n, chunk):
+        sites = torch.arange(start, min(n, start + chunk), device=cache.y.device)
+        y1 = cache.y[:, None, :] - 2.0 * cache.spins[:, sites, None] * work.w[sites][None]
+        out |= near_branch_cut(y1).any(-1)
+    return out
+
+
 def _kernel():
     fn = build.library("energy").nqs_offdiag_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -52,18 +70,15 @@ def offdiag_sum_cuda(work: Work, cache: Cache) -> torch.Tensor:
     dev = cache.spins.device
     if cache.spins.dtype != torch.float32:
         raise NotImplementedError(f"energy kernel: only float32 is ported, got {cache.spins.dtype}")
-    if work.a is None:
-        raise ValueError("energy kernel: the RBM family has a visible bias (work.a is None)")
-    build.check_inputs("energy", dev, h, {
-        "w": (work.w, torch.complex64, (n, h)),
-        "a": (work.a, torch.complex64, (n,)),
+    tensors, weights = engine.kernel_weights(work)
+    build.check_inputs("energy", dev, h, tensors | {
         "spins": (cache.spins, torch.float32, (k, n)),
         "y": (cache.y, torch.complex64, (k, h)),
     })
     out = torch.empty(k, dtype=torch.complex64, device=dev)
     rc = _kernel()(
-        work.w.data_ptr(), work.a.data_ptr(), cache.spins.data_ptr(), cache.y.data_ptr(),
-        out.data_ptr(), k, n, h, torch.cuda.current_stream(dev).cuda_stream,
+        *weights, cache.spins.data_ptr(), cache.y.data_ptr(), out.data_ptr(), k, n, h,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(rc, "energy kernel")
     offdiag_sum_cuda.launches += 1

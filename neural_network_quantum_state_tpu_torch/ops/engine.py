@@ -1,13 +1,15 @@
 """Generic batched log-cosh machine engine.
 
-Every RBM-family ansatz has the functional form
+Every ansatz has the functional form
 
-    ln psi(s) = sum_j logcosh( b_j + sum_i W_ij s_i ) + sum_i a_i s_i
+    ln psi(s) = sum_j c_j logcosh( b_j + sum_i W_ij s_i ) + sum_i a_i s_i
 
 over effective (possibly symmetry-expanded) complex weights W (N,H), hidden
-bias b (H,) and visible bias a (N,). This module evaluates that form batched
-over walkers (leading axis K) with the O(H)-per-proposal incremental update
-of the hidden pre-activations
+bias b (H,), visible bias a (N,) and output weights c (H,). The RBM family
+has c = 1 (``Work.c`` None); the FFNN family has a = 0 (``Work.a`` None) and
+trainable c; the bias-free RBMs have neither. This module evaluates that
+form batched over walkers (leading axis K) with the O(H)-per-proposal
+incremental update of the hidden pre-activations
 
     y'_kj = y_kj - 2 s_ki W_ij          (candidate: flip spin i)
 
@@ -16,6 +18,7 @@ Spins are real {-1,+1}; y, sa and ln psi are native complex tensors.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -29,6 +32,31 @@ class Work(NamedTuple):
     w: torch.Tensor  # (N, H) complex
     b: torch.Tensor  # (H,) complex
     a: Optional[torch.Tensor] = None  # (N,) complex or None (no visible bias)
+    c: Optional[torch.Tensor] = None  # (H,) complex or None (c_j = 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_bias(n: int, device: torch.device) -> torch.Tensor:
+    return torch.zeros(n, dtype=torch.complex64, device=device)
+
+
+def kernel_weights(work: Work) -> tuple[dict, tuple]:
+    """What the CUDA kernels read of `work`: the ``build.check_inputs``
+    entries of w, a and c, and the pointers (w, a, c) in the kernels'
+    argument order.
+
+    A machine without a visible bias (``a`` None) gets zeros for a, made
+    once per size and device, as the JAX package's kernels feed; without
+    output weights (``c`` None, c = 1: the RBM family) the c pointer is None
+    and the kernels' instance without c runs.
+    """
+    n, h = work.w.shape
+    a = work.a if work.a is not None else _zero_bias(n, work.w.device)
+    entries = {"w": (work.w, torch.complex64, (n, h)), "a": (a, torch.complex64, (n,))}
+    if work.c is not None:
+        entries["c"] = (work.c, torch.complex64, (h,))
+    c_ptr = None if work.c is None else work.c.data_ptr()
+    return entries, (work.w.data_ptr(), a.data_ptr(), c_ptr)
 
 
 class Cache(NamedTuple):
@@ -44,6 +72,18 @@ def _real_matmul(s: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return torch.complex(s @ m.real, s @ m.imag)
 
 
+def _hidden_sum(work: Work, ly: torch.Tensor) -> torch.Tensor:
+    """sum_j c_j * ly[..., j] over the hidden axis."""
+    if work.c is None:
+        return ly.sum(-1)
+    return ly @ work.c
+
+
+def cache_log_psi(work: Work, cache: Cache) -> torch.Tensor:
+    """ln psi (K,) complex of the cached states, from y and sa."""
+    return _hidden_sum(work, logcosh(cache.y)) + cache.sa
+
+
 def full_forward(work: Work, spins: torch.Tensor) -> tuple[Cache, torch.Tensor]:
     """From-scratch forward: build the cache and ln psi for all walkers."""
     s = spins.to(work.w.real.dtype)
@@ -52,8 +92,8 @@ def full_forward(work: Work, spins: torch.Tensor) -> tuple[Cache, torch.Tensor]:
         sa = _real_matmul(s, work.a)
     else:
         sa = torch.zeros(s.shape[0], dtype=work.w.dtype, device=s.device)
-    lnpsi = logcosh(y).sum(-1) + sa
-    return Cache(spins=s, y=y, sa=sa), lnpsi
+    cache = Cache(spins=s, y=y, sa=sa)
+    return cache, cache_log_psi(work, cache)
 
 
 def log_psi(work: Work, spins: torch.Tensor) -> torch.Tensor:
@@ -65,9 +105,20 @@ def flip_log_psi(work: Work, cache: Cache, site: int) -> torch.Tensor:
     """ln psi of the candidate state with `site` flipped in every walker."""
     two_s = 2.0 * cache.spins[:, site]  # (K,) real
     y1 = cache.y - two_s[:, None] * work.w[site]
-    lnpsi = logcosh(y1).sum(-1) + cache.sa
+    lnpsi = _hidden_sum(work, logcosh(y1)) + cache.sa
     if work.a is not None:
         lnpsi = lnpsi + (-two_s) * work.a[site]
+    return lnpsi
+
+
+def flip_log_psi_per_walker(work: Work, cache: Cache, sites: torch.Tensor) -> torch.Tensor:
+    """ln psi with a per-walker flip site, sites (K,) int."""
+    k = torch.arange(cache.spins.shape[0], device=cache.spins.device)
+    two_s = 2.0 * cache.spins[k, sites]  # (K,) real
+    y1 = cache.y - two_s[:, None] * work.w[sites]
+    lnpsi = _hidden_sum(work, logcosh(y1)) + cache.sa
+    if work.a is not None:
+        lnpsi = lnpsi + (-two_s) * work.a[sites]
     return lnpsi
 
 
@@ -96,7 +147,7 @@ def all_flip_log_psi(work: Work, cache: Cache, sites: torch.Tensor) -> torch.Ten
     """
     two_s = 2.0 * cache.spins[:, sites]  # (K, n) real
     y1 = cache.y[:, None, :] - two_s[:, :, None] * work.w[sites][None]
-    lnpsi = logcosh(y1).sum(-1) + cache.sa[:, None]
+    lnpsi = _hidden_sum(work, logcosh(y1)) + cache.sa[:, None]
     if work.a is not None:
         lnpsi = lnpsi + (-two_s) * work.a[sites][None, :]
     return lnpsi
@@ -109,7 +160,7 @@ def flip2_log_psi_per_walker(work: Work, cache: Cache, sites1: torch.Tensor, sit
     t1 = 2.0 * cache.spins[k, sites1]  # (K,) real
     t2 = 2.0 * cache.spins[k, sites2]
     y1 = cache.y - t1[:, None] * work.w[sites1] - t2[:, None] * work.w[sites2]
-    lnpsi = logcosh(y1).sum(-1) + cache.sa
+    lnpsi = _hidden_sum(work, logcosh(y1)) + cache.sa
     if work.a is not None:
         lnpsi = lnpsi + (-t1 * work.a[sites1] - t2 * work.a[sites2])
     return lnpsi
@@ -143,7 +194,7 @@ def all_flip2_log_psi(work: Work, cache: Cache, sites_a: torch.Tensor, sites_b: 
     ta = 2.0 * cache.spins[:, sites_a]  # (K, T) real
     tb = 2.0 * cache.spins[:, sites_b]
     y1 = cache.y[:, None, :] - ta[:, :, None] * work.w[sites_a][None] - tb[:, :, None] * work.w[sites_b][None]
-    lnpsi = logcosh(y1).sum(-1) + cache.sa[:, None]
+    lnpsi = _hidden_sum(work, logcosh(y1)) + cache.sa[:, None]
     if work.a is not None:
         lnpsi = lnpsi + (-ta * work.a[sites_a][None, :] - tb * work.a[sites_b][None, :])
     return lnpsi

@@ -5,8 +5,10 @@ round t every walker masks its active (anti-aligned) bonds, picks the
 (target+1)-th of its nb active bonds in bond order with
 ``target = min(floor(u_sel[t] * nb), max(nb - 1, 0))``, flips both ends and
 accepts where ``u_acc[t] < exp(2 min(Re dln, 0))`` and nb > 0. A CUDA
-tensor goes to the kernel in ``csrc/exchange.cu`` (float32, RBM family); a
-CPU tensor goes to ``exchange_plain``, the same computation in PyTorch.
+tensor goes to the kernel in ``csrc/exchange.cu`` (float32; an instance for
+the RBM family, c = 1, and one for the FFNN family's complex output
+weights); a CPU tensor goes to ``exchange_plain``, the same computation in
+PyTorch.
 Both take the same caller-drawn uniforms, so they make the same decisions.
 
 Replaces ``neural_network_quantum_state_tpu/ops/pallas_exchange.py``.
@@ -20,7 +22,6 @@ import torch
 
 from neural_network_quantum_state_tpu_torch.ops import build, engine
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
-from neural_network_quantum_state_tpu_torch.ops.logcosh import logcosh
 
 
 def select_active_bond(active: torch.Tensor, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -62,7 +63,7 @@ exchange_plain.calls = 0
 
 def _kernel():
     fn = build.library("exchange").nqs_exchange_f32
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -80,14 +81,11 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel: torch.Te
     dev = cache.spins.device
     if cache.spins.dtype != torch.float32:
         raise NotImplementedError(f"exchange kernel: only float32 is ported, got {cache.spins.dtype}")
-    if work.a is None:
-        raise ValueError("exchange kernel: the RBM family has a visible bias (work.a is None)")
     b, n_steps = bonds.shape[0], u_sel.shape[0]
     if not 1 <= b <= n:
         raise ValueError(f"exchange kernel: bond count {b} not in [1, N={n}]")
-    build.check_inputs("exchange", dev, h, {
-        "w": (work.w, torch.complex64, (n, h)),
-        "a": (work.a, torch.complex64, (n,)),
+    tensors, weights = engine.kernel_weights(work)
+    build.check_inputs("exchange", dev, h, tensors | {
         "bonds": (bonds, torch.int32, (b, 2)),
         "spins": (cache.spins, torch.float32, (k, n)),
         "y": (cache.y, torch.complex64, (k, h)),
@@ -102,14 +100,14 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel: torch.Te
     sa = torch.empty_like(cache.sa)
     acc = torch.empty(k, dtype=torch.int32, device=dev)
     rc = _kernel()(
-        work.w.data_ptr(), work.a.data_ptr(), bonds.data_ptr(), cache.spins.data_ptr(), cache.y.data_ptr(),
+        *weights, bonds.data_ptr(), cache.spins.data_ptr(), cache.y.data_ptr(),
         cache.sa.data_ptr(), u_sel.data_ptr(), u_acc.data_ptr(), spins.data_ptr(), y.data_ptr(),
         sa.data_ptr(), acc.data_ptr(), k, n, h, b, n_steps, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(rc, "exchange kernel")
     exchange_cuda.launches += 1
-    lnpsi = logcosh(y).sum(-1) + sa
-    return Cache(spins=spins, y=y, sa=sa), lnpsi, acc.sum(dtype=torch.float64)
+    cache = Cache(spins=spins, y=y, sa=sa)
+    return cache, engine.cache_log_psi(work, cache), acc.sum(dtype=torch.float64)
 
 
 exchange_cuda.launches = 0

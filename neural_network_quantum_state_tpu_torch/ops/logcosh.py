@@ -12,9 +12,12 @@ complex wrappers take and return native complex tensors.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 LN2 = 0.6931471805599453
+BRANCH_CUT_TOL = 1e-4  # |Arg cosh y| this close to pi counts as on the cut
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:
@@ -35,6 +38,15 @@ def logcosh_ri(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Te
 def logcosh(z: torch.Tensor) -> torch.Tensor:
     """Stable ln cosh z for a complex tensor."""
     return torch.complex(*logcosh_ri(z.real, z.imag))
+
+
+def near_branch_cut(y: torch.Tensor) -> torch.Tensor:
+    """Whether any hidden unit (last axis) of y has |Arg cosh y| within
+    ``BRANCH_CUT_TOL`` of pi, reducing that axis. The phase is the principal value, so ln cosh
+    jumps by 2 pi i across the negative real axis, and ln psi by 2 pi i c_j
+    with complex output weights: two float32 evaluations of one such unit
+    may land on opposite sides."""
+    return (logcosh_ri(y.real, y.imag)[1].abs() > math.pi - BRANCH_CUT_TOL).any(-1)
 
 
 def tanh_ri(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -9,9 +9,11 @@ holds beta_r = (n_beta - r) / n_beta, ``replica_betas``), n_steps is a
 whole number of sweeps of n_sites rounds, and each sweep is followed by the
 even-pair and then the odd-pair swap phase (``swap_phase``) on the caller's
 (n_sweeps, 2, K) swap uniforms. A CUDA tensor goes to the kernel in
-``csrc/sweep.cu`` (float32, RBM family); a CPU tensor goes to
+``csrc/sweep.cu`` (float32); a CPU tensor goes to
 ``sweep_plain``, the same computation in PyTorch. Both take the same
-caller-drawn uniforms, so they make the same decisions.
+caller-drawn uniforms, so they make the same decisions. The kernel has an
+instance for the RBM family (c = 1) and one for the FFNN family's complex
+output weights ``work.c``; a machine without a visible bias gets zeros.
 
 Replaces ``neural_network_quantum_state_tpu/ops/pallas_sweep.py``; the
 plain tempered rounds and swap phase are the JAX package's
@@ -26,7 +28,6 @@ import torch
 
 from neural_network_quantum_state_tpu_torch.ops import build, engine
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
-from neural_network_quantum_state_tpu_torch.ops.logcosh import logcosh
 
 # The kernel's blocks hold whole replica groups of at most 16 warps.
 MAX_NBETA = 16
@@ -139,8 +140,6 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms: tor
     dev = cache.spins.device
     if cache.spins.dtype != torch.float32:
         raise NotImplementedError(f"{kernel} kernel: only float32 is ported, got {cache.spins.dtype}")
-    if work.a is None:
-        raise ValueError(f"{kernel} kernel: the RBM family has a visible bias (work.a is None)")
     if n_beta > MAX_NBETA:
         raise ValueError(f"{kernel} kernel: n_beta={n_beta} above the in-kernel ladder's limit of {MAX_NBETA}")
     sched = torch.as_tensor(schedule, dtype=torch.int32, device=dev)
@@ -148,9 +147,8 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms: tor
     if n_steps == 0:
         raise ValueError(f"{kernel} kernel: no proposal rounds (uniforms has 0 rows)")
     n_sweeps = _check_tempering(k, n_steps, sched.shape[0], n_beta, swap_uniforms)
-    tensors = {
-        "w": (work.w, torch.complex64, (n, h)),
-        "a": (work.a, torch.complex64, (n,)),
+    tensors, weights = engine.kernel_weights(work)
+    tensors |= {
         "spins": (cache.spins, torch.float32, (k, n)),
         "y": (cache.y, torch.complex64, (k, h)),
         "sa": (cache.sa, torch.complex64, (k,)),
@@ -164,8 +162,8 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms: tor
     sa = torch.empty_like(cache.sa)
     stats = torch.empty((2, k), dtype=torch.int32, device=dev)
     symbol = {"sweep": "nqs_sweep_f32", "sweep_energy": "nqs_sweep_offdiag_f32"}[kernel]
-    rc = _kernel(kernel, symbol, 13 + len(extra_outputs))(
-        work.w.data_ptr(), work.a.data_ptr(), cache.spins.data_ptr(), cache.y.data_ptr(), cache.sa.data_ptr(),
+    rc = _kernel(kernel, symbol, 14 + len(extra_outputs))(
+        *weights, cache.spins.data_ptr(), cache.y.data_ptr(), cache.sa.data_ptr(),
         sched.data_ptr(), uniforms.data_ptr(), swap_uniforms.data_ptr() if n_beta > 1 else None,
         spins.data_ptr(), y.data_ptr(), sa.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
         *(t.data_ptr() for t in extra_outputs), k, n, h, sched.shape[0], n_steps, n_beta,
@@ -186,7 +184,7 @@ def sweep_cuda(work: Work, cache: Cache, schedule, uniforms: torch.Tensor, n_bet
     """
     cache, stats = launch_sweeps("sweep", work, cache, schedule, uniforms, n_beta, swap_uniforms)
     sweep_cuda.launches += 1
-    lnpsi = logcosh(cache.y).sum(-1) + cache.sa
+    lnpsi = engine.cache_log_psi(work, cache)
     return cache, lnpsi, stats.to(torch.float64) if rows else stats[0].sum(dtype=torch.float64)
 
 

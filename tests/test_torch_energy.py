@@ -2,10 +2,14 @@
 local energies.
 
 The plain off-diagonal sum is held to the JAX package's chunked path in
-float64 (1e-10) and, in float32, to the JAX Pallas kernel run in interpret
-mode, at that kernel's own bar of 3e-6 relative. The CUDA kernel's tests
+float64 (1e-10; every machine of the registry) and, in float32, to the JAX
+Pallas kernel run in interpret mode, at that kernel's own bars: 3e-6
+relative for the RBM family, 2e-4 for the FFNN family's output weights. The CUDA kernel's tests
 are in test_torch_gpu.py.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -16,16 +20,18 @@ import torch
 from neural_network_quantum_state_tpu.hamiltonians import LITFIChain as JLITFIChain
 from neural_network_quantum_state_tpu.hamiltonians import TFIChain as JTFIChain
 from neural_network_quantum_state_tpu.hamiltonians.ising import _offdiag_sum as j_offdiag_sum
-from neural_network_quantum_state_tpu.models import RBM as JRBM
-from neural_network_quantum_state_tpu.models import RBMTrSymm as JRBMTrSymm
+from neural_network_quantum_state_tpu import models as jmodels
 from neural_network_quantum_state_tpu.ops import engine as jengine
 from neural_network_quantum_state_tpu.ops.cplx import C
 from neural_network_quantum_state_tpu.ops.pallas_energy import pallas_offdiag_sum
 from neural_network_quantum_state_tpu_torch.hamiltonians import LITFIChain, TFIChain
-from neural_network_quantum_state_tpu_torch.models import RBM, RBMTrSymm, params_from_jax
+from neural_network_quantum_state_tpu_torch import models as tmodels
+from neural_network_quantum_state_tpu_torch.models import params_from_jax
 from neural_network_quantum_state_tpu_torch.ops import energy, engine
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
+
+from test_torch_ops import KINDS, _SHAPES
 
 
 def _np(c):
@@ -36,13 +42,22 @@ def _t(x):
     return torch.as_tensor(np.asarray(x))
 
 
+# The shapes at which a port test runs a JAX Pallas kernel with output
+# weights c in interpret mode (walkers, walkers per block). They must differ
+# from every shape of the JAX package's own Pallas tests: with that test's
+# K=128 in blocks of 64, tests/test_pallas_energy.py::
+# test_offdiag_kernel_matches_xla, run later in the same worker on the kernel
+# instances compiled here, deadlocked in JAX's interpret mode in four of
+# seven full runs of the suite; with these shapes, in none of nine.
+# test_ffnn_interpret_shapes_differ_from_the_jax_tests holds the rule.
+FFNN_INTERPRET_K, FFNN_INTERPRET_BLOCK = 64, 32
+
+
 def _setup(kind, n, k, rng, f64=True, scale=0.4):
     """Same machine, parameters and spins in both packages."""
     dj, dt = (jnp.float64, torch.float64) if f64 else (jnp.float32, torch.float32)
-    if kind == "RBM":
-        jm, tm = JRBM(n_inputs=n, n_hiddens=12, dtype=dj), RBM(n_inputs=n, n_hiddens=12, dtype=dt)
-    else:
-        jm, tm = JRBMTrSymm(n_inputs=n, alpha=2, dtype=dj), RBMTrSymm(n_inputs=n, alpha=2, dtype=dt)
+    kw = _SHAPES[kind]
+    jm, tm = jmodels.get_machine(kind, n_inputs=n, dtype=dj, **kw), tmodels.get_machine(kind, n_inputs=n, dtype=dt, **kw)
     if scale is None:  # the JAX machine's own initial parameters, as its kernel tests use
         p_np = {name: _np(v) for name, v in jm.init_params(jax.random.PRNGKey(0)).items()}
     else:
@@ -62,7 +77,7 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("kind", ["RBM", "RBMTrSymm"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_plain_offdiag_matches_jax_f64(kind, rng):
     n = 16
     (jwork, jcache, jln), (work, cache, ln) = _setup(kind, n, 64, rng)
@@ -84,6 +99,43 @@ def test_plain_offdiag_matches_pallas_interpret_f32(kind, rng):
     assert got.dtype == np.complex64
     rel = np.abs(got - want).max() / np.abs(want).max()
     assert rel < 3e-6, rel
+
+
+@pytest.mark.parametrize("kind", ["FFNN", "FFNNTrSymm"])
+def test_plain_offdiag_matches_pallas_interpret_ffnn_f32(kind, rng):
+    """float32 plain path vs the JAX Pallas energy kernel's branch with
+    output weights c (interpret mode) on inputs like the JAX package's own
+    test's (initial parameters, random spins, N=16), at that test's bar
+    against the XLA path: rtol = atol = 2e-4 on each plane. The shapes are
+    FFNN_INTERPRET_K and FFNN_INTERPRET_BLOCK, not that test's."""
+    n = 16
+    (jwork, jcache, jln), (work, cache, ln) = _setup(kind, n, FFNN_INTERPRET_K, rng, f64=False, scale=None)
+    assert work.c is not None and work.a is None
+    want = pallas_offdiag_sum(
+        jwork, jcache, jln, jnp.arange(n, dtype=jnp.int32), block_k=FFNN_INTERPRET_BLOCK, interpret=True
+    )
+    got = energy.offdiag_sum(work, cache, ln)
+    assert got.dtype == torch.complex64
+    np.testing.assert_allclose(got.real.numpy(), np.asarray(want.re), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.imag.numpy(), np.asarray(want.im), rtol=2e-4, atol=2e-4)
+
+
+def test_ffnn_interpret_shapes_differ_from_the_jax_tests():
+    """The port's interpret-mode test with output weights c takes no pair
+    (walker count, block size) of a JAX package test file that runs the
+    energy kernel (the tests/test_pallas*.py that call pallas_offdiag_sum);
+    see FFNN_INTERPRET_K."""
+    pairs = set()
+    for path in Path(__file__).parent.glob("test_pallas*.py"):
+        src = path.read_text()
+        if "pallas_offdiag_sum(" not in src:
+            continue
+        ks = {int(v) for v in re.findall(r"\bk(?:, \w+)* = [^,\n]+, (\d+)", src)}
+        blocks = {int(v) for v in re.findall(r"block_k=(\d+)", src)}
+        assert ks and blocks, path.name
+        pairs |= {(k, b) for k in ks for b in blocks}
+    assert pairs
+    assert (FFNN_INTERPRET_K, FFNN_INTERPRET_BLOCK) not in pairs, sorted(pairs)
 
 
 def test_chunked_plain_path_matches_one_chunk(rng, monkeypatch):
@@ -133,7 +185,7 @@ def test_off_cpu_tensors_never_run_the_plain_sum(rng):
     calls, launches = energy.offdiag_sum_plain.calls, energy.offdiag_sum_cuda.launches
     for f64, err in ((True, NotImplementedError), (False, ValueError)):
         _, (work, cache, ln) = _setup("RBMTrSymm", 16, 8, rng, f64=f64)
-        meta_work = Work(*(t.to("meta") for t in work))
+        meta_work = Work(*(None if t is None else t.to("meta") for t in work))
         with pytest.raises(err):
             energy.offdiag_sum(meta_work, Cache(*(t.to("meta") for t in cache)), ln.to("meta"))
     assert energy.offdiag_sum_plain.calls == calls and energy.offdiag_sum_cuda.launches == launches

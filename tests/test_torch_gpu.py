@@ -13,12 +13,13 @@ import torch
 
 from neural_network_quantum_state_tpu_torch import VMC, VMCConfig
 from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain, TFIChain
-from neural_network_quantum_state_tpu_torch.models import RBM, RBMTrSymm
+from neural_network_quantum_state_tpu_torch.models import FFNN, FFNNTrSymm, RBM, RBMSfSymm, RBMTrSymm, RBMZ2PrSymm
 from neural_network_quantum_state_tpu_torch.ops import energy, engine
 from neural_network_quantum_state_tpu_torch.ops import exchange as exchange_ops
 from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
 from neural_network_quantum_state_tpu_torch.ops import sweep_energy
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
+from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
 from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
 from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard
 
@@ -172,7 +173,7 @@ def test_off_cpu_tensors_never_run_the_plain_exchange():
         work = tm.make_work(tm.init_params(make_generator(0, "cpu")))
         cache, ln = engine.full_forward(work, ham.init_spins(make_generator(1, "cpu"), k, dtype))
         u = torch.rand((2 * l, k), dtype=dtype)
-        meta = lambda t: t.to("meta")  # noqa: E731
+        meta = lambda t: None if t is None else t.to("meta")  # noqa: E731
         with pytest.raises(err):
             exchange_ops.exchange_steps(
                 Work(*map(meta, work)), Cache(*map(meta, cache)), meta(ln), meta(torch.as_tensor(ham.bonds)), meta(u), meta(u)
@@ -188,7 +189,9 @@ def test_off_cpu_tensors_never_run_the_plain_exchange():
 @pytest.mark.gpu
 def test_exchange_kernel_refuses_what_it_does_not_take(cuda):
     """On the card: float64 is not ported, a hidden count above the
-    kernels' 512 and more bonds than sites raise before any launch."""
+    kernels' 512 and more bonds than sites raise before any launch; so do
+    output weights c of the wrong shape or dtype (in every kernel's input
+    checks), and any c in the megakernel (the RBM family only, as JAX)."""
     l, k = 4, 64
     ham = HubbardChain(n_sites=2 * l, n_up=2, n_down=2)
     bonds = torch.as_tensor(ham.bonds, device=cuda)
@@ -206,6 +209,25 @@ def test_exchange_kernel_refuses_what_it_does_not_take(cuda):
         with pytest.raises(err):
             exchange_ops.exchange_steps(work, cache, ln, b, u, u)
     assert exchange_ops.exchange_cuda.launches == launches
+
+    fm = FFNN(n_inputs=2 * l, n_hiddens=32, dtype=torch.float32)
+    fwork = fm.make_work(fm.init_params(g))
+    fcache, fln = engine.full_forward(fwork, ham.init_spins(g, k))
+    sched = torch.as_tensor(chain_checkerboard(2 * l))
+    u = torch.rand((2 * l, k), generator=g, device=cuda)
+    counts = (sweep_ops.sweep_cuda.launches, energy.offdiag_sum_cuda.launches, exchange_ops.exchange_cuda.launches,
+              sweep_energy.sweeps_offdiag_cuda.launches)
+    for bad in (fwork.c[:-1], fwork.c.to(torch.complex128)):
+        bad_work = fwork._replace(c=bad)
+        for call in (lambda: sweep_ops.sweep_cuda(bad_work, fcache, sched, u),
+                     lambda: energy.offdiag_sum_cuda(bad_work, fcache),
+                     lambda: exchange_ops.exchange_cuda(bad_work, fcache, bonds, u, u)):
+            with pytest.raises(ValueError, match="c must be"):
+                call()
+    with pytest.raises(ValueError, match="RBM family"):
+        sweep_energy.sweeps_offdiag(fwork, fcache, fln, sched, u)
+    assert counts == (sweep_ops.sweep_cuda.launches, energy.offdiag_sum_cuda.launches,
+                      exchange_ops.exchange_cuda.launches, sweep_energy.sweeps_offdiag_cuda.launches)
 
 
 def _scaled_rbm(cuda, n, h, k, seed, scale=5.0):
@@ -335,3 +357,119 @@ def test_tempered_vmc_runs_through_the_kernels_on_card(cuda):
     assert all(0.0 < r["acceptance"] < 1.0 for r in history)
     fresh, _ = engine.full_forward(vmc.machine.make_work(params), state.cache.spins)
     torch.testing.assert_close(state.cache.y, fresh.y)
+
+
+def _scaled_ffnn(cuda, n, h, k, seed, scale=1.5):
+    """A plain FFNN of width h (every output weight c_j differs, so a wrong
+    index into c shows), its imaginary planes raised to the size of the
+    real ones (the init keeps them at 0.1 of it), then all scaled by
+    `scale`: |y| ~ 0.3 to 1.1 in both planes from H = 384 to H = 16;
+    random spins and the cache on the card."""
+    tm = FFNN(n_inputs=n, n_hiddens=h, dtype=torch.float32)
+    g = make_generator(seed, cuda)
+    work = tm.make_work({name: scale * torch.complex(v.real, 10.0 * v.imag) for name, v in tm.init_params(g).items()})
+    cache, ln = engine.full_forward(work, torch.where(torch.rand((k, n), generator=g, device=cuda) < 0.5, -1.0, 1.0))
+    return work, cache, ln, g
+
+
+def _agreeing(ck, cp, budget):
+    """Walkers with the same decisions and no hidden unit near the branch
+    cut in either final state; asserts that the others (near-ties and
+    near-cut walkers) stay within `budget` of the walkers."""
+    same = (ck.spins == cp.spins).all(dim=1) & ~near_branch_cut(ck.y) & ~near_branch_cut(cp.y)
+    assert float(same.double().mean()) >= 1.0 - budget
+    return same
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [16, 80, 256, 384])
+def test_has_c_kernels_match_plain_on_card(cuda, h):
+    """The instances with output weights c (plain FFNN) against their plain
+    versions on the same inputs: the sweep at n_beta = 1 and 8, the energy
+    and the exchange; near-cut walkers count with the near-ties."""
+    n, k = 16, 512
+    work, cache, ln, g = _scaled_ffnn(cuda, n, h, k, 40 + h)
+    sched = torch.as_tensor(chain_checkerboard(n))
+    u = torch.rand((2 * n, k), generator=g, device=cuda)
+    us = torch.rand((2, 2, k), generator=g, device=cuda)
+    launches = sweep_ops.sweep_cuda.launches
+    for nb in (1, 8):
+        ck, lk, _ = sweep_ops.metropolis_sweeps(work, cache, ln, sched, u, nb, us if nb > 1 else None)
+        cp, lp, _ = sweep_ops.sweep_plain(work, cache, ln, sched, u, nb, us if nb > 1 else None)
+        same = _agreeing(ck, cp, 2e-2)
+        torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=2e-5)
+        torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
+        fresh, _ = engine.full_forward(work, ck.spins)
+        torch.testing.assert_close(ck.y, fresh.y, rtol=0, atol=2e-5)
+    assert sweep_ops.sweep_cuda.launches == launches + 2
+    near = energy.offdiag_near_cut(work, cache)
+    assert float(near.double().mean()) <= 2e-2
+    got, want = energy.offdiag_sum(work, cache, ln), energy.offdiag_sum_plain(work, cache, ln)
+    assert float((got[~near] - want[~near]).abs().max() / want[~near].abs().max()) < 1e-5
+
+    ham = HubbardChain(n_sites=n, n_up=3, n_down=3)
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    hcache, hln = engine.full_forward(work, ham.init_spins(g, k))
+    u_sel, u_acc = torch.rand((2 * n, k), generator=g, device=cuda), torch.rand((2 * n, k), generator=g, device=cuda)
+    xk, xlk, acc = exchange_ops.exchange_steps(work, hcache, hln, bonds, u_sel, u_acc)
+    xp, xlp, _ = exchange_ops.exchange_plain(work, hcache, hln, bonds, u_sel, u_acc)
+    same = _agreeing(xk, xp, 2e-2)
+    torch.testing.assert_close(xk.y[same], xp.y[same], rtol=0, atol=2e-5)
+    torch.testing.assert_close(xlk[same], xlp[same], rtol=0, atol=2e-4)
+    assert 0 < float(acc) < 2 * n * k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["RBMSfSymm", "RBMZ2PrSymm"])
+def test_bias_free_rbms_run_the_kernels_on_card(cuda, kind):
+    """Machines without a visible bias (the kernels read zeros for a):
+    RBMSfSymm (H = 32) and RBMZ2PrSymm (H = 8: one word, 24 tail lanes)
+    through the sweep, energy and exchange kernels against their plain
+    versions."""
+    n, k = 16, 256
+    tm = RBMSfSymm(n_inputs=n, alpha=2) if kind == "RBMSfSymm" else RBMZ2PrSymm(n_inputs=n, alpha=2)
+    g = make_generator(5, cuda)
+    work = tm.make_work({name: 5.0 * v for name, v in tm.init_params(g).items()})
+    assert work.a is None and work.c is None
+    cache, ln = engine.full_forward(work, torch.where(torch.rand((k, n), generator=g, device=cuda) < 0.5, -1.0, 1.0))
+    sched = torch.as_tensor(chain_checkerboard(n))
+    u = torch.rand((2 * n, k), generator=g, device=cuda)
+    ck, lk, _ = sweep_ops.sweep_cuda(work, cache, sched, u)
+    cp, lp, _ = sweep_ops.sweep_plain(work, cache, ln, sched, u)
+    same = _agreeing(ck, cp, 2e-2)
+    torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=2e-5)
+    torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
+    got, want = energy.offdiag_sum_cuda(work, cache), energy.offdiag_sum_plain(work, cache, ln)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+    ham = HubbardChain(n_sites=n, n_up=3, n_down=3)
+    hcache, hln = engine.full_forward(work, ham.init_spins(g, k))
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    xk, xlk, _ = exchange_ops.exchange_cuda(work, hcache, bonds, u, u.flip(0))
+    xp, xlp, _ = exchange_ops.exchange_plain(work, hcache, hln, bonds, u, u.flip(0))
+    same = _agreeing(xk, xp, 2e-2)
+    torch.testing.assert_close(xlk[same], xlp[same], rtol=0, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_ffnn_vmc_runs_through_the_kernels_on_card(cuda):
+    """FFNNTrSymm training on the card: one sweep launch (its instance with
+    c) per sweep, one energy launch per step, no plain version, finite
+    energies, y consistent with the spins."""
+    n = 16
+    vmc = VMC(
+        FFNNTrSymm(n_inputs=n, alpha=2, dtype=torch.float32),
+        LITFIChain(n_sites=n, h=-0.5, j=0.866, alpha=2.5),
+        VMCConfig(n_walkers=512, learning_rate=1e-2, seed=6),
+        device=cuda,
+    )
+    sweeps0, energy0 = sweep_ops.sweep_cuda.launches, energy.offdiag_sum_cuda.launches
+    plain0 = sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls
+    params, state = vmc.init()
+    state = vmc.warm_up(params, state, 20)
+    params, state, history, _ = vmc.run(params, state, 5)
+    assert len(history) == 5 and all(np.isfinite(r["energy"]) for r in history)
+    assert sweep_ops.sweep_cuda.launches == sweeps0 + 20 + 5
+    assert energy.offdiag_sum_cuda.launches == energy0 + 5
+    assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain0
+    fresh, _ = engine.full_forward(vmc.machine.make_work(params), state.cache.spins)
+    torch.testing.assert_close(state.cache.y, fresh.y, rtol=0, atol=2e-5)

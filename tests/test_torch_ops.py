@@ -15,12 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from neural_network_quantum_state_tpu.models import RBM as JRBM
-from neural_network_quantum_state_tpu.models import RBMTrSymm as JRBMTrSymm
+from neural_network_quantum_state_tpu import models as jmodels
 from neural_network_quantum_state_tpu.ops import engine as jengine
 from neural_network_quantum_state_tpu.ops import logcosh as jlogcosh
 from neural_network_quantum_state_tpu.ops.cplx import C
-from neural_network_quantum_state_tpu_torch.models import RBM, RBMTrSymm, params_from_jax
+from neural_network_quantum_state_tpu_torch import models as tmodels
+from neural_network_quantum_state_tpu_torch.models import params_from_jax
 from neural_network_quantum_state_tpu_torch.ops import engine, logcosh
 
 REPO = Path(__file__).resolve().parents[1]
@@ -38,10 +38,25 @@ def _t(x):
     return torch.as_tensor(np.asarray(x))
 
 
+# Every machine of both registries at N=8, H <= 24: the RBM family, the
+# bias-free RBMs and the FFNN family (output weights c).
+_SHAPES = {
+    "RBM": dict(n_hiddens=12),
+    "RBMTrSymm": dict(alpha=2),
+    "RBMSfSymm": dict(alpha=2),
+    "RBMZ2PrSymm": dict(alpha=3),
+    "FFNN": dict(n_hiddens=12),
+    "FFNNTrSymm": dict(alpha=2),
+    "FFNNSfSymm": dict(alpha=2),
+}
+KINDS = list(_SHAPES)
+
+
 def _machines(n=8):
     return {
-        "RBM": (JRBM(n_inputs=n, n_hiddens=12, dtype=jnp.float64), RBM(n_inputs=n, n_hiddens=12, dtype=torch.float64)),
-        "RBMTrSymm": (JRBMTrSymm(n_inputs=n, alpha=2, dtype=jnp.float64), RBMTrSymm(n_inputs=n, alpha=2, dtype=torch.float64)),
+        kind: (jmodels.get_machine(kind, n_inputs=n, dtype=jnp.float64, **kw),
+               tmodels.get_machine(kind, n_inputs=n, dtype=torch.float64, **kw))
+        for kind, kw in _SHAPES.items()
     }
 
 
@@ -84,7 +99,7 @@ def test_complex_wrappers_match_numpy(rng):
     np.testing.assert_allclose(logcosh.tanh(_t(z)).numpy(), np.tanh(z), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("kind", ["RBM", "RBMTrSymm"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_full_forward_matches_jax(kind, rng):
     jm, tm, jp, tp, spins = _both(kind, rng)
     jcache, jln = jengine.full_forward(jm.make_work(jp), jnp.asarray(spins))
@@ -94,7 +109,7 @@ def test_full_forward_matches_jax(kind, rng):
     np.testing.assert_allclose(ln.numpy(), _np(jln), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("kind", ["RBM", "RBMTrSymm"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_flip_commit_and_all_flips_match_jax(kind, rng):
     jm, tm, jp, tp, spins = _both(kind, rng)
     jwork, work = jm.make_work(jp), tm.make_work(tp)
@@ -119,7 +134,7 @@ def test_flip_commit_and_all_flips_match_jax(kind, rng):
     )
 
 
-@pytest.mark.parametrize("kind", ["RBM", "RBMTrSymm"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_grad_log_matches_jax(kind, rng):
     jm, tm, jp, tp, spins = _both(kind, rng)
     jcache, _ = jengine.full_forward(jm.make_work(jp), jnp.asarray(spins))
@@ -129,7 +144,7 @@ def test_grad_log_matches_jax(kind, rng):
     np.testing.assert_allclose(got.numpy(), _np(jm.grad_log(jp, jcache)), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("kind", ["RBM", "RBMTrSymm"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_flatten_and_update_params_match_jax(kind, rng):
     jm, tm, jp, tp, _ = _both(kind, rng)
     np.testing.assert_allclose(tm.flatten_params(tp).numpy(), _np(jm.flatten_params(jp)), rtol=0, atol=0)

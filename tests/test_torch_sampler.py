@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX package: Metropolis sweeps.
 
 The plain sweep is held to the JAX package's ``metropolis._sweep_scan``
-decision for decision on the same numpy uniforms (float64), and ``sweeps``
+decision for decision on the same numpy uniforms (float64; the RBM family,
+the bias-free RBMZ2PrSymm and the FFNN family's output weights), and ``sweeps``
 is held to exact |psi|^2 by chi^2 and total variation. The
 CUDA kernel's tests are in test_torch_gpu.py.
 """
@@ -11,17 +12,19 @@ import numpy as np
 import pytest
 import torch
 
-from neural_network_quantum_state_tpu.models import RBM as JRBM
-from neural_network_quantum_state_tpu.models import RBMTrSymm as JRBMTrSymm
+from neural_network_quantum_state_tpu import models as jmodels
 from neural_network_quantum_state_tpu.ops import engine as jengine
 from neural_network_quantum_state_tpu.ops.cplx import C
 from neural_network_quantum_state_tpu.sampler import metropolis as jmetropolis
+from neural_network_quantum_state_tpu_torch import models as tmodels
 from neural_network_quantum_state_tpu_torch.models import RBM, RBMTrSymm, params_from_jax
 from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
 from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard, init_state, sweeps
+
+from test_torch_ops import _SHAPES
 
 
 def _np(c):
@@ -32,10 +35,13 @@ def _t(x):
     return torch.as_tensor(np.asarray(x))
 
 
+SWEEP_KINDS = ["RBM", "RBMTrSymm", "RBMZ2PrSymm", "FFNN", "FFNNTrSymm"]
+
+
 def _pair(kind, n, dtype_j, dtype_t):
-    if kind == "RBM":
-        return JRBM(n_inputs=n, n_hiddens=12, dtype=dtype_j), RBM(n_inputs=n, n_hiddens=12, dtype=dtype_t)
-    return JRBMTrSymm(n_inputs=n, alpha=2, dtype=dtype_j), RBMTrSymm(n_inputs=n, alpha=2, dtype=dtype_t)
+    kw = _SHAPES[kind]
+    return (jmodels.get_machine(kind, n_inputs=n, dtype=dtype_j, **kw),
+            tmodels.get_machine(kind, n_inputs=n, dtype=dtype_t, **kw))
 
 
 def _params(jm, rng, scale):
@@ -47,7 +53,7 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("kind", ["RBM", "RBMTrSymm"])
+@pytest.mark.parametrize("kind", SWEEP_KINDS)
 def test_plain_sweep_matches_jax_decision_for_decision(kind, rng):
     n, k, n_sweeps = 8, 64, 3
     jm, tm = _pair(kind, n, jnp.float64, torch.float64)
@@ -161,7 +167,7 @@ def test_off_cpu_tensors_never_run_the_plain_sweep():
         tm = RBMTrSymm(n_inputs=n, alpha=4, dtype=dtype)
         work = tm.make_work(tm.init_params(make_generator(0, "cpu")))
         cache, ln = engine.full_forward(work, torch.ones((k, n), dtype=dtype))
-        meta_work = Work(*(t.to("meta") for t in work))
+        meta_work = Work(*(None if t is None else t.to("meta") for t in work))
         meta_cache = Cache(*(t.to("meta") for t in cache))
         with pytest.raises(err):
             sweep_ops.metropolis_sweeps(meta_work, meta_cache, ln.to("meta"), sched, torch.rand((n, k), dtype=dtype).to("meta"))

@@ -118,7 +118,7 @@ def test_off_cpu_tensors_never_run_the_plain_megakernel():
     n, k = 8, 32
     sched = torch.as_tensor(chain_checkerboard(n))
     calls, launches = sweep_energy.sweeps_offdiag_plain.calls, sweep_energy.sweeps_offdiag_cuda.launches
-    meta = lambda t: t.to("meta")  # noqa: E731
+    meta = lambda t: None if t is None else t.to("meta")  # noqa: E731
     for dtype, nb, err in ((torch.float64, 1, NotImplementedError), (torch.float32, 1, ValueError),
                            (torch.float32, 4, ValueError), (torch.float32, 32, ValueError)):
         tm = RBMTrSymm(n_inputs=n, alpha=2, dtype=dtype)
