@@ -6,6 +6,8 @@
 Phases, each printed with its seconds:
 1. a CUDA device must be present (else exit 1); print its name and power limit;
 2. build the CUDA kernels with nvcc (one process per source, in parallel);
+   print each instance's registers and spill bytes, and the SASS
+   instructions per element of the sweep's and energy kernel's hot loop;
 3. at full width hold each kernel against its plain PyTorch version on the
    same inputs and time both with CUDA events: the sweep and energy kernels
    at the LITFI flagship's N=64, H=256, K=8192 (the sweep at n_beta = 1 and
@@ -18,7 +20,10 @@ Phases, each printed with its seconds:
    energy kernels with a plain FFNN(64, 256) at that shape and of the
    exchange kernel with FFNN(64, 64); the sweep and energy kernels without
    a visible bias (RBMSfSymm, alpha = 4); then every kernel and instance at
-   H = 16, 80 and 384 (widths off the multiples of 32, small K);
+   H = 16, 80 and 384 (widths off the multiples of 32, small K); and the
+   sweep kernel's Philox mode (its uniforms drawn on the chip) against the
+   plain sweep on the same Philox stream, at n_beta = 1 and 8, with and
+   without c, at full width and at H = 16, 80 and 384;
 4. drive the LITFI flagship through the user's entry points (VMC.init,
    warm_up, run) and check that it ran through the sweep and energy
    kernels, never through a plain version, with finite energies;
@@ -39,7 +44,9 @@ Phases, each printed with its seconds:
 9. the megakernel A/B (``megakernel_ab``, n_beta = 1 and 8): its
    cross-check and the time of each arm;
 10. the device time of each kernel and instance on phase 3's inputs
-   (torch.profiler);
+   (torch.profiler; the sweep in the main paths' Philox mode, and also on
+   caller uniforms), beside the instance's registers and spill bytes from
+   the build;
 11. profile 5 more LITFI SR steps, 12. 5 more Hubbard SR steps, 13. 5 more
    FFNN flagship SR steps.
 The profiler runs only after the timed phases 4 to 9, so that it cannot
@@ -50,6 +57,11 @@ limit, and, as the last line, {"ok": true, "device": {...}}. Any failed
 check exits non-zero without that line. A watchdog ends the run after
 LIMIT_S seconds. The script imports no JAX and nothing of the JAX package,
 and writes nothing but the port's gitignored build directory.
+
+    python3 chip_smoke.py --sass LIB.so ...
+
+prints phase 2's SASS counts of the given kernel libraries (a build of
+another tree, say) and exits; it needs ``cuobjdump`` and no card.
 """
 
 from __future__ import annotations
@@ -200,23 +212,98 @@ def _profile_steps(torch, vmc, params, state, step0: int, n_steps: int = 5) -> N
         print(f"  {ms:8.4f} ms/step  {count:6.1f} calls/step  {key[:90]}")
 
 
-def _ptxas_summary(lines) -> str:
-    """'<template arguments>:<registers>' per instantiation (R = ceil(H/32),
-    then 'c' for the instance with output weights c), '+<n>B' where it spills."""
-    out, key = [], None
+# the template parameters of each kernel after R: C (output weights c) and T
+# (the sweep's tempered instance, n_beta > 1), as the instances are named
+TEMPLATE_BOOLS = {"sweep": "ct", "energy": "c", "exchange": "c", "sweep_energy": "t"}
+
+
+def _ptxas_table(name: str, lines) -> dict:
+    """{instance: 'registers[+spill bytes B]'} from the ptxas -v lines of one
+    kernel library; an instance is R = ceil(H/32) followed by the letters of
+    its true template flags (c: output weights, t: tempered)."""
+    out, key = {}, None
     for line in lines:
         m = re.search(r"_kernelI((?:L[ib]\d+E)+)E", line)
         if "Compiling entry function" in line and m:
             args = re.findall(r"L([ib])(\d+)E", m.group(1))
-            key, spill = tuple(int(v) for t, v in args if t == "i") + tuple(int(v) for t, v in args if t == "b"), 0
+            r = [int(v) for t, v in args if t == "i"][0]
+            flags = [int(v) for t, v in args if t == "b"]
+            key, spill = f"{r}" + "".join(f for f, v in zip(TEMPLATE_BOOLS[name], flags) if v), 0
         elif key is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif key is not None and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            name = f"{key[0]}c" if key[1:] == (1,) else str(key[0])
-            out.append((key, f"{name}:{regs}" + (f"+{spill}B" if spill else "")))
+            out[key] = f"{regs}" + (f"+{spill}B" if spill else "")
             key = None
-    return " ".join(item for _, item in sorted(out)) or "(already built)"
+    return out
+
+
+# The hot loop's SASS: the R = 8 instances (H = 256) of the sweep (n_beta = 1,
+# or a build without the tempered flag) and energy kernels, by their mangled
+# template flags after R, and the floating-point and special-function opcodes.
+SASS_R = 8
+SASS_INSTANCES = (("sweep_kernel", "Lb0E(?:Lb0E)?", "sweep RBM"), ("sweep_kernel", "Lb1E(?:Lb0E)?", "sweep has_c"),
+                  ("offdiag_kernel", "Lb0E", "energy RBM"), ("offdiag_kernel", "Lb1E", "energy has_c"))
+SASS_FP = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FRND", "MUFU")
+
+
+def _sass_per_element(cuobjdump: str, lib) -> list[str]:
+    """Static SASS instructions per (site, hidden unit) element in the hot
+    loop of each R = 8 instance in the library `lib`: the innermost
+    backward-branch loop with at least R loads and five shuffles, over R
+    units times its sites per iteration (4 where it holds the energy
+    kernel's reduce-scatter of 4 sites, which has four lane-16 exchanges
+    where a warp sum has one). Cold paths inside the loop count too (a
+    library sincosf's slow reduction, the Philox refill), so this bounds the
+    issued instructions per element from above."""
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    funcs = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = chunk.split("\n", 1)
+        funcs[name.strip()] = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    lines = []
+    for kernel, flags, label in SASS_INSTANCES:
+        names = [n for n in funcs if re.search(rf"{kernel}ILi{SASS_R}E{flags}E", n)]
+        if not names:
+            continue
+        ins, loops = funcs[names[0]], []
+        for a, op in ins:
+            m = re.search(r"BRA (?:\S+ )?0x([0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < a:
+                body = [o for x, o in ins if int(m.group(1), 16) <= x <= a]
+                if sum("LDG" in o for o in body) >= SASS_R and sum("SHFL" in o for o in body) >= 5:
+                    loops.append(body)
+        if not loops:
+            lines.append(f"{label}: no hot loop found")
+            continue
+        body = min(loops, key=len)
+        sites = 4 if sum(bool(re.search(r"SHFL\.BFLY .*, 0x10,", o)) for o in body) == 4 else 1
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", o).split()[0].split(".")[0] for o in body]
+        per = SASS_R * sites
+        fp, mufu, ldl = sum(o in SASS_FP for o in ops), ops.count("MUFU"), ops.count("LDL")
+        lines.append(f"{label} (R={SASS_R}): loop of {len(body)} instructions for {per} elements: "
+                     f"{len(body) / per:.1f} per element, {fp / per:.1f} floating-point/MUFU "
+                     f"(MUFU {mufu / per:.2f}, LDL {ldl / per:.2f})")
+    return lines
+
+
+def _sass_report(libs) -> list[str]:
+    """Phase 2's SASS counts of the libraries `libs`, or why there are none."""
+    from pathlib import Path
+
+    from neural_network_quantum_state_tpu_torch.ops.build import nvcc
+
+    cuobjdump = Path(nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        return [f"SASS per element: not measured ({cuobjdump} not found)"]
+    return [f"{Path(lib).name}: {line}" for lib in libs for line in _sass_per_element(str(cuobjdump), lib)]
+
+
+def _ptxas_summary(table: dict) -> str:
+    """'<instance>:<registers>[+<spill>B]' in the order of R."""
+    items = sorted(table.items(), key=lambda kv: (int(re.match(r"\d+", kv[0]).group(0)), kv[0]))
+    return " ".join(f"{k}:{v}" for k, v in items) or "(already built)"
 
 
 def _require(cond: bool, what: str) -> None:
@@ -282,7 +369,9 @@ def main() -> int:
     from neural_network_quantum_state_tpu_torch.ops import build, engine
     from neural_network_quantum_state_tpu_torch.ops.energy import offdiag_near_cut, offdiag_sum_cuda, offdiag_sum_plain
     from neural_network_quantum_state_tpu_torch.ops.exchange import exchange_cuda, exchange_plain
-    from neural_network_quantum_state_tpu_torch.ops.rng import make_generator, random_spins, uniform_block
+    from neural_network_quantum_state_tpu_torch.ops.rng import (
+        PhiloxDraws, make_generator, philox_key, random_spins, uniform_block,
+    )
     from neural_network_quantum_state_tpu_torch.ops.sweep import sweep_cuda, sweep_plain
     from neural_network_quantum_state_tpu_torch.ops.sweep_energy import sweeps_offdiag_cuda, sweeps_offdiag_plain
 
@@ -307,8 +396,13 @@ def main() -> int:
         return bool(((up == HUB_PARTICLES) & (dn == HUB_PARTICLES)).all())
 
     _enter("2 build", t0)
-    for b in build.build().values():
-        print(f"built {b.name}: {b.seconds:.1f} s -> {b.path.name}; ptxas per R = ceil(H/32): {_ptxas_summary(b.ptxas)}")
+    ptxas, built = {}, build.build()
+    for b in built.values():
+        ptxas[b.name] = _ptxas_table(b.name, b.ptxas)
+        print(f"built {b.name}: {b.seconds:.1f} s -> {b.path.name}; registers per instance "
+              f"(R = ceil(H/32), c: with c, t: tempered): {_ptxas_summary(ptxas[b.name])}")
+    for line in _sass_report([built[name].path for name in ("sweep", "energy")]):
+        print(f"SASS per element: {line}")
 
     _enter("3 kernels vs plain", t0)
     dev = torch.device("cuda")
@@ -474,43 +568,84 @@ def main() -> int:
         _compare(f"H={wh} exchange with c", wk, wlk, wp, wlp, WIDTH_MISMATCH_MAX, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL,
                  failures, cut=True)
 
-    calls = {  # (wrapper, plain version) on the same inputs at the main paths' shapes
-        "sweep": (lambda: sweep_cuda(work, cache, sched, u), lambda: sweep_plain(work, cache, lnpsi, sched, u)),
+    # the Philox mode: the kernel draws its uniforms on the chip, the plain
+    # sweep makes the same numbers (ops/rng.py philox_uniforms)
+    philox = {}
+    for label, w_, c_, ln_, cut in (("", work, cache, lnpsi, False), (" with c", fwork, fcache, flnpsi, True)):
+        for nb in (1, CHECK_NBETA):
+            draws = PhiloxDraws(philox_key(g), N)
+            ck, lk, acc_k = sweep_cuda(w_, c_, sched, draws, nb)
+            cp, lp, acc_p = sweep_plain(w_, c_, ln_, sched, draws, nb)
+            philox[(label, nb)] = _compare(f"sweep{label} philox n_beta={nb}", ck, lk, cp, lp, SWEEP_MISMATCH_MAX,
+                                           SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL, failures, cut=cut)[:2]
+            acc = float(acc_k) / (N * K)
+            print(f"sweep{label} philox n_beta={nb}: flip acceptance kernel {acc:.4f}, plain {float(acc_p) / (N * K):.4f}")
+            if not 0.0 < acc < 1.0:
+                failures.append(f"sweep{label} philox n_beta={nb}: acceptance {acc}")
+    for wh in WIDTHS:
+        wsched = torch.as_tensor(LITFIChain(n_sites=WIDTH_N).schedule())
+        for label, wm in (("", RBM(n_inputs=WIDTH_N, n_hiddens=wh)),
+                          (" with c", FFNN(n_inputs=WIDTH_N, n_hiddens=wh, dtype=torch.float32))):
+            wwork = ffnn_work(wm) if label else wm.make_work({k: PARAM_SCALE * v for k, v in wm.init_params(g).items()})
+            wcache, wln = engine.full_forward(wwork, random_spins(g, WIDTH_K, WIDTH_N))
+            for nb in (1, CHECK_NBETA):
+                draws = PhiloxDraws(philox_key(g), WIDTH_N)
+                wk, wlk, _ = sweep_cuda(wwork, wcache, wsched, draws, nb)
+                wp, wlp, _ = sweep_plain(wwork, wcache, wln, wsched, draws, nb)
+                _compare(f"H={wh} sweep{label} philox n_beta={nb}", wk, wlk, wp, wlp, WIDTH_MISMATCH_MAX, SWEEP_Y_ATOL,
+                         SWEEP_LNPSI_ATOL, failures, cut=bool(label))
+    philox_draws = PhiloxDraws(philox_key(g), N)
+
+    calls = {  # (wrapper, plain version) on the same inputs at the main paths' shapes, in their draw mode
+        "sweep": (lambda: sweep_cuda(work, cache, sched, philox_draws),
+                  lambda: sweep_plain(work, cache, lnpsi, sched, philox_draws)),
         "energy": (lambda: offdiag_sum_cuda(work, cache), lambda: offdiag_sum_plain(work, cache, lnpsi)),
         "exchange": (lambda: exchange_cuda(hwork, hcache, bonds, u_sel, u_acc),
                      lambda: exchange_plain(hwork, hcache, hlnpsi, bonds, u_sel, u_acc)),
         "sweep_energy": (lambda: sweeps_offdiag_cuda(work, cache, sched, u),
                          lambda: sweeps_offdiag_plain(work, cache, lnpsi, sched, u)),
         # the instances with output weights c, on the FFNN inputs of the same shapes
-        "sweep_c": (lambda: sweep_cuda(fwork, fcache, sched, u), lambda: sweep_plain(fwork, fcache, flnpsi, sched, u)),
+        "sweep_c": (lambda: sweep_cuda(fwork, fcache, sched, philox_draws),
+                    lambda: sweep_plain(fwork, fcache, flnpsi, sched, philox_draws)),
         "energy_c": (lambda: offdiag_sum_cuda(fwork, fcache), lambda: offdiag_sum_plain(fwork, fcache, flnpsi)),
         "exchange_c": (lambda: exchange_cuda(hfwork, hfcache, bonds, u_sel, u_acc),
                        lambda: exchange_plain(hfwork, hfcache, hflnpsi, bonds, u_sel, u_acc)),
     }
-    tempered_calls = {
-        "sweep": lambda: sweep_cuda(work, cache, sched, u, CHECK_NBETA, u_swap),
+    uniform_calls = {  # the sweep on caller uniforms, as the tests and the A/B feed it
+        "sweep": lambda: sweep_cuda(work, cache, sched, u),
+        "sweep_c": lambda: sweep_cuda(fwork, fcache, sched, u),
+    }
+    tempered_philox = PhiloxDraws(philox_key(g), N)
+    tempered_calls = {  # the sweep as the tempered path draws, the megakernel as the A/B does
+        "sweep": lambda: sweep_cuda(work, cache, sched, tempered_philox, CHECK_NBETA),
         "sweep_energy": lambda: sweeps_offdiag_cuda(work, cache, sched, u, CHECK_NBETA, u_swap),
-        "sweep_c": lambda: sweep_cuda(fwork, fcache, sched, u, CHECK_NBETA, u_swap),
+        "sweep_c": lambda: sweep_cuda(fwork, fcache, sched, tempered_philox, CHECK_NBETA),
     }
     timing = {name: (_time_ms(torch, fn, 20), _time_ms(torch, plain, 2)) for name, (fn, plain) in calls.items()}
     tempered_ms = {name: _time_ms(torch, fn, 20) for name, fn in tempered_calls.items()}
+    uniform_ms = {name: _time_ms(torch, fn, 20) for name, fn in uniform_calls.items()}
     for name, (w_ms, p_ms) in timing.items():
         print(f"{name}: wrapper {w_ms:.4f} ms, plain {p_ms:.3f} ms per call (CUDA events; a sweep or exchange call is one sweep)")
     for name, w_ms in tempered_ms.items():
         print(f"{name} n_beta={CHECK_NBETA}: wrapper {w_ms:.4f} ms per call (one sweep and its swap phases)")
+    for name, w_ms in uniform_ms.items():
+        print(f"{name} on caller uniforms: wrapper {w_ms:.4f} ms per call")
     _require(not failures, "; ".join(failures))
     c64, f32b, i32b = 8, 4, 4
-    sweep_bytes = (2 * K * h * c64 + 2 * K * N * f32b + 2 * K * c64 + N * K * f32b + N * h * c64 + N * c64
-                   + 2 * K * i32b)
+    # the state in and out, the weights, the counts; the sweep reads a 16-byte
+    # Philox key (the main paths' mode), the megakernel the (N, K) uniforms
+    sweep_bytes = (2 * K * h * c64 + 2 * K * N * f32b + 2 * K * c64 + N * h * c64 + N * c64 + 2 * K * i32b + 16)
+    uniform_bytes = N * K * f32b
     energy_bytes = K * h * c64 + K * N * f32b + N * h * c64 + N * c64 + K * c64
     sweep_bound = _bound_ms(K * N * h * SWEEP_OPS, sweep_bytes)
     energy_bound = _bound_ms(K * N * h * ENERGY_OPS, energy_bytes)
     # the instances with c: their operations, and c read once
     sweep_c_bound = _bound_ms(K * N * h * SWEEP_OPS_C, sweep_bytes + h * c64)
     energy_c_bound = _bound_ms(K * N * h * ENERGY_OPS_C, energy_bytes + h * c64)
-    # the megakernel: the two kernels' operations; its bytes are the sweep's
-    # and the off-diagonal sum's output (the state is read and written once)
-    sweep_energy_bound = _bound_ms(K * N * h * (SWEEP_OPS + ENERGY_OPS), sweep_bytes + K * c64)
+    # the megakernel: the two kernels' operations; its bytes are the sweep's,
+    # the uniforms, and the off-diagonal sum's output (the state is read and
+    # written once)
+    sweep_energy_bound = _bound_ms(K * N * h * (SWEEP_OPS + ENERGY_OPS), sweep_bytes + uniform_bytes + K * c64)
     nb = bonds.shape[0]
     exchange_bound = _bound_ms(
         HUB_K * n_unit * (HUB_H * EXCHANGE_OPS_HIDDEN + nb * EXCHANGE_OPS_BOND),
@@ -656,14 +791,27 @@ def main() -> int:
     path_launches["megakernel A/B"] = ab_launches
 
     _enter("10 kernel device times", t0)
-    device_ms = {name: _device_ms(torch, fn, 20, KERNEL_NAMES[name.removesuffix("_c")]) for name, (fn, _) in calls.items()}
-    tempered_device_ms = {name: _device_ms(torch, fn, 20, KERNEL_NAMES[name.removesuffix("_c")])
-                          for name, fn in tempered_calls.items()}
-    for name, d_ms in device_ms.items():
-        print(f"{name}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call (device time, profiler)")
-    for name, d_ms in tempered_device_ms.items():
-        print(f"{name} n_beta={CHECK_NBETA}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call "
-              "(device time, profiler)")
+    # the instance each timed call runs: R = ceil(H/32), then c and t
+    r_of = {"exchange": (HUB_H + 31) // 32}
+
+    def instance(name, tempered=False):
+        base = name.removesuffix("_c")
+        r = r_of.get(base, (h + 31) // 32)
+        key = f"{r}" + ("c" if name.endswith("_c") else "") + ("t" if tempered and "t" in TEMPLATE_BOOLS[base] else "")
+        return key, ptxas[base].get(key, "not built in this run")
+
+    def device(fn, name):
+        return _device_ms(torch, fn, 20, KERNEL_NAMES[name.removesuffix("_c")])
+
+    device_ms = {name: device(fn, name) for name, (fn, _) in calls.items()}
+    tempered_device_ms = {name: device(fn, name) for name, fn in tempered_calls.items()}
+    uniform_device_ms = {name: device(fn, name) for name, fn in uniform_calls.items()}
+    for title, table, tempered in (("", device_ms, False), (f" n_beta={CHECK_NBETA}", tempered_device_ms, True),
+                                   (" on caller uniforms", uniform_device_ms, False)):
+        for name, d_ms in table.items():
+            key, regs = instance(name, tempered)
+            print(f"{name}{title}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call "
+                  f"(device time, profiler); instance {key}: registers {regs}")
 
     _enter("11 LITFI step profile", t0)
     _profile_steps(torch, vmc, params, state, SR_STEPS)
@@ -677,8 +825,13 @@ def main() -> int:
     _enter("14 report", t0)
     print(f"launches by path: {json.dumps(path_launches)}")
     errs = {
-        "sweep": {"max_abs_err": ln_err, "tolerance": SWEEP_LNPSI_ATOL, "mismatch_share": share,
-                  f"nbeta{CHECK_NBETA}_mismatch_share": t_share, f"nbeta{CHECK_NBETA}_max_abs_err": t_ln_err},
+        "sweep": {"max_abs_err": philox[("", 1)][1], "tolerance": SWEEP_LNPSI_ATOL, "mismatch_share": philox[("", 1)][0],
+                  f"nbeta{CHECK_NBETA}_mismatch_share": philox[("", CHECK_NBETA)][0],
+                  f"nbeta{CHECK_NBETA}_max_abs_err": philox[("", CHECK_NBETA)][1],
+                  # the caller-uniform mode, which the tests and the A/B feed
+                  "uniforms": {"max_abs_err": ln_err, "mismatch_share": share, f"nbeta{CHECK_NBETA}_mismatch_share": t_share,
+                               f"nbeta{CHECK_NBETA}_max_abs_err": t_ln_err, "kernel_ms": uniform_device_ms["sweep"],
+                               "wrapper_ms": uniform_ms["sweep"]}},
         "energy": {"max_abs_err": e_abs, "rel_err": e_rel, "tolerance": ENERGY_RTOL},
         "exchange": {"max_abs_err": x_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": x_share},
         "sweep_energy": {"tolerance": SWEEP_LNPSI_ATOL, "offdiag_tolerance": OFFDIAG_RTOL, **mega[1],
@@ -696,9 +849,14 @@ def main() -> int:
     # the instances with output weights c: the FFNN paths launched them
     ffnn_paths = ("FFNN LITFI", "FFNN Hubbard")
     has_c_errs = {
-        "sweep": {"max_abs_err": sweep_c[1][1], "tolerance": SWEEP_LNPSI_ATOL, "mismatch_share": sweep_c[1][0],
-                  f"nbeta{CHECK_NBETA}_mismatch_share": sweep_c[CHECK_NBETA][0],
-                  f"nbeta{CHECK_NBETA}_max_abs_err": sweep_c[CHECK_NBETA][1]},
+        "sweep": {"max_abs_err": philox[(" with c", 1)][1], "tolerance": SWEEP_LNPSI_ATOL,
+                  "mismatch_share": philox[(" with c", 1)][0],
+                  f"nbeta{CHECK_NBETA}_mismatch_share": philox[(" with c", CHECK_NBETA)][0],
+                  f"nbeta{CHECK_NBETA}_max_abs_err": philox[(" with c", CHECK_NBETA)][1],
+                  "uniforms": {"max_abs_err": sweep_c[1][1], "mismatch_share": sweep_c[1][0],
+                               f"nbeta{CHECK_NBETA}_mismatch_share": sweep_c[CHECK_NBETA][0],
+                               f"nbeta{CHECK_NBETA}_max_abs_err": sweep_c[CHECK_NBETA][1],
+                               "kernel_ms": uniform_device_ms["sweep_c"], "wrapper_ms": uniform_ms["sweep_c"]}},
         "energy": {"max_abs_err": ec_abs, "rel_err": ec_rel, "tolerance": ENERGY_RTOL, "near_cut_share": ec_near},
         "exchange": {"max_abs_err": xc_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": xc_share},
     }
@@ -711,6 +869,7 @@ def main() -> int:
             "ms": device_ms[c] if device_ms[c] is not None else timing[c][0],
             "kernel_ms": device_ms[c], "wrapper_ms": timing[c][0], "plain_ms": timing[c][1],
             "bound_ms": has_c_bounds[name][0], "bound_by": has_c_bounds[name][1], "library_ms": None,
+            "registers": instance(c)[1],
             **({f"nbeta{CHECK_NBETA}_kernel_ms": tempered_device_ms[c], f"nbeta{CHECK_NBETA}_wrapper_ms": tempered_ms[c]}
                if c in tempered_calls else {}),
         }
@@ -726,6 +885,7 @@ def main() -> int:
             "ms": device_ms[name] if device_ms[name] is not None else timing[name][0],
             "kernel_ms": device_ms[name], "wrapper_ms": timing[name][0], "plain_ms": timing[name][1],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+            "registers": instance(name)[1],
             **({f"nbeta{CHECK_NBETA}_kernel_ms": tempered_device_ms[name], f"nbeta{CHECK_NBETA}_wrapper_ms": tempered_ms[name]}
                if name in tempered_calls else {}),
             **({"has_c": has_c(name)} if name in has_c_errs else {}),
@@ -740,6 +900,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sass"]:
+        print("\n".join(_sass_report(sys.argv[2:])))
+        sys.exit(0)
     rc = main()
     sys.stdout.flush()
     os._exit(rc)

@@ -56,7 +56,7 @@ __device__ __forceinline__ unsigned active_word(const int* bonds, const float* s
 }
 
 template <int R, bool C>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock, nqs::min_blocks(R, kWarpsPerBlock))
+__global__ void __launch_bounds__(32 * kWarpsPerBlock, nqs::min_blocks(nqs::narrow_regs(R), kWarpsPerBlock))
 exchange_kernel(const float2* __restrict__ w, const float2* __restrict__ a, const float2* __restrict__ c,
                 const int* __restrict__ bonds, const float* __restrict__ spins_in,
                 const float2* __restrict__ y_in, const float2* __restrict__ sa_in,

@@ -12,24 +12,32 @@
 // of n_sites proposals is followed by the even-pair and then the odd-pair
 // swap phase: rows (r, r+1) exchange when u < exp(2 (1/n_beta) min(ln_{r+1} -
 // ln_r, 0)). The uniforms come from the caller, (n_steps, K) for the flips
-// and (n_sweeps, 2, K) for the swaps, so the kernel and the plain PyTorch
-// version make the same decisions on the same draws.
+// and (n_sweeps, 2, K) for the swaps, or from the kernel's own Philox4x32-10
+// stream on a key (rbm.cuh SweepArgs); the plain PyTorch version
+// takes the same numbers (ops/rng.py::philox_uniforms), so both make the same
+// decisions on the same draws.
 //
 // Design (rbm.cuh): one warp per walker, y in registers (R = ceil(H/32)
-// words per lane, tail lanes masked), spins in shared memory. A block holds a
-// whole number of replica groups, so a swap never leaves the block: the warps
-// of a group post their Re ln psi to shared memory, synchronise, and a warp
-// whose row is swapped takes its partner's row, and with it the partner's
-// beta and uniforms, while its configuration stays in its registers. At the
-// end each warp writes its state to the row it holds. Idle warps past K stay
-// in the block's barriers.
+// words per lane, tail lanes masked), spins in shared memory. The n_beta = 1
+// instances (T = false) carry no beta, no swap phases and no block barrier in
+// the proposal loop. The tempered instances (T = true) hold a whole number of
+// replica groups per block, so a swap never leaves the block: the warps of a
+// group post their Re ln psi to shared memory, synchronise, and a warp whose
+// row is swapped takes its partner's row, and with it the partner's beta and
+// uniforms, while its configuration stays in its registers. At the end each
+// warp writes its state to the row it holds. Idle warps past K stay in the
+// block's barriers.
 //
 // Bound on an H100: about 20 float operations per (walker, step, hidden unit)
-// (about 23 with c: the atan2f and the two products of Re(c l)),
-// against 16 bytes of y per (walker, hidden unit) read and written once per
-// call, so the kernel is bound by operations (K*n_steps*H*20 / 67 TFLOP/s),
-// and in practice by the latency of the expf/sincosf/logf (and atan2f) chain
-// of one proposal, which the resident walkers per SM hide only in part.
+// (about 23 with c: the atan2 and the two products of Re(c l)), against 16
+// bytes of y per (walker, hidden unit) read and written once per call, so the
+// kernel is bound by operations (K*n_steps*H*20 / 67 TFLOP/s), and in
+// practice by the instructions it issues. C = false takes Re ln cosh by the
+// one-cos form with ex2/lg2 on the special-function unit and a reduced
+// polynomial cos; C = true keeps cos/sin(Im y) per unit and rotates them by
+// the energy kernel's table of cos/sin(2 Im w), with the polynomial atan2
+// (rbm.cuh sweep_walker). The library expf/sincosf/logf/atan2f took two to
+// three times as many instructions per element (PERF.md).
 
 #include "rbm.cuh"
 
@@ -37,8 +45,9 @@ namespace {
 
 using nqs::SweepArgs;
 
-template <int R, bool C>
-__global__ void __launch_bounds__(32 * nqs::kMaxWarps, nqs::min_blocks(R, nqs::kMaxWarps))
+template <int R, bool C, bool T>
+__global__ void __launch_bounds__(32 * nqs::sweep_block_warps(T),
+                                  nqs::min_blocks(C ? nqs::kWideRegs : nqs::narrow_regs(R), nqs::sweep_block_warps(T)))
 sweep_kernel(SweepArgs p, const float2* __restrict__ c, const float* __restrict__ spins_in,
              const float2* __restrict__ y_in, const float2* __restrict__ sa_in, float* __restrict__ spins_out,
              float2* __restrict__ y_out, float2* __restrict__ sa_out, int* __restrict__ flip_out,
@@ -70,7 +79,7 @@ sweep_kernel(SweepArgs p, const float2* __restrict__ c, const float* __restrict_
   else __syncthreads();
 
   int row = k;
-  nqs::sweep_walker<R, C>(p, s_c, active, base, row, sp, yr, yi, sa, s_ln, s_flip, s_swap);
+  nqs::sweep_walker<R, C, T>(p, s_c, active, base, row, sp, yr, yi, sa, s_ln, s_flip, s_swap);
 
   if (active) {
     nqs::store_row<R>(y_out + (size_t)row * p.H, p.H, lane, yr, yi);
@@ -84,7 +93,7 @@ sweep_kernel(SweepArgs p, const float2* __restrict__ c, const float* __restrict_
   }
 }
 
-template <int R, bool C>
+template <int R, bool C, bool T>
 cudaError_t launch(const SweepArgs& p, const float2* c, const float* spins_in, const float2* y_in,
                    const float2* sa_in, float* spins_out, float2* y_out, float2* sa_out, int* flip_out,
                    int* swap_out, cudaStream_t stream) {
@@ -92,22 +101,22 @@ cudaError_t launch(const SweepArgs& p, const float2* c, const float* spins_in, c
   const dim3 grid((p.K + G - 1) / G);
   const size_t smem = nqs::sweep_smem_bytes<R, C>(G, p.N);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(sweep_kernel<R, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t e = cudaFuncSetAttribute(sweep_kernel<R, C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  sweep_kernel<R, C><<<grid, 32 * G, smem, stream>>>(p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out,
+  sweep_kernel<R, C, T><<<grid, 32 * G, smem, stream>>>(p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out,
                                                      flip_out, swap_out);
   return cudaGetLastError();
 }
 
-template <bool C>
+template <bool C, bool T>
 cudaError_t dispatch(const SweepArgs& p, const void* c, const void* spins_in, const void* y_in,
                      const void* sa_in, void* spins_out, void* y_out, void* sa_out, void* flip_out,
                      void* swap_out, void* stream) {
 #define NQS_SWEEP_CASE(R)                                                                          \
   case R:                                                                                          \
-    return launch<R, C>(p, static_cast<const float2*>(c), static_cast<const float*>(spins_in),    \
+    return launch<R, C, T>(p, static_cast<const float2*>(c), static_cast<const float*>(spins_in),    \
                         static_cast<const float2*>(y_in), static_cast<const float2*>(sa_in),       \
                         static_cast<float*>(spins_out), static_cast<float2*>(y_out),               \
                         static_cast<float2*>(sa_out), static_cast<int*>(flip_out),                 \
@@ -123,26 +132,35 @@ cudaError_t dispatch(const SweepArgs& p, const void* c, const void* spins_in, co
 }  // namespace
 
 // All complex arrays are interleaved (re, im) float pairs, row-major:
-// w (N, H), a (N,), c (H,) or null (c = 1: the RBM family), y (K, H),
-// sa (K,); spins (K, N); sched (n_sites,); u (n_steps, K); u_swap
-// (n_steps / n_sites, 2, K), read only for n_beta > 1 (n_steps a multiple of
-// n_sites, K a multiple of n_beta, n_beta <= 16).
+// w (N, H), a (N,), c (H,) or null (c = 1: the RBM family); wt the (N, H, 4)
+// floats (Re w, Im w, cos 2 Im w, sin 2 Im w) of energy.cu, read only with c
+// (null without); y (K, H),
+// sa (K,); spins (K, N); sched (n_sites,); u (n_steps, K) and u_swap
+// (n_steps / n_sites, 2, K), read only for n_beta > 1; or u and u_swap null
+// and key (2,) int64 words in [0, 2^32): the Philox stream of rbm.cuh
+// SweepArgs. n_steps is a multiple of n_sites for n_beta > 1, K a
+// multiple of n_beta, n_beta <= 16.
 // flip_out (K,): accepted flips while in each row; swap_out (K,): accepted
 // swaps with each row as the lower member. 1 <= H <= 512.
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int nqs_sweep_f32(const void* w, const void* a, const void* c, const void* spins_in,
+extern "C" int nqs_sweep_f32(const void* w, const void* a, const void* c, const void* wt, const void* spins_in,
                              const void* y_in, const void* sa_in, const void* sched, const void* u,
-                             const void* u_swap, void* spins_out, void* y_out, void* sa_out, void* flip_out,
-                             void* swap_out, int K, int N, int H, int n_sites, int n_steps, int n_beta,
-                             void* stream) {
+                             const void* u_swap, const void* key, void* spins_out, void* y_out, void* sa_out,
+                             void* flip_out, void* swap_out, int K, int N, int H, int n_sites, int n_steps,
+                             int n_beta, void* stream) {
   if (K <= 0 || N <= 0 || n_sites <= 0 || n_steps <= 0 || H < 1 || H > 32 * nqs::kMaxR ||
       nqs::sweep_warps(n_beta) == 0 || K % n_beta != 0)
     return cudaErrorInvalidValue;
-  if (n_beta > 1 && (n_steps % n_sites != 0 || u_swap == nullptr)) return cudaErrorInvalidValue;
+  if (n_beta > 1 && n_steps % n_sites != 0) return cudaErrorInvalidValue;
+  if (u == nullptr ? key == nullptr : n_beta > 1 && u_swap == nullptr) return cudaErrorInvalidValue;
+  if (c != nullptr && wt == nullptr) return cudaErrorInvalidValue;
   const SweepArgs p{static_cast<const float2*>(w), static_cast<const float2*>(a), static_cast<const int*>(sched),
-                    static_cast<const float*>(u), static_cast<const float*>(u_swap), K, N, H, n_sites, n_steps,
+                    static_cast<const float*>(u), static_cast<const float*>(u_swap),
+                    static_cast<const long long*>(key), static_cast<const float4*>(wt), K, N, H, n_sites, n_steps,
                     n_beta};
+#define NQS_SWEEP_ARGS p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out, flip_out, swap_out, stream
   if (c != nullptr)
-    return dispatch<true>(p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out, flip_out, swap_out, stream);
-  return dispatch<false>(p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out, flip_out, swap_out, stream);
+    return n_beta > 1 ? dispatch<true, true>(NQS_SWEEP_ARGS) : dispatch<true, false>(NQS_SWEEP_ARGS);
+  return n_beta > 1 ? dispatch<false, true>(NQS_SWEEP_ARGS) : dispatch<false, false>(NQS_SWEEP_ARGS);
+#undef NQS_SWEEP_ARGS
 }

@@ -19,6 +19,10 @@
 // the fusion saves is the (K, H) round trip of y and the spins through device
 // memory between the two kernels, and one launch.
 //
+// The sweep phase runs the tempered instance of the sweep's device function
+// (any n_beta, T = true) or its n_beta = 1 instance, as sweep.cu does; the
+// energy phase reads the caller's (N, H) table of energy.cu.
+//
 // Bound on an H100: the sum of the two kernels' operations (about 20 per
 // (walker, proposal, hidden unit) and 25 per (walker, site, hidden unit)),
 // against the bytes of one kernel's state read and written once, so it is
@@ -31,10 +35,11 @@ namespace {
 
 using nqs::SweepArgs;
 
-template <int R>
-__global__ void __launch_bounds__(32 * nqs::kMaxWarps, nqs::min_blocks(R, nqs::kMaxWarps))
-sweep_energy_kernel(SweepArgs p, const float* __restrict__ spins_in, const float2* __restrict__ y_in,
-                    const float2* __restrict__ sa_in, float* __restrict__ spins_out,
+template <int R, bool T>
+__global__ void __launch_bounds__(32 * nqs::sweep_block_warps(T),
+                                  nqs::min_blocks(nqs::kWideRegs, nqs::sweep_block_warps(T)))
+sweep_energy_kernel(SweepArgs p, const float4* __restrict__ wt, const float* __restrict__ spins_in,
+                    const float2* __restrict__ y_in, const float2* __restrict__ sa_in, float* __restrict__ spins_out,
                     float2* __restrict__ y_out, float2* __restrict__ sa_out, int* __restrict__ flip_out,
                     int* __restrict__ swap_out, float2* __restrict__ out) {
   extern __shared__ float smem[];
@@ -62,12 +67,12 @@ sweep_energy_kernel(SweepArgs p, const float* __restrict__ spins_in, const float
   __syncthreads();
 
   int row = k;
-  nqs::sweep_walker<R, false>(p, nullptr, active, base, row, sp, yr, yi, sa, s_ln, s_flip, s_swap);
+  nqs::sweep_walker<R, false, T>(p, nullptr, active, base, row, sp, yr, yi, sa, s_ln, s_flip, s_swap);
 
   if (active) {
     nqs::store_row<R>(y_out + (size_t)row * p.H, p.H, lane, yr, yi);
     for (int i = lane; i < p.N; i += 32) spins_out[(size_t)row * p.N + i] = sp[i];
-    const float2 acc = nqs::offdiag_walker<R, false>(p.w, p.a, nullptr, sp, yr, yi, p.N, p.H);
+    const float2 acc = nqs::offdiag_walker<R, false>(wt, p.a, nullptr, sp, yr, yi, p.N, p.H);
     if (lane == 0) {
       sa_out[row] = sa;
       out[row] = acc;
@@ -80,52 +85,65 @@ sweep_energy_kernel(SweepArgs p, const float* __restrict__ spins_in, const float
   }
 }
 
-template <int R>
-cudaError_t launch(const SweepArgs& p, const float* spins_in, const float2* y_in, const float2* sa_in,
-                   float* spins_out, float2* y_out, float2* sa_out, int* flip_out, int* swap_out,
+template <int R, bool T>
+cudaError_t launch(const SweepArgs& p, const float4* wt, const float* spins_in, const float2* y_in,
+                   const float2* sa_in, float* spins_out, float2* y_out, float2* sa_out, int* flip_out, int* swap_out,
                    float2* out, cudaStream_t stream) {
   const int G = nqs::sweep_warps(p.n_beta);
   const dim3 grid((p.K + G - 1) / G);
   const size_t smem = nqs::sweep_smem_bytes<R, false>(G, p.N);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(sweep_energy_kernel<R>,
+    const cudaError_t e = cudaFuncSetAttribute(sweep_energy_kernel<R, T>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  sweep_energy_kernel<R><<<grid, 32 * G, smem, stream>>>(p, spins_in, y_in, sa_in, spins_out, y_out,
-                                                         sa_out, flip_out, swap_out, out);
+  sweep_energy_kernel<R, T><<<grid, 32 * G, smem, stream>>>(p, wt, spins_in, y_in, sa_in, spins_out, y_out,
+                                                            sa_out, flip_out, swap_out, out);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// The arguments of nqs_sweep_f32 (sweep.cu), then out (K,) complex: the
-// off-diagonal sum of each row's post-sweep state. c must be null (the RBM
-// family). Returns the cudaError_t of the launch (0 on success).
-extern "C" int nqs_sweep_offdiag_f32(const void* w, const void* a, const void* c, const void* spins_in,
-                                     const void* y_in, const void* sa_in, const void* sched, const void* u,
-                                     const void* u_swap, void* spins_out, void* y_out, void* sa_out,
-                                     void* flip_out, void* swap_out, void* out, int K, int N, int H,
-                                     int n_sites, int n_steps, int n_beta, void* stream) {
-  if (K <= 0 || N <= 0 || n_sites <= 0 || n_steps <= 0 || H < 1 || H > 32 * nqs::kMaxR ||
-      nqs::sweep_warps(n_beta) == 0 || K % n_beta != 0 || c != nullptr)
-    return cudaErrorInvalidValue;
-  if (n_beta > 1 && (n_steps % n_sites != 0 || u_swap == nullptr)) return cudaErrorInvalidValue;
-  const SweepArgs p{static_cast<const float2*>(w), static_cast<const float2*>(a), static_cast<const int*>(sched),
-                    static_cast<const float*>(u), static_cast<const float*>(u_swap), K, N, H, n_sites, n_steps,
-                    n_beta};
+template <bool T>
+cudaError_t dispatch(const SweepArgs& p, const void* wt, const void* spins_in, const void* y_in, const void* sa_in,
+                     void* spins_out, void* y_out, void* sa_out, void* flip_out, void* swap_out, void* out,
+                     void* stream) {
 #define NQS_SWEEP_ENERGY_CASE(R)                                                                   \
   case R:                                                                                          \
-    return launch<R>(p, static_cast<const float*>(spins_in), static_cast<const float2*>(y_in),    \
-                     static_cast<const float2*>(sa_in), static_cast<float*>(spins_out),           \
-                     static_cast<float2*>(y_out), static_cast<float2*>(sa_out),                   \
-                     static_cast<int*>(flip_out), static_cast<int*>(swap_out),                    \
-                     static_cast<float2*>(out), static_cast<cudaStream_t>(stream));
-  switch ((H + 31) / 32) {
+    return launch<R, T>(p, static_cast<const float4*>(wt), static_cast<const float*>(spins_in),   \
+                        static_cast<const float2*>(y_in), static_cast<const float2*>(sa_in),       \
+                        static_cast<float*>(spins_out), static_cast<float2*>(y_out),               \
+                        static_cast<float2*>(sa_out), static_cast<int*>(flip_out),                 \
+                        static_cast<int*>(swap_out), static_cast<float2*>(out),                    \
+                        static_cast<cudaStream_t>(stream));
+  switch ((p.H + 31) / 32) {
     NQS_FOR_EACH_R(NQS_SWEEP_ENERGY_CASE)
     default:
       return cudaErrorInvalidValue;
   }
 #undef NQS_SWEEP_ENERGY_CASE
+}
+
+}  // namespace
+
+// The arguments of nqs_sweep_f32 (sweep.cu), with the energy kernel's table
+// wt (N, H, 4) floats (energy.cu) and out (K,) complex, the off-diagonal sum
+// of each row's post-sweep state, after swap_out. c must be null (the RBM
+// family). Returns the cudaError_t of the launch (0 on success).
+extern "C" int nqs_sweep_offdiag_f32(const void* w, const void* a, const void* c, const void* spins_in,
+                                     const void* y_in, const void* sa_in, const void* sched, const void* u,
+                                     const void* u_swap, const void* key, void* spins_out, void* y_out,
+                                     void* sa_out, void* flip_out, void* swap_out, const void* wt, void* out,
+                                     int K, int N, int H, int n_sites, int n_steps, int n_beta, void* stream) {
+  if (K <= 0 || N <= 0 || n_sites <= 0 || n_steps <= 0 || H < 1 || H > 32 * nqs::kMaxR ||
+      nqs::sweep_warps(n_beta) == 0 || K % n_beta != 0 || c != nullptr || wt == nullptr)
+    return cudaErrorInvalidValue;
+  if (n_beta > 1 && n_steps % n_sites != 0) return cudaErrorInvalidValue;
+  if (u == nullptr ? key == nullptr : n_beta > 1 && u_swap == nullptr) return cudaErrorInvalidValue;
+  const SweepArgs p{static_cast<const float2*>(w), static_cast<const float2*>(a), static_cast<const int*>(sched),
+                    static_cast<const float*>(u), static_cast<const float*>(u_swap),
+                    static_cast<const long long*>(key), static_cast<const float4*>(wt), K, N, H, n_sites, n_steps,
+                    n_beta};
+#define NQS_SWEEP_ENERGY_ARGS p, wt, spins_in, y_in, sa_in, spins_out, y_out, sa_out, flip_out, swap_out, out, stream
+  return n_beta > 1 ? dispatch<true>(NQS_SWEEP_ENERGY_ARGS) : dispatch<false>(NQS_SWEEP_ENERGY_ARGS);
+#undef NQS_SWEEP_ENERGY_ARGS
 }

@@ -3,8 +3,9 @@
 ``offdiag_sum`` returns, per walker, the complex
 ``sum_i exp(ln psi(flip_i s) - ln psi(s))`` over all N sites. A CUDA tensor
 goes to the kernel in ``csrc/energy.cu`` (float32; an instance for the RBM
-family, c = 1, and one for the FFNN family's complex output weights); a CPU
-tensor goes to ``offdiag_sum_plain``, the chunked PyTorch computation.
+family, c = 1, and one for the FFNN family's complex output weights), which
+reads the weights through the table ``engine.kernel_table``; a CPU tensor
+goes to ``offdiag_sum_plain``, the chunked PyTorch computation.
 
 Replaces ``neural_network_quantum_state_tpu/ops/pallas_energy.py``.
 """
@@ -75,9 +76,10 @@ def offdiag_sum_cuda(work: Work, cache: Cache) -> torch.Tensor:
         "spins": (cache.spins, torch.float32, (k, n)),
         "y": (cache.y, torch.complex64, (k, h)),
     })
+    table = engine.kernel_table(work.w)
     out = torch.empty(k, dtype=torch.complex64, device=dev)
     rc = _kernel()(
-        *weights, cache.spins.data_ptr(), cache.y.data_ptr(), out.data_ptr(), k, n, h,
+        table.data_ptr(), *weights[1:], cache.spins.data_ptr(), cache.y.data_ptr(), out.data_ptr(), k, n, h,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(rc, "energy kernel")

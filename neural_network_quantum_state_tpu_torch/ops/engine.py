@@ -59,6 +59,31 @@ def kernel_weights(work: Work) -> tuple[dict, tuple]:
     return entries, (work.w.data_ptr(), a.data_ptr(), c_ptr)
 
 
+# The last table of kernel_table: (w, w's version counter, table).
+_table_memo: list = [None]
+
+
+def kernel_table(w: torch.Tensor) -> torch.Tensor:
+    """(N, H, 4) float32 (Re w, Im w, cos 2 Im w, sin 2 Im w) of complex64 w:
+    the weights as the energy kernel, the megakernel and the sweep's
+    instances with c read them, one 16-byte load per (site, hidden unit).
+    The kernels take a flipped unit's cos/sin(Im y - 2 s Im w) by angle
+    addition from cos/sin(2 Im w), as the JAX energy kernel's XLA caller
+    tabulates them (``pallas_energy.py``'s c2w/s2w).
+
+    Built once per weight tensor: the last table is kept with its w and w's
+    version counter, so the sweeps of one ``Work`` share one build, and a
+    new w, or an in-place update of this one, makes a new table.
+    """
+    memo = _table_memo[0]
+    if memo is not None and memo[0] is w and memo[1] == w._version:
+        return memo[2]
+    two = 2.0 * w.imag
+    table = torch.stack((w.real, w.imag, torch.cos(two), torch.sin(two)), dim=-1)
+    _table_memo[0] = (w, w._version, table)
+    return table
+
+
 class Cache(NamedTuple):
     """Per-walker machine state threaded through the sampler."""
 

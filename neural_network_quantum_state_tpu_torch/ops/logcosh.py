@@ -8,6 +8,12 @@ For z = x + iy:
 which never overflows for large |x| (cosh z ~ e^{|x|}/2). The split-plane
 form is kept because the CUDA kernels evaluate exactly these planes; the
 complex wrappers take and return native complex tensors.
+
+``logcosh_re_cos``, ``logcosh_ri_cs`` and ``rotate_phase`` are the plain
+forms of the sweep and energy kernels' arithmetic (``csrc/rbm.cuh``): Re ln
+cosh from cos y alone, both planes from (cos y, sin y), and the angle
+addition that gives a flipped unit's (cos, sin) from the walker's and a
+table of cos/sin 2 Im w.
 """
 
 from __future__ import annotations
@@ -25,14 +31,36 @@ def _sign(x: torch.Tensor) -> torch.Tensor:
     return 1.0 - 2.0 * (x < 0).to(x.dtype)
 
 
-def logcosh_ri(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stable ln cosh(x + iy) on split planes; returns (real, imag)."""
+def logcosh_ri_cs(x: torch.Tensor, cos_y: torch.Tensor, sin_y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable ln cosh(x + iy) on split planes from cos y and sin y; returns
+    (real, imag)."""
     absx = x.abs()
     e = torch.exp(-2.0 * absx)
-    re = (1.0 + e) * torch.cos(y)
-    im = (1.0 - e) * torch.sin(y) * _sign(x)
+    re = (1.0 + e) * cos_y
+    im = (1.0 - e) * sin_y * _sign(x)
     mag = 0.5 * torch.log(re * re + im * im)
     return mag + (absx - LN2), torch.atan2(im, re)
+
+
+def logcosh_ri(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable ln cosh(x + iy) on split planes; returns (real, imag)."""
+    return logcosh_ri_cs(x, torch.cos(y), torch.sin(y))
+
+
+def logcosh_re_cos(x: torch.Tensor, cos_y: torch.Tensor) -> torch.Tensor:
+    """Re ln cosh(x + iy) from cos y alone, the sweep kernel's form:
+    4 e^{-2|x|} |cosh(x + iy)|^2 = (1 - e)^2 + 4 e cos^2 y with e = e^{-2|x|}
+    (the TPU sweep kernel's 1 + e^2 + 2 e cos 2y, written as a sum of two
+    terms >= 0, which does not cancel near the zeros of cosh)."""
+    absx = x.abs()
+    e = torch.exp(-2.0 * absx)
+    return 0.5 * torch.log((1.0 - e) ** 2 + 4.0 * e * cos_y * cos_y) + (absx - LN2)
+
+
+def rotate_phase(cos_y, sin_y, cos_2w, sin_2w, s):
+    """(cos, sin) of y - 2 s w for s = +-1 by angle addition from (cos y,
+    sin y) and (cos 2w, sin 2w), the energy kernel's flipped unit."""
+    return cos_y * cos_2w + s * sin_y * sin_2w, sin_y * cos_2w - s * cos_y * sin_2w
 
 
 def logcosh(z: torch.Tensor) -> torch.Tensor:

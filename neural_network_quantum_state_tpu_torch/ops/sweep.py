@@ -10,10 +10,14 @@ whole number of sweeps of n_sites rounds, and each sweep is followed by the
 even-pair and then the odd-pair swap phase (``swap_phase``) on the caller's
 (n_sweeps, 2, K) swap uniforms. A CUDA tensor goes to the kernel in
 ``csrc/sweep.cu`` (float32); a CPU tensor goes to
-``sweep_plain``, the same computation in PyTorch. Both take the same
-caller-drawn uniforms, so they make the same decisions. The kernel has an
+``sweep_plain``, the same computation in PyTorch. The uniforms are either
+tensors drawn by the caller or a ``rng.PhiloxDraws`` (a key): the kernel
+then draws them on the chip and the plain version makes the same
+numbers with ``rng.philox_uniforms``. Either way both take the same uniforms,
+so they make the same decisions. The kernel has an
 instance for the RBM family (c = 1) and one for the FFNN family's complex
-output weights ``work.c``; a machine without a visible bias gets zeros.
+output weights ``work.c``, each at n_beta = 1 and for n_beta > 1; a machine
+without a visible bias gets zeros.
 
 Replaces ``neural_network_quantum_state_tpu/ops/pallas_sweep.py``; the
 plain tempered rounds and swap phase are the JAX package's
@@ -28,6 +32,7 @@ import torch
 
 from neural_network_quantum_state_tpu_torch.ops import build, engine
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
+from neural_network_quantum_state_tpu_torch.ops.rng import PhiloxDraws
 
 # The kernel's blocks hold whole replica groups of at most 16 warps.
 MAX_NBETA = 16
@@ -77,33 +82,49 @@ def swap_phase(cache: Cache, lnpsi: torch.Tensor, u: torch.Tensor, parity: int, 
     return Cache(*map(gather, cache)), gather(lnpsi), acc_lower
 
 
-def _check_tempering(k: int, n_steps: int, n_sites: int, n_beta: int, swap_uniforms) -> int:
-    """Validate a call's replica layout; returns the number of sweeps."""
+def n_rounds(uniforms) -> int:
+    """The proposal rounds of a call: rows of the uniforms tensor, or of the
+    Philox draws."""
+    return uniforms.n_rounds if isinstance(uniforms, PhiloxDraws) else uniforms.shape[0]
+
+
+def _check_tempering(k: int, n_steps: int, n_sites: int, n_beta: int, swap_uniforms, philox: bool = False) -> int:
+    """Validate a call's replica layout; returns the number of sweeps. With
+    Philox draws the swap uniforms come from the same stream, so the caller
+    passes none."""
     if n_beta < 1 or k % n_beta != 0:
         raise ValueError(f"sweep: n_walkers ({k}) must be a multiple of n_beta ({n_beta})")
+    if philox and swap_uniforms is not None:
+        raise ValueError("sweep: with Philox draws the swap uniforms come from the stream; pass none")
     if n_beta == 1:
         return 1
     if n_steps % n_sites != 0:
         raise ValueError(f"sweep: with n_beta > 1 the rounds ({n_steps}) must be whole sweeps of {n_sites}")
     n_sweeps = n_steps // n_sites
+    if philox:
+        return n_sweeps
     if swap_uniforms is None or tuple(swap_uniforms.shape) != (n_sweeps, 2, k):
         got = None if swap_uniforms is None else tuple(swap_uniforms.shape)
         raise ValueError(f"sweep: n_beta > 1 needs swap uniforms of shape {(n_sweeps, 2, k)}, got {got}")
     return n_sweeps
 
 
-def sweep_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniforms: torch.Tensor,
+def sweep_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniforms,
                 n_beta: int = 1, swap_uniforms: torch.Tensor | None = None, rows: bool = False):
     """Plain PyTorch sweeps; returns (cache, lnpsi, n_accepted).
 
-    With ``rows=True`` the third item is a (2, K) float64 tensor instead:
-    the accepted flips of each walker row and the accepted swaps with each
-    row as the lower member.
+    ``uniforms`` is the (n_steps, K) flip block or a ``PhiloxDraws``, whose
+    flip and swap uniforms are made here. With ``rows=True`` the third item
+    is a (2, K) float64 tensor instead: the accepted flips of each walker row
+    and the accepted swaps with each row as the lower member.
     """
     sweep_plain.calls += 1
     sites = [int(s) for s in torch.as_tensor(schedule).tolist()]
-    k, n_steps = lnpsi.shape[0], uniforms.shape[0]
-    n_sweeps = _check_tempering(k, n_steps, len(sites), n_beta, swap_uniforms)
+    k, n_steps = lnpsi.shape[0], n_rounds(uniforms)
+    philox = isinstance(uniforms, PhiloxDraws)
+    n_sweeps = _check_tempering(k, n_steps, len(sites), n_beta, swap_uniforms, philox)
+    if philox:
+        uniforms, swap_uniforms = uniforms.flips(k), uniforms.swaps(n_sweeps, k) if n_beta > 1 else None
     rounds = n_steps // n_sweeps
     beta = replica_betas(n_beta, k // n_beta, cache.spins.dtype, cache.spins.device) if n_beta > 1 else 1.0
     stats = torch.zeros((2, k), dtype=torch.float64, device=lnpsi.device)
@@ -130,11 +151,12 @@ def _kernel(name: str, symbol: str, n_pointers: int):
     return fn
 
 
-def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms: torch.Tensor, n_beta: int,
-                  swap_uniforms: torch.Tensor | None, extra_outputs: tuple = ()):
+def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_beta: int,
+                  swap_uniforms: torch.Tensor | None, extra: tuple = ()):
     """Check the inputs, allocate the outputs and launch ``kernel`` (the
-    sweep kernel, or the fused sweep + energy kernel with its extra output
-    pointers); returns (cache, stats (2, K) int32)."""
+    sweep kernel, or the fused sweep + energy kernel with its extra table and
+    output pointers); returns (cache, stats (2, K) int32). ``uniforms`` is
+    the (n_steps, K) flip block or a ``PhiloxDraws``."""
     k, n = cache.spins.shape
     h = work.w.shape[1]
     dev = cache.spins.device
@@ -143,37 +165,48 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms: tor
     if n_beta > MAX_NBETA:
         raise ValueError(f"{kernel} kernel: n_beta={n_beta} above the in-kernel ladder's limit of {MAX_NBETA}")
     sched = torch.as_tensor(schedule, dtype=torch.int32, device=dev)
-    n_steps = uniforms.shape[0]
+    n_steps = n_rounds(uniforms)
     if n_steps == 0:
         raise ValueError(f"{kernel} kernel: no proposal rounds (uniforms has 0 rows)")
-    n_sweeps = _check_tempering(k, n_steps, sched.shape[0], n_beta, swap_uniforms)
+    philox = isinstance(uniforms, PhiloxDraws)
+    n_sweeps = _check_tempering(k, n_steps, sched.shape[0], n_beta, swap_uniforms, philox)
     tensors, weights = engine.kernel_weights(work)
     tensors |= {
         "spins": (cache.spins, torch.float32, (k, n)),
         "y": (cache.y, torch.complex64, (k, h)),
         "sa": (cache.sa, torch.complex64, (k,)),
-        "uniforms": (uniforms, torch.float32, (n_steps, k)),
     }
-    if n_beta > 1:
-        tensors["swap_uniforms"] = (swap_uniforms, torch.float32, (n_sweeps, 2, k))
+    if philox:
+        tensors["key"] = (uniforms.key, torch.int64, (2,))
+        u_ptr, swap_ptr, key_ptr = None, None, uniforms.key.data_ptr()
+    else:
+        tensors["uniforms"] = (uniforms, torch.float32, (n_steps, k))
+        if n_beta > 1:
+            tensors["swap_uniforms"] = (swap_uniforms, torch.float32, (n_sweeps, 2, k))
+        u_ptr, key_ptr = uniforms.data_ptr(), None
+        swap_ptr = swap_uniforms.data_ptr() if n_beta > 1 else None
     build.check_inputs(kernel, dev, h, tensors)
     spins = torch.empty_like(cache.spins)
     y = torch.empty_like(cache.y)
     sa = torch.empty_like(cache.sa)
     stats = torch.empty((2, k), dtype=torch.int32, device=dev)
     symbol = {"sweep": "nqs_sweep_f32", "sweep_energy": "nqs_sweep_offdiag_f32"}[kernel]
-    rc = _kernel(kernel, symbol, 14 + len(extra_outputs))(
-        *weights, cache.spins.data_ptr(), cache.y.data_ptr(), cache.sa.data_ptr(),
-        sched.data_ptr(), uniforms.data_ptr(), swap_uniforms.data_ptr() if n_beta > 1 else None,
+    pointers = list(weights)
+    if kernel == "sweep":  # its instances with c read the energy kernel's table (rbm.cuh sweep_walker)
+        table = engine.kernel_table(work.w) if work.c is not None else None
+        pointers.append(None if table is None else table.data_ptr())
+    rc = _kernel(kernel, symbol, 12 + len(pointers) + len(extra))(
+        *pointers, cache.spins.data_ptr(), cache.y.data_ptr(), cache.sa.data_ptr(),
+        sched.data_ptr(), u_ptr, swap_ptr, key_ptr,
         spins.data_ptr(), y.data_ptr(), sa.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        *(t.data_ptr() for t in extra_outputs), k, n, h, sched.shape[0], n_steps, n_beta,
+        *(t.data_ptr() for t in extra), k, n, h, sched.shape[0], n_steps, n_beta,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(rc, f"{kernel} kernel")
     return Cache(spins=spins, y=y, sa=sa), stats
 
 
-def sweep_cuda(work: Work, cache: Cache, schedule, uniforms: torch.Tensor, n_beta: int = 1,
+def sweep_cuda(work: Work, cache: Cache, schedule, uniforms, n_beta: int = 1,
                swap_uniforms: torch.Tensor | None = None, rows: bool = False):
     """Launch the sweep kernel; returns (cache, lnpsi, n_accepted), or with
     ``rows=True`` the (2, K) per-row counts of ``sweep_plain``.
@@ -191,10 +224,10 @@ def sweep_cuda(work: Work, cache: Cache, schedule, uniforms: torch.Tensor, n_bet
 sweep_cuda.launches = 0
 
 
-def metropolis_sweeps(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniforms: torch.Tensor,
+def metropolis_sweeps(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniforms,
                       n_beta: int = 1, swap_uniforms: torch.Tensor | None = None, rows: bool = False):
-    """Run uniforms.shape[0] proposal rounds (and for n_beta > 1 the swap
-    phases after each sweep); returns (cache, lnpsi, n_accepted).
+    """Run ``n_rounds(uniforms)`` proposal rounds (and for n_beta > 1 the
+    swap phases after each sweep); returns (cache, lnpsi, n_accepted).
 
     The kernel on a CUDA tensor (or an error), the plain version on a CPU one.
     """

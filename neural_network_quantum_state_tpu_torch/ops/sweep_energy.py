@@ -31,7 +31,7 @@ def _check_rbm_family(work: Work) -> None:
                          "this machine has output weights c (the FFNN family)")
 
 
-def sweeps_offdiag_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniforms: torch.Tensor,
+def sweeps_offdiag_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniforms,
                          n_beta: int = 1, swap_uniforms: torch.Tensor | None = None):
     """The plain sweep, then the plain sum; returns (cache, lnpsi,
     n_accepted, offdiag (K,) complex)."""
@@ -44,14 +44,15 @@ def sweeps_offdiag_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule
 sweeps_offdiag_plain.calls = 0
 
 
-def sweeps_offdiag_cuda(work: Work, cache: Cache, schedule, uniforms: torch.Tensor, n_beta: int = 1,
+def sweeps_offdiag_cuda(work: Work, cache: Cache, schedule, uniforms, n_beta: int = 1,
                         swap_uniforms: torch.Tensor | None = None):
     """Launch the megakernel; returns (cache, lnpsi, n_accepted, offdiag
     (K,) complex64). ln psi of the final states is recomputed with the plain
     log-cosh, as ``ops.sweep.sweep_cuda`` does."""
     _check_rbm_family(work)
     out = torch.empty(cache.spins.shape[0], dtype=torch.complex64, device=cache.spins.device)
-    cache, stats = launch_sweeps("sweep_energy", work, cache, schedule, uniforms, n_beta, swap_uniforms, (out,))
+    extra = (engine.kernel_table(work.w), out)
+    cache, stats = launch_sweeps("sweep_energy", work, cache, schedule, uniforms, n_beta, swap_uniforms, extra)
     sweeps_offdiag_cuda.launches += 1
     lnpsi = engine.cache_log_psi(work, cache)
     return cache, lnpsi, stats[0].sum(dtype=torch.float64), out
@@ -60,7 +61,7 @@ def sweeps_offdiag_cuda(work: Work, cache: Cache, schedule, uniforms: torch.Tens
 sweeps_offdiag_cuda.launches = 0
 
 
-def sweeps_offdiag(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniforms: torch.Tensor,
+def sweeps_offdiag(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniforms,
                    n_beta: int = 1, swap_uniforms: torch.Tensor | None = None):
     """uniforms.shape[0] proposal rounds, then sum_i exp(ln psi(flip_i s')
     - ln psi(s')) on the new states s'; returns (cache, lnpsi, n_accepted,

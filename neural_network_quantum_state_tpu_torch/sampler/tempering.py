@@ -13,8 +13,9 @@ beta = 1 replicas as the strided slice ``[::n_beta]``. Each sweep is one
 kernel, which runs the swap phases in the kernel; on the CPU the plain
 rounds and swap phase (``_tempered_flip_rounds``, ``_swap_phase``, held in
 ``ops/sweep.py`` beside the kernel they mirror). Every draw comes from the
-state's generator: one (n_sites, K) flip block and one (1, 2, K) swap
-block per sweep.
+state's generator (``metropolis.sweep_draws``): on the CPU one (n_sites, K)
+flip block and one (1, 2, K) swap block per sweep, on the card one key of
+the kernel's Philox stream per sweep.
 """
 
 from __future__ import annotations
@@ -22,11 +23,10 @@ from __future__ import annotations
 import torch
 
 from neural_network_quantum_state_tpu_torch.ops.engine import Work
-from neural_network_quantum_state_tpu_torch.ops.rng import uniform_block
 from neural_network_quantum_state_tpu_torch.ops.sweep import metropolis_sweeps, replica_betas
 from neural_network_quantum_state_tpu_torch.ops.sweep import swap_phase as _swap_phase
 from neural_network_quantum_state_tpu_torch.ops.sweep import tempered_flip_rounds as _tempered_flip_rounds
-from neural_network_quantum_state_tpu_torch.sampler.metropolis import MCState, sweeps
+from neural_network_quantum_state_tpu_torch.sampler.metropolis import MCState, sweep_draws, sweeps
 
 __all__ = ["replica_betas", "swap_acceptance_probe", "tempering_sweeps", "tune_n_beta",
            "_swap_phase", "_tempered_flip_rounds"]
@@ -57,8 +57,7 @@ def swap_acceptance_probe(work: Work, state: MCState, schedule: torch.Tensor, n_
     cache, lnpsi = state.cache, state.lnpsi
     stats = torch.zeros((2, k), dtype=torch.float64, device=lnpsi.device)
     for _ in range(n_sweeps):
-        uniforms = uniform_block(state.generator, (n_rounds, k), cache.spins.dtype)
-        swaps = uniform_block(state.generator, (1, 2, k), cache.spins.dtype)
+        uniforms, swaps = sweep_draws(state.generator, cache.spins, n_rounds, n_beta)
         cache, lnpsi, rows = metropolis_sweeps(work, cache, lnpsi, schedule, uniforms, n_beta, swaps, rows=True)
         stats = stats + rows
     per_replica = stats.reshape(2, kb, n_beta).sum(1)  # row w is replica w % n_beta

@@ -20,7 +20,7 @@ from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
 from neural_network_quantum_state_tpu_torch.ops import sweep_energy
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
-from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
+from neural_network_quantum_state_tpu_torch.ops.rng import PhiloxDraws, make_generator, philox_key
 from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard
 
 
@@ -473,3 +473,40 @@ def test_ffnn_vmc_runs_through_the_kernels_on_card(cuda):
     assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain0
     fresh, _ = engine.full_forward(vmc.machine.make_work(params), state.cache.spins)
     torch.testing.assert_close(state.cache.y, fresh.y, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True])
+@pytest.mark.parametrize("n_beta", [1, 8])
+@pytest.mark.parametrize("h", [16, 80, 256, 384])
+def test_redesigned_kernels_match_plain_on_uniforms_and_philox(cuda, h, n_beta, has_c):
+    """The sweep kernel's instance (with or without c, n_beta = 1 or the
+    tempered one) against the plain sweep on the same caller uniforms and on
+    the same Philox stream (the kernel drawing its own), and the energy
+    kernel's instance against the plain sum: the same decisions but for
+    near-ties and near-cut walkers, y and ln psi where they agree."""
+    n, k = 16, 512
+    if has_c:
+        work, cache, ln, g = _scaled_ffnn(cuda, n, h, k, 70 + h)
+    else:
+        tm = RBM(n_inputs=n, n_hiddens=h)
+        g = make_generator(70 + h, cuda)
+        work = tm.make_work({name: 10.0 * v for name, v in tm.init_params(g).items()})
+        cache, ln = engine.full_forward(work, torch.where(torch.rand((k, n), generator=g, device=cuda) < 0.5, -1.0, 1.0))
+    sched = torch.as_tensor(chain_checkerboard(n))
+    u = torch.rand((2 * n, k), generator=g, device=cuda)
+    us = torch.rand((2, 2, k), generator=g, device=cuda) if n_beta > 1 else None
+    draws = PhiloxDraws(philox_key(g), 2 * n)
+    launches = sweep_ops.sweep_cuda.launches
+    for uniforms, swaps in ((u, us), (draws, None)):
+        ck, lk, rows_k = sweep_ops.sweep_cuda(work, cache, sched, uniforms, n_beta, swaps, rows=True)
+        cp, lp, rows_p = sweep_ops.sweep_plain(work, cache, ln, sched, uniforms, n_beta, swaps, rows=True)
+        same = _agreeing(ck, cp, 2e-2)
+        torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=2e-5)
+        torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
+        assert 0 < float(rows_k[0].sum()) < 2 * n * k
+        assert abs(float(rows_k[0].sum() - rows_p[0].sum())) <= 2e-2 * 2 * n * k
+    assert sweep_ops.sweep_cuda.launches == launches + 2
+    near = energy.offdiag_near_cut(work, cache) if has_c else torch.zeros(k, dtype=torch.bool, device=cuda)
+    got, want = energy.offdiag_sum_cuda(work, cache), energy.offdiag_sum_plain(work, cache, ln)
+    assert float((got[~near] - want[~near]).abs().max() / want[~near].abs().max()) < 1e-5

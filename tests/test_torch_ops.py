@@ -18,6 +18,7 @@ import torch
 from neural_network_quantum_state_tpu import models as jmodels
 from neural_network_quantum_state_tpu.ops import engine as jengine
 from neural_network_quantum_state_tpu.ops import logcosh as jlogcosh
+from neural_network_quantum_state_tpu.ops import cplx as jcplx
 from neural_network_quantum_state_tpu.ops.cplx import C
 from neural_network_quantum_state_tpu_torch import models as tmodels
 from neural_network_quantum_state_tpu_torch.models import params_from_jax
@@ -91,6 +92,57 @@ def test_split_planes_match_jax(fn, rng):
     got = getattr(logcosh, fn)(_t(x), _t(y))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype, tol", [(np.float32, 1e-6), (np.float64, 1e-12)])
+def test_kernel_logcosh_forms_match_jax(dtype, tol, rng):
+    """The sweep and energy kernels' forms in plain PyTorch: Re ln cosh from
+    cos y alone, and both planes of a flipped unit from the angle addition of
+    (cos y, sin y) and (cos 2w, sin 2w), against the JAX package's
+    cplx.clogcosh and ops/logcosh.py's logcosh_ri on y' = y - 2 s w. The
+    error of ln|cosh| computed from rounded cos/sin grows as 1/|cosh|^2 near
+    the zeros of cosh, in every form, so the bar is tol * max(1, |cosh|^-2);
+    the phase is compared modulo 2 pi."""
+    n = 1 << 14
+    x, y = rng.normal(scale=1.5, size=n).astype(dtype), rng.normal(scale=3.0, size=n).astype(dtype)
+    w, s = rng.normal(scale=0.5, size=n).astype(dtype), rng.choice([-1.0, 1.0], size=n).astype(dtype)
+    y1 = (y - 2 * s * w).astype(dtype)
+    want = jcplx.clogcosh(jcplx.C(jnp.asarray(x), jnp.asarray(y1)))
+    want_re, want_im = np.asarray(want.re), np.asarray(want.im)
+    bar = tol * np.maximum(1.0, np.abs(np.cosh(x.astype(np.float64) + 1j * y1.astype(np.float64))) ** -2.0)
+    c1, s1 = logcosh.rotate_phase(torch.cos(_t(y)), torch.sin(_t(y)), torch.cos(2 * _t(w)), torch.sin(2 * _t(w)), _t(s))
+    rot_re, rot_im = logcosh.logcosh_ri_cs(_t(x), c1, s1)
+    cos_re = logcosh.logcosh_re_cos(_t(x), torch.cos(_t(y1)))
+    ref_re, ref_im = logcosh.logcosh_ri(_t(x), _t(y1))
+    for got in (rot_re, cos_re):
+        assert got.dtype == torch.from_numpy(x).dtype
+        assert (np.abs(got.numpy() - want_re) <= bar).all()
+        assert (np.abs(got.numpy() - ref_re.numpy()) <= bar).all()
+    for ref in (want_im, ref_im.numpy()):
+        assert (np.abs(np.angle(np.exp(1j * (rot_im.numpy() - ref)))) <= bar).all()
+
+
+def test_kernel_table_built_once_per_weights(rng):
+    """engine.kernel_table: (Re w, Im w, cos 2 Im w, sin 2 Im w) per (site,
+    hidden unit), built once per weight tensor and anew for another tensor
+    or after an in-place update of this one."""
+    w = torch.complex(_t(rng.normal(size=(4, 6)).astype(np.float32)), _t(rng.normal(size=(4, 6)).astype(np.float32)))
+
+    def want(v):
+        v = v.numpy()
+        return np.stack((v.real, v.imag, np.cos(2 * v.imag), np.sin(2 * v.imag)), axis=-1)
+
+    table = engine.kernel_table(w)
+    assert table.dtype == torch.float32 and tuple(table.shape) == (4, 6, 4)
+    np.testing.assert_allclose(table.numpy(), want(w), rtol=1e-6, atol=1e-6)
+    assert engine.kernel_table(w) is table
+    w.mul_(2.0)
+    updated = engine.kernel_table(w)
+    assert updated is not table
+    np.testing.assert_allclose(updated.numpy(), want(w), rtol=1e-6, atol=1e-6)
+    other = w.clone()
+    assert engine.kernel_table(other) is not updated
+    torch.testing.assert_close(engine.kernel_table(other), updated, rtol=0, atol=0)
 
 
 def test_complex_wrappers_match_numpy(rng):
