@@ -7,7 +7,8 @@ Phases, each printed with its seconds:
 1. a CUDA device must be present (else exit 1); print its name and power limit;
 2. build the CUDA kernels with nvcc (one process per source, in parallel);
    print each instance's registers and spill bytes, and the SASS
-   instructions per element of the sweep's and energy kernel's hot loop;
+   instructions per element of the sweep's, the energy and the exchange
+   kernel's hot loops;
 3. at full width hold each kernel against its plain PyTorch version on the
    same inputs and time both with CUDA events: the sweep and energy kernels
    at the LITFI flagship's N=64, H=256, K=8192 (the sweep at n_beta = 1 and
@@ -15,22 +16,26 @@ Phases, each printed with its seconds:
    sweep + energy megakernel at that shape against the sweep kernel followed
    by the energy kernel on the same uniforms and against its plain version
    (n_beta = 1 and 8), the exchange kernel at the Hubbard flagship's N=64,
-   H=64, K=4096, B=64 (one sweep of 64 proposals); the instances with
-   output weights c (the FFNN family) of the sweep (n_beta = 1 and 8) and
-   energy kernels with a plain FFNN(64, 256) at that shape and of the
-   exchange kernel with FFNN(64, 64); the sweep and energy kernels without
-   a visible bias (RBMSfSymm, alpha = 4); then every kernel and instance at
-   H = 16, 80 and 384 (widths off the multiples of 32, small K); and the
-   sweep kernel's Philox mode (its uniforms drawn on the chip) against the
-   plain sweep on the same Philox stream, at n_beta = 1 and 8, with and
-   without c, at full width and at H = 16, 80 and 384;
+   H=64, K=4096, B=64 (one sweep of 64 proposals on its Philox stream, the
+   training paths' mode, and on caller uniforms, and 5 sweeps in one launch
+   on the stream); the instances with output weights c (the FFNN family) of
+   the sweep (n_beta = 1 and 8) and energy kernels with a plain
+   FFNN(64, 256) at that shape and of the exchange kernel with FFNN(64, 64),
+   the same three ways; the sweep and energy kernels without a visible bias
+   (RBMSfSymm, alpha = 4); then every kernel and instance at H = 16, 80 and
+   384 (widths off the multiples of 32, small K; the exchange on caller
+   uniforms and two sweeps in one launch on its stream, which reads W, or
+   with c the table of its rotation, from shared memory at H = 16 and 80 and
+   through L1 at 384: both branches of both instances must run); and the sweep kernel's Philox mode (its uniforms drawn on the chip)
+   against the plain sweep on the same Philox stream, at n_beta = 1 and 8,
+   with and without c, at full width and at H = 16, 80 and 384;
 4. drive the LITFI flagship through the user's entry points (VMC.init,
    warm_up, run) and check that it ran through the sweep and energy
    kernels, never through a plain version, with finite energies;
 5. drive the Hubbard flagship (the L=32 trap chain, 500 warm-up sweeps, 20
-   SR steps) the same way and check that every sweep ran through the
-   exchange kernel, that every walker kept 5 up and 5 down particles, and
-   that the energies are finite;
+   SR steps) the same way and check that each sampler call ran as one
+   launch of the exchange kernel (1 for the warm-up, 1 per step), that every
+   walker kept 5 up and 5 down particles, and that the energies are finite;
 6. drive the tempered LITFI flagship (n_beta = 4: 2048 chains of 4
    replicas, the collapse escalation's default) the same way: every sweep
    through the sweep kernel with its ladder, the energy kernel on the
@@ -39,14 +44,14 @@ Phases, each printed with its seconds:
    100 warm-up sweeps, 20 SR steps) the same way: every sweep and every
    energy through the kernels' instances with c, no plain version;
 8. drive FFNN(64, 64) on the Hubbard flagship's trap chain (200 warm-up
-   sweeps, 5 SR steps): every sweep through the exchange kernel's instance
-   with c, the particle sectors kept;
+   sweeps, 5 SR steps): each sampler call one launch of the exchange
+   kernel's instance with c (1 + 5), the particle sectors kept;
 9. the megakernel A/B (``megakernel_ab``, n_beta = 1 and 8): its
    cross-check and the time of each arm;
 10. the device time of each kernel and instance on phase 3's inputs
-   (torch.profiler; the sweep in the main paths' Philox mode, and also on
-   caller uniforms), beside the instance's registers and spill bytes from
-   the build;
+   (torch.profiler; the sweep and exchange in the main paths' Philox mode,
+   and also on caller uniforms), beside the instance's registers and spill
+   bytes from the build, and the exchange kernel's 5-sweep launch;
 11. profile 5 more LITFI SR steps, 12. 5 more Hubbard SR steps, 13. 5 more
    FFNN flagship SR steps.
 The profiler runs only after the timed phases 4 to 9, so that it cannot
@@ -119,6 +124,10 @@ SWEEP_OPS_C, ENERGY_OPS_C = SWEEP_OPS + 3, ENERGY_OPS + 4
 # pick over the mask (a popcount per 32 bonds) are left out.
 EXCHANGE_OPS_HIDDEN, EXCHANGE_OPS_BOND = 22, 2
 EXCHANGE_OPS_HIDDEN_C = EXCHANGE_OPS_HIDDEN + 3  # as SWEEP_OPS_C
+EXCHANGE_MULTI_SWEEPS = 5  # the sweeps of the one-launch comparison
+# A replica-exchange phase per walker row: the difference of Re ln psi, the
+# beta-scaled min, the exp, the compare and the select.
+SWAP_OPS = 5
 # each wrapper's CUDA kernel, as the profiler names it
 KERNEL_NAMES = {"sweep": "sweep_kernel", "energy": "offdiag_kernel", "exchange": "exchange_kernel",
                 "sweep_energy": "sweep_energy_kernel"}
@@ -219,16 +228,17 @@ TEMPLATE_BOOLS = {"sweep": "ct", "energy": "c", "exchange": "c", "sweep_energy":
 
 def _ptxas_table(name: str, lines) -> dict:
     """{instance: 'registers[+spill bytes B]'} from the ptxas -v lines of one
-    kernel library; an instance is R = ceil(H/32) followed by the letters of
-    its true template flags (c: output weights, t: tempered)."""
+    kernel library; an instance is R = ceil(H/32) (the exchange kernel: G x U,
+    its lanes per walker and units per lane) followed by the letters of its
+    true template flags (c: output weights, t: tempered)."""
     out, key = {}, None
     for line in lines:
         m = re.search(r"_kernelI((?:L[ib]\d+E)+)E", line)
         if "Compiling entry function" in line and m:
             args = re.findall(r"L([ib])(\d+)E", m.group(1))
-            r = [int(v) for t, v in args if t == "i"][0]
+            ints = "x".join(v for t, v in args if t == "i")
             flags = [int(v) for t, v in args if t == "b"]
-            key, spill = f"{r}" + "".join(f for f, v in zip(TEMPLATE_BOOLS[name], flags) if v), 0
+            key, spill = ints + "".join(f for f, v in zip(TEMPLATE_BOOLS[name], flags) if v), 0
         elif key is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif key is not None and "registers" in line:
@@ -245,17 +255,43 @@ SASS_R = 8
 SASS_INSTANCES = (("sweep_kernel", "Lb0E(?:Lb0E)?", "sweep RBM"), ("sweep_kernel", "Lb1E(?:Lb0E)?", "sweep has_c"),
                   ("offdiag_kernel", "Lb0E", "energy RBM"), ("offdiag_kernel", "Lb1E", "energy has_c"))
 SASS_FP = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FRND", "MUFU")
+# The exchange kernel's instance of the Hubbard flagship (H = 64): G = 8 lanes
+# per walker, U = 8 units per lane; its proposal loop with W in shared memory.
+SASS_EXCHANGE_G, SASS_EXCHANGE_U = 8, 8
+
+
+def _loops(ins):
+    """The backward-branch loops of a function's (address, opcode) list, as
+    lists of opcodes."""
+    out = []
+    for a, op in ins:
+        m = re.search(r"BRA (?:\S+ )?0x([0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < a:
+            out.append([o for x, o in ins if int(m.group(1), 16) <= x <= a])
+    return out
+
+
+def _per_element(label, body, per) -> str:
+    ops = [re.sub(r"^@!?U?P\w+\s+", "", o).split()[0].split(".")[0] for o in body]
+    fp, mufu, ldl = sum(o in SASS_FP for o in ops), ops.count("MUFU"), ops.count("LDL")
+    return (f"{label}: loop of {len(body)} instructions for {per} elements: "
+            f"{len(body) / per:.1f} per element, {fp / per:.1f} floating-point/MUFU "
+            f"(MUFU {mufu / per:.2f}, LDL {ldl / per:.2f})")
 
 
 def _sass_per_element(cuobjdump: str, lib) -> list[str]:
-    """Static SASS instructions per (site, hidden unit) element in the hot
-    loop of each R = 8 instance in the library `lib`: the innermost
-    backward-branch loop with at least R loads and five shuffles, over R
-    units times its sites per iteration (4 where it holds the energy
-    kernel's reduce-scatter of 4 sites, which has four lane-16 exchanges
-    where a warp sum has one). Cold paths inside the loop count too (a
-    library sincosf's slow reduction, the Philox refill), so this bounds the
-    issued instructions per element from above."""
+    """Static SASS instructions per (site or proposal, hidden unit) element
+    in the hot loop of each instance above in the library `lib`. Sweep and
+    energy: the innermost backward-branch loop with at least R loads and five
+    shuffles, over R units times its sites per iteration (4 where it holds
+    the energy kernel's reduce-scatter of 4 sites, which has four lane-16
+    exchanges where a warp sum has one). Exchange: the proposal loop (the
+    smallest loop with the hidden sum's log2 G butterfly shuffles, the two
+    draw shuffles and 2U shared-memory loads of W) over the U units of a
+    lane (LDS.64 of w, or LDS.128 of the rotation's table where a build
+    has it). Cold paths inside the loop count too (a library sincosf's slow
+    reduction, the Philox refill, the words past the registers), so this
+    bounds the issued instructions per element from above."""
     text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, timeout=120,
                           check=True).stdout
     funcs = {}
@@ -267,24 +303,26 @@ def _sass_per_element(cuobjdump: str, lib) -> list[str]:
         names = [n for n in funcs if re.search(rf"{kernel}ILi{SASS_R}E{flags}E", n)]
         if not names:
             continue
-        ins, loops = funcs[names[0]], []
-        for a, op in ins:
-            m = re.search(r"BRA (?:\S+ )?0x([0-9a-f]+)", op)
-            if m and int(m.group(1), 16) < a:
-                body = [o for x, o in ins if int(m.group(1), 16) <= x <= a]
-                if sum("LDG" in o for o in body) >= SASS_R and sum("SHFL" in o for o in body) >= 5:
-                    loops.append(body)
+        loops = [body for body in _loops(funcs[names[0]])
+                 if sum("LDG" in o for o in body) >= SASS_R and sum("SHFL" in o for o in body) >= 5]
         if not loops:
             lines.append(f"{label}: no hot loop found")
             continue
         body = min(loops, key=len)
         sites = 4 if sum(bool(re.search(r"SHFL\.BFLY .*, 0x10,", o)) for o in body) == 4 else 1
-        ops = [re.sub(r"^@!?U?P\w+\s+", "", o).split()[0].split(".")[0] for o in body]
-        per = SASS_R * sites
-        fp, mufu, ldl = sum(o in SASS_FP for o in ops), ops.count("MUFU"), ops.count("LDL")
-        lines.append(f"{label} (R={SASS_R}): loop of {len(body)} instructions for {per} elements: "
-                     f"{len(body) / per:.1f} per element, {fp / per:.1f} floating-point/MUFU "
-                     f"(MUFU {mufu / per:.2f}, LDL {ldl / per:.2f})")
+        lines.append(_per_element(f"{label} (R={SASS_R})", body, SASS_R * sites))
+    g, u = SASS_EXCHANGE_G, SASS_EXCHANGE_U
+    for flag, label in (("0", "exchange RBM"), ("1", "exchange has_c")):
+        names = [n for n in funcs if re.search(rf"exchange_kernelILi{g}ELi{u}ELb{flag}E", n)]
+        if not names:
+            continue
+        loops = [body for body in _loops(funcs[names[0]])
+                 if sum("SHFL.BFLY" in o for o in body) >= int(math.log2(g)) and sum("SHFL.IDX" in o for o in body) >= 2
+                 and sum(bool(re.search(r"LDS\.(64|128)", o)) for o in body) >= 2 * u]
+        if not loops:
+            lines.append(f"{label}: no proposal loop found")
+            continue
+        lines.append(_per_element(f"{label} (G={g}, U={u}, W in shared memory)", min(loops, key=len), u))
     return lines
 
 
@@ -302,7 +340,7 @@ def _sass_report(libs) -> list[str]:
 
 def _ptxas_summary(table: dict) -> str:
     """'<instance>:<registers>[+<spill>B]' in the order of R."""
-    items = sorted(table.items(), key=lambda kv: (int(re.match(r"\d+", kv[0]).group(0)), kv[0]))
+    items = sorted(table.items(), key=lambda kv: ([int(v) for v in re.findall(r"\d+", kv[0])], kv[0]))
     return " ".join(f"{k}:{v}" for k, v in items) or "(already built)"
 
 
@@ -368,9 +406,9 @@ def main() -> int:
     from neural_network_quantum_state_tpu_torch.models import FFNN, FFNNTrSymm, RBM, RBMSfSymm, RBMTrSymm
     from neural_network_quantum_state_tpu_torch.ops import build, engine
     from neural_network_quantum_state_tpu_torch.ops.energy import offdiag_near_cut, offdiag_sum_cuda, offdiag_sum_plain
-    from neural_network_quantum_state_tpu_torch.ops.exchange import exchange_cuda, exchange_plain
+    from neural_network_quantum_state_tpu_torch.ops.exchange import exchange_cuda, exchange_plain, kernel_lanes, stages_w
     from neural_network_quantum_state_tpu_torch.ops.rng import (
-        PhiloxDraws, make_generator, philox_key, random_spins, uniform_block,
+        ExchangeDraws, PhiloxDraws, make_generator, philox_key, random_spins, uniform_block,
     )
     from neural_network_quantum_state_tpu_torch.ops.sweep import sweep_cuda, sweep_plain
     from neural_network_quantum_state_tpu_torch.ops.sweep_energy import sweeps_offdiag_cuda, sweeps_offdiag_plain
@@ -401,7 +439,7 @@ def main() -> int:
         ptxas[b.name] = _ptxas_table(b.name, b.ptxas)
         print(f"built {b.name}: {b.seconds:.1f} s -> {b.path.name}; registers per instance "
               f"(R = ceil(H/32), c: with c, t: tempered): {_ptxas_summary(ptxas[b.name])}")
-    for line in _sass_report([built[name].path for name in ("sweep", "energy")]):
+    for line in _sass_report([built[name].path for name in ("sweep", "energy", "exchange")]):
         print(f"SASS per element: {line}")
 
     _enter("3 kernels vs plain", t0)
@@ -473,20 +511,50 @@ def main() -> int:
         mega[nb] = {"mismatch_vs_kernels": share2, "offdiag_rel_vs_kernels": rel2, "mismatch_share": share_p,
                     "max_abs_err": ln_p, "offdiag_rel_err": rel_p}
 
-    # the exchange kernel at the Hubbard flagship's shapes, one sweep
+    # the exchange kernel at the Hubbard flagship's shapes: one sweep on the
+    # kernel's Philox stream (the training paths' mode) and on caller
+    # uniforms, and one launch of several sweeps on the stream
     hn, n_unit = 2 * HUB_L, hubbard.n_unit_steps
     hparams = {k: PARAM_SCALE * v for k, v in RBM(n_inputs=hn, n_hiddens=HUB_H).init_params(g).items()}
     hwork = RBM(n_inputs=hn, n_hiddens=HUB_H).make_work(hparams)
     hcache, hlnpsi = engine.full_forward(hwork, hubbard.init_spins(g, HUB_K))
     bonds = torch.as_tensor(hubbard.bonds, device=dev)
     u_sel, u_acc = uniform_block(g, (n_unit, HUB_K)), uniform_block(g, (n_unit, HUB_K))
-    xk, xlk, xacc_k = exchange_cuda(hwork, hcache, bonds, u_sel, u_acc)
-    xp, xlp, xacc_p = exchange_plain(hwork, hcache, hlnpsi, bonds, u_sel, u_acc)
-    x_share, x_ln_err, _ = _compare("exchange", xk, xlk, xp, xlp, EXCHANGE_MISMATCH_MAX, EXCHANGE_Y_ATOL,
-                                    EXCHANGE_LNPSI_ATOL, failures)
+    exchange_draws = ExchangeDraws(philox_key(g), n_unit)
+    multi_draws = ExchangeDraws(philox_key(g), EXCHANGE_MULTI_SWEEPS * n_unit)
+    staged_seen = set()  # (with c, W from shared memory) of each exchange comparison
+
+    def exchange_vs_plain(label, w_, c_, ln_, bonds_, uniforms, mismatch_max, cut):
+        """Kernel vs plain exchange rounds on the same uniforms (an
+        ExchangeDraws, or the (u_sel, u_acc) pair); the sectors kept. Returns
+        (share, ln_err, acceptance)."""
+        args = (uniforms,) if isinstance(uniforms, ExchangeDraws) else uniforms
+        k_, n_ = c_.spins.shape
+        staged_seen.add((w_.c is not None, stages_w(n_, w_.w.shape[1], bonds_.shape[0], w_.c is not None)))
+        ck, lk, acc_k = exchange_cuda(w_, c_, bonds_, *args)
+        cp, lp, acc_p = exchange_plain(w_, c_, ln_, bonds_, *args)
+        share_, ln_err_, _ = _compare(label, ck, lk, cp, lp, mismatch_max, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL,
+                                      failures, cut=cut)
+        n_steps = args[0].n_steps if isinstance(uniforms, ExchangeDraws) else args[0].shape[0]
+        before = (c_.spins > 0).sum(1)
+        kept = bool(((ck.spins > 0).sum(1) == before).all())
+        acc = float(acc_k) / (n_steps * k_)
+        print(f"{label}: acceptance kernel {acc:.4f}, plain {float(acc_p) / (n_steps * k_):.4f}; particles kept: {kept}")
+        if not kept:
+            failures.append(f"{label}: a walker changed its particle number")
+        if not 0.0 < acc < 1.0:
+            failures.append(f"{label}: acceptance {acc}")
+        return share_, ln_err_, acc
+
+    x_share, x_ln_err, _ = exchange_vs_plain("exchange philox", hwork, hcache, hlnpsi, bonds, exchange_draws,
+                                             EXCHANGE_MISMATCH_MAX, False)
+    xu_share, xu_ln_err, _ = exchange_vs_plain("exchange", hwork, hcache, hlnpsi, bonds, (u_sel, u_acc),
+                                               EXCHANGE_MISMATCH_MAX, False)
+    xm_share, xm_ln_err, _ = exchange_vs_plain(f"exchange philox, {EXCHANGE_MULTI_SWEEPS} sweeps in one launch", hwork,
+                                               hcache, hlnpsi, bonds, multi_draws, EXCHANGE_MISMATCH_MAX, False)
+    xk, _, _ = exchange_cuda(hwork, hcache, bonds, exchange_draws)
     x_sector = sector_ok(xk.spins)
-    print(f"exchange: acceptance kernel {float(xacc_k) / (n_unit * HUB_K):.4f}, plain "
-          f"{float(xacc_p) / (n_unit * HUB_K):.4f}; {HUB_PARTICLES}+{HUB_PARTICLES} sectors kept: {x_sector}")
+    print(f"exchange: {HUB_PARTICLES}+{HUB_PARTICLES} sectors kept: {x_sector}")
     if not x_sector:
         failures.append("exchange kernel: a walker left its particle sector")
 
@@ -507,12 +575,13 @@ def main() -> int:
         print(f"sweep with c n_beta={nb}: flip acceptance kernel {float(acc_k) / (N * K):.4f}, plain {float(acc_p) / (N * K):.4f}")
     hfwork = ffnn_work(FFNN(n_inputs=hn, n_hiddens=FFNN_HUB_H, dtype=torch.float32))
     hfcache, hflnpsi = engine.full_forward(hfwork, hubbard.init_spins(g, HUB_K))
-    xk, xlk, xacc_k = exchange_cuda(hfwork, hfcache, bonds, u_sel, u_acc)
-    xp, xlp, xacc_p = exchange_plain(hfwork, hfcache, hflnpsi, bonds, u_sel, u_acc)
-    xc_share, xc_ln_err, _ = _compare("exchange with c", xk, xlk, xp, xlp, EXCHANGE_MISMATCH_MAX, EXCHANGE_Y_ATOL,
-                                      EXCHANGE_LNPSI_ATOL, failures, cut=True)
-    print(f"exchange with c: acceptance kernel {float(xacc_k) / (n_unit * HUB_K):.4f}, plain "
-          f"{float(xacc_p) / (n_unit * HUB_K):.4f}; sectors kept: {sector_ok(xk.spins)}")
+    xc_share, xc_ln_err, _ = exchange_vs_plain("exchange with c philox", hfwork, hfcache, hflnpsi, bonds,
+                                               exchange_draws, EXCHANGE_MISMATCH_MAX, True)
+    xcu_share, xcu_ln_err, _ = exchange_vs_plain("exchange with c", hfwork, hfcache, hflnpsi, bonds, (u_sel, u_acc),
+                                                 EXCHANGE_MISMATCH_MAX, True)
+    xcm_share, xcm_ln_err, _ = exchange_vs_plain(f"exchange with c philox, {EXCHANGE_MULTI_SWEEPS} sweeps in one launch",
+                                                 hfwork, hfcache, hflnpsi, bonds, multi_draws, EXCHANGE_MISMATCH_MAX, True)
+    xk, _, _ = exchange_cuda(hfwork, hfcache, bonds, exchange_draws)
     if not sector_ok(xk.spins):
         failures.append("exchange kernel with c: a walker left its particle sector")
 
@@ -547,9 +616,9 @@ def main() -> int:
         whc, whl = engine.full_forward(wwork, wham.init_spins(g, WIDTH_K))
         wb = torch.as_tensor(wham.bonds, device=dev)
         ws, wa = uniform_block(g, (WIDTH_N, WIDTH_K)), uniform_block(g, (WIDTH_N, WIDTH_K))
-        wk, wlk, _ = exchange_cuda(wwork, whc, wb, ws, wa)
-        wp, wlp, _ = exchange_plain(wwork, whc, whl, wb, ws, wa)
-        _compare(f"H={wh} exchange", wk, wlk, wp, wlp, WIDTH_MISMATCH_MAX, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL, failures)
+        wx = ExchangeDraws(philox_key(g), 2 * WIDTH_N)  # two sweeps in one launch
+        exchange_vs_plain(f"H={wh} exchange", wwork, whc, whl, wb, (ws, wa), WIDTH_MISMATCH_MAX, False)
+        exchange_vs_plain(f"H={wh} exchange philox", wwork, whc, whl, wb, wx, WIDTH_MISMATCH_MAX, False)
         print(f"H={wh}: energy relative error {w_rel:.3e}, sweep_energy offdiag {wm_rel:.3e} (tol {ENERGY_RTOL:.0e})")
         if not (w_rel <= ENERGY_RTOL and wm_rel <= ENERGY_RTOL):
             failures.append(f"H={wh}: energy {w_rel:.3e}, sweep_energy {wm_rel:.3e}")
@@ -563,10 +632,8 @@ def main() -> int:
                      SWEEP_LNPSI_ATOL, failures, cut=True)
         energy_vs_plain(f"H={wh} energy with c", wfwork, wfcache, wfln, ENERGY_RTOL, WIDTH_MISMATCH_MAX)
         whc, whl = engine.full_forward(wfwork, wham.init_spins(g, WIDTH_K))
-        wk, wlk, _ = exchange_cuda(wfwork, whc, wb, ws, wa)
-        wp, wlp, _ = exchange_plain(wfwork, whc, whl, wb, ws, wa)
-        _compare(f"H={wh} exchange with c", wk, wlk, wp, wlp, WIDTH_MISMATCH_MAX, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL,
-                 failures, cut=True)
+        exchange_vs_plain(f"H={wh} exchange with c", wfwork, whc, whl, wb, (ws, wa), WIDTH_MISMATCH_MAX, True)
+        exchange_vs_plain(f"H={wh} exchange with c philox", wfwork, whc, whl, wb, wx, WIDTH_MISMATCH_MAX, True)
 
     # the Philox mode: the kernel draws its uniforms on the chip, the plain
     # sweep makes the same numbers (ops/rng.py philox_uniforms)
@@ -595,25 +662,30 @@ def main() -> int:
                 _compare(f"H={wh} sweep{label} philox n_beta={nb}", wk, wlk, wp, wlp, WIDTH_MISMATCH_MAX, SWEEP_Y_ATOL,
                          SWEEP_LNPSI_ATOL, failures, cut=bool(label))
     philox_draws = PhiloxDraws(philox_key(g), N)
+    print(f"exchange: (with c, W from shared memory) over the comparisons: {sorted(staged_seen)}")
+    if len(staged_seen) != 4:
+        failures.append(f"exchange: the comparisons missed a W branch: ran {sorted(staged_seen)}")
 
     calls = {  # (wrapper, plain version) on the same inputs at the main paths' shapes, in their draw mode
         "sweep": (lambda: sweep_cuda(work, cache, sched, philox_draws),
                   lambda: sweep_plain(work, cache, lnpsi, sched, philox_draws)),
         "energy": (lambda: offdiag_sum_cuda(work, cache), lambda: offdiag_sum_plain(work, cache, lnpsi)),
-        "exchange": (lambda: exchange_cuda(hwork, hcache, bonds, u_sel, u_acc),
-                     lambda: exchange_plain(hwork, hcache, hlnpsi, bonds, u_sel, u_acc)),
+        "exchange": (lambda: exchange_cuda(hwork, hcache, bonds, exchange_draws),
+                     lambda: exchange_plain(hwork, hcache, hlnpsi, bonds, exchange_draws)),
         "sweep_energy": (lambda: sweeps_offdiag_cuda(work, cache, sched, u),
                          lambda: sweeps_offdiag_plain(work, cache, lnpsi, sched, u)),
         # the instances with output weights c, on the FFNN inputs of the same shapes
         "sweep_c": (lambda: sweep_cuda(fwork, fcache, sched, philox_draws),
                     lambda: sweep_plain(fwork, fcache, flnpsi, sched, philox_draws)),
         "energy_c": (lambda: offdiag_sum_cuda(fwork, fcache), lambda: offdiag_sum_plain(fwork, fcache, flnpsi)),
-        "exchange_c": (lambda: exchange_cuda(hfwork, hfcache, bonds, u_sel, u_acc),
-                       lambda: exchange_plain(hfwork, hfcache, hflnpsi, bonds, u_sel, u_acc)),
+        "exchange_c": (lambda: exchange_cuda(hfwork, hfcache, bonds, exchange_draws),
+                       lambda: exchange_plain(hfwork, hfcache, hflnpsi, bonds, exchange_draws)),
     }
-    uniform_calls = {  # the sweep on caller uniforms, as the tests and the A/B feed it
+    uniform_calls = {  # the sweep and exchange on caller uniforms, as the tests (and the A/B) feed them
         "sweep": lambda: sweep_cuda(work, cache, sched, u),
         "sweep_c": lambda: sweep_cuda(fwork, fcache, sched, u),
+        "exchange": lambda: exchange_cuda(hwork, hcache, bonds, u_sel, u_acc),
+        "exchange_c": lambda: exchange_cuda(hfwork, hfcache, bonds, u_sel, u_acc),
     }
     tempered_philox = PhiloxDraws(philox_key(g), N)
     tempered_calls = {  # the sweep as the tempered path draws, the megakernel as the A/B does
@@ -646,22 +718,38 @@ def main() -> int:
     # the uniforms, and the off-diagonal sum's output (the state is read and
     # written once)
     sweep_energy_bound = _bound_ms(K * N * h * (SWEEP_OPS + ENERGY_OPS), sweep_bytes + uniform_bytes + K * c64)
+    # the other modes: caller uniforms in place of the key; n_beta = 8 adds the
+    # two swap phases of each walker row (the swap uniforms come from the key,
+    # or for the megakernel a (1, 2, K) block)
+    swap_ops = 2 * K * SWAP_OPS
+    sweep_u_bound = _bound_ms(K * N * h * SWEEP_OPS, sweep_bytes - 16 + uniform_bytes)
+    sweep_t_bound = _bound_ms(K * N * h * SWEEP_OPS + swap_ops, sweep_bytes)
+    sweep_c_u_bound = _bound_ms(K * N * h * SWEEP_OPS_C, sweep_bytes - 16 + uniform_bytes + h * c64)
+    sweep_c_t_bound = _bound_ms(K * N * h * SWEEP_OPS_C + swap_ops, sweep_bytes + h * c64)
+    sweep_energy_t_bound = _bound_ms(K * N * h * (SWEEP_OPS + ENERGY_OPS) + swap_ops,
+                                     sweep_bytes + uniform_bytes + 2 * K * f32b + K * c64)
+    # the exchange: the state in and out, the weights, the bonds and their
+    # incidence table, the counts, and the 16-byte key (the training paths'
+    # mode) or the two (n_unit, K) uniform blocks
     nb = bonds.shape[0]
-    exchange_bound = _bound_ms(
-        HUB_K * n_unit * (HUB_H * EXCHANGE_OPS_HIDDEN + nb * EXCHANGE_OPS_BOND),
-        2 * HUB_K * HUB_H * c64 + 2 * HUB_K * hn * f32b + 2 * HUB_K * c64 + 2 * n_unit * HUB_K * f32b
-        + hn * HUB_H * c64 + hn * c64 + 2 * nb * i32b + HUB_K * i32b,
-    )
-    exchange_c_bound = _bound_ms(
-        HUB_K * n_unit * (FFNN_HUB_H * EXCHANGE_OPS_HIDDEN_C + nb * EXCHANGE_OPS_BOND),
-        2 * HUB_K * FFNN_HUB_H * c64 + 2 * HUB_K * hn * f32b + 2 * HUB_K * c64 + 2 * n_unit * HUB_K * f32b
-        + hn * FFNN_HUB_H * c64 + hn * c64 + FFNN_HUB_H * c64 + 2 * nb * i32b + HUB_K * i32b,
-    )
+
+    def exchange_bytes(hh, uniforms):
+        return (2 * HUB_K * hh * c64 + 2 * HUB_K * hn * f32b + 2 * HUB_K * c64 + hn * hh * c64 + hn * c64
+                + 2 * nb * i32b + (hn + 1 + 2 * nb) * i32b + HUB_K * i32b
+                + (2 * n_unit * HUB_K * f32b if uniforms else 16))
+
+    exchange_ops = HUB_K * n_unit * (HUB_H * EXCHANGE_OPS_HIDDEN + nb * EXCHANGE_OPS_BOND)
+    exchange_c_ops = HUB_K * n_unit * (FFNN_HUB_H * EXCHANGE_OPS_HIDDEN_C + nb * EXCHANGE_OPS_BOND)
+    exchange_bound = _bound_ms(exchange_ops, exchange_bytes(HUB_H, False))
+    exchange_u_bound = _bound_ms(exchange_ops, exchange_bytes(HUB_H, True))
+    exchange_c_bound = _bound_ms(exchange_c_ops, exchange_bytes(FFNN_HUB_H, False) + FFNN_HUB_H * c64)
+    exchange_c_u_bound = _bound_ms(exchange_c_ops, exchange_bytes(FFNN_HUB_H, True) + FFNN_HUB_H * c64)
 
     def drive(label, make_vmc, n_warm, n_steps, drift_tol):
         """Run one configuration through VMC.init, warm_up and run with the
-        counts set to 0 just before; print times and memory; return what
-        the checks need."""
+        counts set to 0 just before; print times and memory, and the
+        launches of the warm-up and of the steps apart (``warm_launches``);
+        return what the checks need."""
         reset_counts()
         mem_base = torch.cuda.memory_allocated()  # what earlier phases still hold
         torch.cuda.reset_peak_memory_stats()
@@ -671,6 +759,7 @@ def main() -> int:
         warm = vmc.warm_up(params, state, n_warm)
         torch.cuda.synchronize()
         t_warm = time.perf_counter() - t_main
+        warm_launches[label] = read_counts()[0]
         peak_warm = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         fresh, _ = engine.full_forward(vmc.machine.make_work(params), warm.cache.spins)
@@ -688,13 +777,15 @@ def main() -> int:
         print(f"{label}: peak memory above the {mem_base / 2**20:.1f} MiB held before: init + warm-up "
               f"{(peak_warm - mem_base) / 2**20:.1f} MiB, SR steps {(torch.cuda.max_memory_allocated() - mem_base) / 2**20:.1f} MiB; "
               f"last energies {energies[-3:]}")
-        print(f"{label}: launches {launches}; plain-version calls: {plain_calls}")
+        steps_launches = {name: n - warm_launches[label][name] for name, n in launches.items()}
+        print(f"{label}: launches {launches}: init + warm-up {warm_launches[label]}, SR steps {steps_launches}; "
+              f"plain-version calls: {plain_calls}")
         _require(len(history) == n_steps and all(math.isfinite(e) for e in energies), f"{label}: energies {energies}")
         _require(drift <= drift_tol, f"{label}: cache drift {drift:.3e} after the warm-up")
         _require(plain_calls == 0, f"{label}: the main path called a plain version {plain_calls} times")
         return vmc, params, state, warm, launches
 
-    path_launches = {}
+    path_launches, warm_launches = {}, {}
     _enter("4 LITFI flagship SR steps", t0)
     vmc, params, state, _, launches = drive(
         "LITFI",
@@ -719,8 +810,10 @@ def main() -> int:
         ),
         HUB_WARM_SWEEPS, HUB_SR_STEPS, CACHE_ATOL,
     )
-    _require(hub_launches == {"sweep": 0, "energy": 0, "exchange": HUB_WARM_SWEEPS + HUB_SR_STEPS, "sweep_energy": 0},
-             f"Hubbard launches {hub_launches}: expected one exchange launch per sweep and nothing else")
+    _require(hub_launches == {"sweep": 0, "energy": 0, "exchange": 1 + HUB_SR_STEPS, "sweep_energy": 0}
+             and warm_launches["Hubbard"]["exchange"] == 1,
+             f"Hubbard launches {hub_launches}: expected one exchange launch per sampler call (the warm-up's "
+             f"{HUB_WARM_SWEEPS} sweeps, each step's sweep) and nothing else")
     _require(sector_ok(hub_warm.cache.spins) and sector_ok(hub_state.cache.spins),
              f"Hubbard: a walker left the {HUB_PARTICLES}+{HUB_PARTICLES} sector")
     print(f"Hubbard: every walker holds {HUB_PARTICLES} up and {HUB_PARTICLES} down particles after the warm-up and the steps")
@@ -766,9 +859,9 @@ def main() -> int:
         ),
         FFNN_HUB_WARM_SWEEPS, FFNN_HUB_SR_STEPS, CACHE_ATOL,
     )
-    _require(fh_launches == {"sweep": 0, "energy": 0, "exchange": FFNN_HUB_WARM_SWEEPS + FFNN_HUB_SR_STEPS,
-                             "sweep_energy": 0},
-             f"FFNN Hubbard launches {fh_launches}: expected one exchange launch per sweep and nothing else")
+    _require(fh_launches == {"sweep": 0, "energy": 0, "exchange": 1 + FFNN_HUB_SR_STEPS, "sweep_energy": 0}
+             and warm_launches["FFNN Hubbard"]["exchange"] == 1,
+             f"FFNN Hubbard launches {fh_launches}: expected one exchange launch per sampler call and nothing else")
     _require(sector_ok(fh_warm.cache.spins) and sector_ok(fh_state.cache.spins),
              f"FFNN Hubbard: a walker left the {HUB_PARTICLES}+{HUB_PARTICLES} sector")
     print(f"FFNN Hubbard: every walker holds {HUB_PARTICLES} up and {HUB_PARTICLES} down particles after the warm-up "
@@ -791,8 +884,9 @@ def main() -> int:
     path_launches["megakernel A/B"] = ab_launches
 
     _enter("10 kernel device times", t0)
-    # the instance each timed call runs: R = ceil(H/32), then c and t
-    r_of = {"exchange": (HUB_H + 31) // 32}
+    # the instance each timed call runs: R = ceil(H/32) (exchange: G x U), then c and t
+    hub_g = kernel_lanes(HUB_H)
+    r_of = {"exchange": f"{hub_g}x{-(-HUB_H // hub_g)}"}
 
     def instance(name, tempered=False):
         base = name.removesuffix("_c")
@@ -812,6 +906,12 @@ def main() -> int:
             key, regs = instance(name, tempered)
             print(f"{name}{title}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call "
                   f"(device time, profiler); instance {key}: registers {regs}")
+    # the exchange kernel: one launch of several sweeps
+    multi_ms = {name: device(lambda: exchange_cuda(w_, c_, bonds, multi_draws), "exchange")
+                for name, w_, c_ in (("exchange", hwork, hcache), ("exchange_c", hfwork, hfcache))}
+    for name, d_ms in multi_ms.items():
+        print(f"{name} {EXCHANGE_MULTI_SWEEPS} sweeps in one launch: kernel "
+              f"{'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call (device time, profiler)")
 
     _enter("11 LITFI step profile", t0)
     _profile_steps(torch, vmc, params, state, SR_STEPS)
@@ -831,11 +931,19 @@ def main() -> int:
                   # the caller-uniform mode, which the tests and the A/B feed
                   "uniforms": {"max_abs_err": ln_err, "mismatch_share": share, f"nbeta{CHECK_NBETA}_mismatch_share": t_share,
                                f"nbeta{CHECK_NBETA}_max_abs_err": t_ln_err, "kernel_ms": uniform_device_ms["sweep"],
-                               "wrapper_ms": uniform_ms["sweep"]}},
+                               "wrapper_ms": uniform_ms["sweep"], "bound_ms": sweep_u_bound[0]},
+                  f"nbeta{CHECK_NBETA}_bound_ms": sweep_t_bound[0]},
         "energy": {"max_abs_err": e_abs, "rel_err": e_rel, "tolerance": ENERGY_RTOL},
-        "exchange": {"max_abs_err": x_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": x_share},
+        # the headline: one sweep on the kernel's Philox stream, the training paths' mode
+        "exchange": {"max_abs_err": x_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": x_share,
+                     "uniforms": {"max_abs_err": xu_ln_err, "mismatch_share": xu_share,
+                                  "kernel_ms": uniform_device_ms["exchange"], "wrapper_ms": uniform_ms["exchange"],
+                                  "bound_ms": exchange_u_bound[0]},
+                     "multi_sweep": {"sweeps": EXCHANGE_MULTI_SWEEPS, "max_abs_err": xm_ln_err, "mismatch_share": xm_share,
+                                     "kernel_ms": multi_ms["exchange"]},
+                     "lanes": hub_g, "w_in_shared_memory": stages_w(hn, HUB_H, nb, False)},
         "sweep_energy": {"tolerance": SWEEP_LNPSI_ATOL, "offdiag_tolerance": OFFDIAG_RTOL, **mega[1],
-                         f"nbeta{CHECK_NBETA}": mega[CHECK_NBETA],
+                         f"nbeta{CHECK_NBETA}": mega[CHECK_NBETA], f"nbeta{CHECK_NBETA}_bound_ms": sweep_energy_t_bound[0],
                          "ab": {f"nbeta{nb}": {k: r[k] for k in ("two_kernel_ms", "megakernel_ms", "speedup")}
                                 for nb, r in ab.items()}},
     }
@@ -856,9 +964,17 @@ def main() -> int:
                   "uniforms": {"max_abs_err": sweep_c[1][1], "mismatch_share": sweep_c[1][0],
                                f"nbeta{CHECK_NBETA}_mismatch_share": sweep_c[CHECK_NBETA][0],
                                f"nbeta{CHECK_NBETA}_max_abs_err": sweep_c[CHECK_NBETA][1],
-                               "kernel_ms": uniform_device_ms["sweep_c"], "wrapper_ms": uniform_ms["sweep_c"]}},
+                               "kernel_ms": uniform_device_ms["sweep_c"], "wrapper_ms": uniform_ms["sweep_c"],
+                               "bound_ms": sweep_c_u_bound[0]},
+                  f"nbeta{CHECK_NBETA}_bound_ms": sweep_c_t_bound[0]},
         "energy": {"max_abs_err": ec_abs, "rel_err": ec_rel, "tolerance": ENERGY_RTOL, "near_cut_share": ec_near},
-        "exchange": {"max_abs_err": xc_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": xc_share},
+        "exchange": {"max_abs_err": xc_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": xc_share,
+                     "uniforms": {"max_abs_err": xcu_ln_err, "mismatch_share": xcu_share,
+                                  "kernel_ms": uniform_device_ms["exchange_c"], "wrapper_ms": uniform_ms["exchange_c"],
+                                  "bound_ms": exchange_c_u_bound[0]},
+                     "multi_sweep": {"sweeps": EXCHANGE_MULTI_SWEEPS, "max_abs_err": xcm_ln_err, "mismatch_share": xcm_share,
+                                     "kernel_ms": multi_ms["exchange_c"]},
+                     "w_in_shared_memory": stages_w(hn, FFNN_HUB_H, nb, True)},
     }
     has_c_bounds = {"sweep": sweep_c_bound, "energy": energy_c_bound, "exchange": exchange_c_bound}
 

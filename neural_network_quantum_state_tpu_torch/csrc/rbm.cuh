@@ -3,7 +3,9 @@
 // draws, the Metropolis sweep of one walker with its replica-exchange phases,
 // and the off-diagonal local-energy sum of one walker. sweep.cu, energy.cu and
 // sweep_energy.cu run the same functions, so the fused kernel makes the
-// decisions and sums of the two kernels it fuses with the same arithmetic.
+// decisions and sums of the two kernels it fuses with the same arithmetic;
+// exchange.cu runs the arithmetic and the Philox generator with a layout of
+// its own (several walkers per warp).
 //
 // ln psi = sum_j c_j ln cosh(y_j) + sa. The RBM family has c = 1: the
 // instances with C = false read no c and sum Re ln cosh alone. The FFNN
@@ -16,17 +18,18 @@
 // cosh(y_j) crosses the negative real axis: there the kernel and the plain
 // version may take opposite sides.
 //
-// Two sets of log-cosh arithmetic. The sweep and energy kernels (and the
-// megakernel made of them) use the fast forms: exp and log on the
+// The log-cosh arithmetic is the fast form throughout: exp and log on the
 // special-function unit (ex2/lg2.approx, about 2 ulp), cos and sin as
 // minimax polynomials after a Cody-Waite reduction, and a range-reduced
-// minimax atan2 (about 3e-7 rad); the sweep's Re ln cosh takes one cos and no
-// sin (logcosh_re_fast), and the energy's candidates take cos/sin of their phase by angle
-// addition from the walker's cos/sin(Im y) and a per-call (N, H) table of
-// cos/sin(2 Im w), so its site loop has no trig. The exchange kernel keeps the
-// library expf/sincosf/logf/atan2f (logcosh_re, logcosh_ri, re_term).
+// minimax atan2 (about 3e-7 rad). Re ln cosh alone takes one cos and no sin
+// (logcosh_re_fast: the sweep's and the exchange kernel's instances without
+// c); the energy's candidates and the sweep's instances with c take cos/sin
+// of their phase by angle addition from the walker's cos/sin(Im y) and a
+// per-call (N, H) table of cos/sin(2 Im w), so their site loops have no trig;
+// the exchange kernel's instances with c turn theirs the same way from a
+// table in shared memory, or take both by sincos_fast where W is not staged.
 //
-// Layout: one warp per walker. Lane l keeps hidden units j = r*32 + l,
+// Layout (sweep, energy, megakernel): one warp per walker. Lane l keeps hidden units j = r*32 + l,
 // r < R = ceil(H/32), in registers. Rows of W and y have stride H; the lanes
 // of the last word with j >= H (the tail) load nothing, store nothing and add
 // exactly 0 to every hidden sum, so any 1 <= H <= 32*R runs without padding.
@@ -53,8 +56,7 @@ constexpr int sweep_block_warps(bool T) { return T ? kMaxWarps : kWarps; }
 // blocks of kW warps that cap a thread at `regs` registers (65536 per SM).
 constexpr int min_blocks(int regs, int kW) { return 65536 / (regs * 32 * kW); }
 // The caps, measured on the card at K = 8192 one-warp walkers (PERF.md
-// §6): the sweep's RBM instances and the exchange kernel take 64 registers
-// for R <= 8 (32 warps per SM, 1.94 waves) and 128 above; the sweep's
+// §6): the sweep's RBM instances take 64 registers for R <= 8 (32 warps per SM, 1.94 waves) and 128 above; the sweep's
 // instances with c, the energy kernel and the megakernel take 128 at every R
 // (16 warps per SM, 3.88 waves): their per-unit chains are long enough that
 // the spills of a 64 cap cost more than the residency it buys. An 85 cap
@@ -62,44 +64,7 @@ constexpr int min_blocks(int regs, int kW) { return 65536 / (regs * 32 * kW); }
 constexpr int kWideRegs = 128;
 constexpr int narrow_regs(int R) { return R <= 8 ? 64 : kWideRegs; }
 
-// Re ln cosh(x + iv), the real plane of the stable split formula.
-__device__ __forceinline__ float logcosh_re(float x, float v) {
-  const float ax = fabsf(x);
-  const float e = expf(-2.0f * ax);
-  float s, c;
-  sincosf(v, &s, &c);
-  const float re = (1.0f + e) * c;
-  const float im = (1.0f - e) * s;
-  return 0.5f * logf(re * re + im * im) + (ax - kLn2);
-}
-
-// Both planes of the stable ln cosh(x + iv).
-__device__ __forceinline__ void logcosh_ri(float x, float v, float* lr, float* li) {
-  const float ax = fabsf(x);
-  const float e = expf(-2.0f * ax);
-  float s, c;
-  sincosf(v, &s, &c);
-  const float re = (1.0f + e) * c;
-  const float im = (1.0f - e) * s * (x < 0.0f ? -1.0f : 1.0f);
-  *lr = 0.5f * logf(re * re + im * im) + (ax - kLn2);
-  *li = atan2f(im, re);
-}
-
-// Re(c_j ln cosh(x + iv)) of hidden unit j: Re ln cosh for C = false (c is
-// not read), both planes rotated by c_j for C = true.
-template <bool C>
-__device__ __forceinline__ float re_term(float x, float v, const float2* c, int j) {
-  if constexpr (C) {
-    float lr, li;
-    logcosh_ri(x, v, &lr, &li);
-    const float2 cj = c[j];
-    return cj.x * lr - cj.y * li;
-  } else {
-    return logcosh_re(x, v);
-  }
-}
-
-// ---- The fast forms of the sweep and energy kernels ----
+// ---- The fast log-cosh arithmetic ----
 
 constexpr float kPi = 3.14159265358979f;
 constexpr float kHalfPi = 1.57079632679490f;
@@ -129,18 +94,43 @@ __device__ __forceinline__ float rcp_fast(float x) {
   return y;
 }
 
-// cos v up to its sign: v = k pi + r with |r| <= pi/2, then an even
-// minimax polynomial of degree 10 in r (max error 9e-8); the sign (-1)^k is
-// left out, as only cos^2 v is used.
-__device__ __forceinline__ float cos_halfturns(float v) {
-  const float k = rintf(v * (1.0f / kPi));
-  const float r = fmaf(-k, kPiLo, fmaf(-k, kPiHi, v));
+// v = k pi + r with |r| <= pi/2 (Cody-Waite); returns r and k.
+__device__ __forceinline__ float reduce_halfturns(float v, float* k) {
+  *k = rintf(v * (1.0f / kPi));
+  return fmaf(-*k, kPiLo, fmaf(-*k, kPiHi, v));
+}
+
+// cos r on |r| <= pi/2: an even minimax polynomial of degree 10 (max error
+// 9e-8).
+__device__ __forceinline__ float cos_poly(float r) {
   const float u = r * r;
   float c = fmaf(u, -2.60516970e-07f, 2.47601747e-05f);
   c = fmaf(c, u, -1.38883619e-03f);
   c = fmaf(c, u, 4.16666381e-02f);
   c = fmaf(c, u, -0.5f);
   return fmaf(c, u, 1.0f);
+}
+
+// cos v up to its sign (-1)^k, which is left out, as only cos^2 v is used.
+__device__ __forceinline__ float cos_halfturns(float v) {
+  float k;
+  return cos_poly(reduce_halfturns(v, &k));
+}
+
+// sin v and cos v: the reduction of cos_halfturns, cos_poly, and an odd
+// minimax polynomial of degree 9 for sin r (max error 1.5e-7 in float32),
+// both signed by (-1)^k.
+__device__ __forceinline__ void sincos_fast(float v, float* s, float* c) {
+  float k;
+  const float r = reduce_halfturns(v, &k);
+  const float u = r * r;
+  float p = fmaf(u, 2.59048829e-06f, -1.98008973e-04f);
+  p = fmaf(p, u, 8.33289977e-03f);
+  p = fmaf(p, u, -1.66666478e-01f);
+  const float sr = fmaf(p * u, r, r);
+  const float sg = (static_cast<int>(k) & 1) ? -1.0f : 1.0f;
+  *s = sg * sr;
+  *c = sg * cos_poly(r);
 }
 
 // atan2(y, x), principal value: atan of min/max in [0, 1] as z P(z^2) with a

@@ -101,6 +101,13 @@ def library(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
+def load(name: str, path) -> ctypes.CDLL:
+    """Load the library at `path` as kernel `name` from now on, in place of
+    the package's build: a build of the source with a measurement switch."""
+    _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]
+
+
 def check_inputs(kernel: str, device, hidden: int, tensors: dict) -> None:
     """Raise unless every ``name: (tensor, dtype, shape)`` is a contiguous
     tensor of that dtype and shape on the CUDA `device`, and the hidden

@@ -1,15 +1,22 @@
 """Kawasaki pair-exchange proposals: CUDA kernel and plain version.
 
-``exchange_steps`` runs ``n_steps = u_sel.shape[0]`` proposal rounds. In
-round t every walker masks its active (anti-aligned) bonds, picks the
-(target+1)-th of its nb active bonds in bond order with
+``exchange_steps`` runs ``n_steps`` proposal rounds. In round t every walker
+masks its active (anti-aligned) bonds, picks the (target+1)-th of its nb
+active bonds in bond order with
 ``target = min(floor(u_sel[t] * nb), max(nb - 1, 0))``, flips both ends and
-accepts where ``u_acc[t] < exp(2 min(Re dln, 0))`` and nb > 0. A CUDA
-tensor goes to the kernel in ``csrc/exchange.cu`` (float32; an instance for
-the RBM family, c = 1, and one for the FFNN family's complex output
-weights); a CPU tensor goes to ``exchange_plain``, the same computation in
-PyTorch.
-Both take the same caller-drawn uniforms, so they make the same decisions.
+accepts where ``u_acc[t] < exp(2 min(Re dln, 0))`` and nb > 0. The uniforms
+are two (n_steps, K) tensors drawn by the caller, or a ``rng.ExchangeDraws``
+(a key): the kernel then draws them on the chip and the plain version makes
+the same numbers. A CUDA tensor goes to the kernel in ``csrc/exchange.cu``
+(float32; an instance for the RBM family, c = 1, and one for the FFNN
+family's complex output weights), which runs every round in one launch; a
+CPU tensor goes to ``exchange_plain``, the same computation in PyTorch.
+Both take the same uniforms, so they make the same decisions.
+
+The kernel keeps each walker's active-bond mask and updates it after an
+accepted flip of (i, j) from the site -> incident-bonds table
+(``incidence_table``): every bond that touches i or j changes state, once
+per touching end (``update_active`` is its plain twin).
 
 Replaces ``neural_network_quantum_state_tpu/ops/pallas_exchange.py``.
 """
@@ -22,6 +29,7 @@ import torch
 
 from neural_network_quantum_state_tpu_torch.ops import build, engine
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
+from neural_network_quantum_state_tpu_torch.ops.rng import ExchangeDraws
 
 
 def select_active_bond(active: torch.Tensor, u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -39,9 +47,59 @@ def select_active_bond(active: torch.Tensor, u: torch.Tensor) -> tuple[torch.Ten
     return bond.clamp(max=active.shape[1] - 1), nb
 
 
-def exchange_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, bonds: torch.Tensor, u_sel: torch.Tensor, u_acc: torch.Tensor):
-    """Plain PyTorch proposal rounds; returns (cache, lnpsi, n_accepted)."""
+def incidence_table(bonds: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The site -> incident-bonds table of a (B, 2) bond table in CSR form,
+    int32 on the bonds' device: the bonds that touch site i are
+    ``idx[ptr[i]:ptr[i+1]]`` (ptr (n+1,), idx (2B,)), in bond order, a bond
+    once per end that lies at i (a self-loop twice)."""
+    ends = bonds.reshape(-1).long()
+    order = torch.sort(ends, stable=True).indices
+    ptr = torch.searchsorted(ends[order], torch.arange(n + 1, device=ends.device))
+    return ptr.to(torch.int32), (order // 2).to(torch.int32)
+
+
+def update_active(active: torch.Tensor, ptr: torch.Tensor, idx: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
+                  accept: torch.Tensor) -> torch.Tensor:
+    """The (K, B) active-bond mask after the pair flips (i, j) (each (K,))
+    on the walkers where ``accept``, from the mask before them: flipping a
+    spin changes the state of every bond that touches it, once per touching
+    end, so a bond is toggled once per entry of the incidence table at i and
+    at j (the flipped bond (i, j) twice: it stays active). The kernel's
+    update, as a dense parity over the table's entries."""
+    n, b = ptr.shape[0] - 1, active.shape[1]
+    sites = torch.repeat_interleave(torch.arange(n, device=ptr.device), (ptr[1:] - ptr[:-1]).long())
+    count = torch.zeros((n, b), dtype=torch.int32, device=ptr.device)
+    count.index_put_((sites, idx.long()), torch.ones_like(sites, dtype=torch.int32), accumulate=True)
+    odd = count % 2 == 1  # (N, B): bond b touches site s an odd number of times
+    return active ^ ((odd[i] ^ odd[j]) & accept[:, None])
+
+
+def _check_uniforms(u_sel, u_acc) -> bool:
+    """Whether the call draws on a Philox stream (``u_sel`` an
+    ``ExchangeDraws``, no ``u_acc``) rather than on two uniform blocks."""
+    philox = isinstance(u_sel, ExchangeDraws)
+    if philox and u_acc is not None:
+        raise ValueError("exchange: with ExchangeDraws the acceptance uniforms come from the stream; pass none")
+    if not philox and u_acc is None:
+        raise ValueError("exchange: pass the acceptance uniforms beside the selection block, or an ExchangeDraws")
+    return philox
+
+
+def _uniforms(u_sel, u_acc, k: int):
+    """The (n_steps, K) selection and acceptance uniforms of a call."""
+    if _check_uniforms(u_sel, u_acc):
+        return u_sel.selection(k), u_sel.acceptance(k)
+    return u_sel, u_acc
+
+
+def exchange_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, bonds: torch.Tensor, u_sel, u_acc=None):
+    """Plain PyTorch proposal rounds; returns (cache, lnpsi, n_accepted).
+
+    ``u_sel`` and ``u_acc`` are the (n_steps, K) uniform blocks, or ``u_sel``
+    is an ``ExchangeDraws`` whose streams are made here.
+    """
     exchange_plain.calls += 1
+    u_sel, u_acc = _uniforms(u_sel, u_acc, lnpsi.shape[0])
     bonds = bonds.to(device=cache.spins.device, dtype=torch.long)
     n_acc = torch.zeros((), dtype=torch.float64, device=u_acc.device)
     for t in range(u_sel.shape[0]):
@@ -61,48 +119,92 @@ def exchange_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, bonds: torch.T
 exchange_plain.calls = 0
 
 
-def _kernel():
-    fn = build.library("exchange").nqs_exchange_f32
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# The last incidence table: (bonds, bonds' version counter, n, (ptr, idx)).
+_incidence_memo: list = [None]
+
+
+def kernel_incidence(bonds: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``incidence_table`` of `bonds`, built once per bond tensor (the last
+    table is kept with its bonds and their version counter)."""
+    memo = _incidence_memo[0]
+    if memo is not None and memo[0] is bonds and memo[1] == bonds._version and memo[2] == n:
+        return memo[3]
+    table = incidence_table(bonds, n)
+    _incidence_memo[0] = (bonds, bonds._version, n, table)
+    return table
+
+
+def _library():
+    lib = build.library("exchange")
+    fn = lib.nqs_exchange_f32
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    lib.nqs_exchange_lanes.argtypes = [ctypes.c_int]
+    lib.nqs_exchange_stages_w.argtypes = [ctypes.c_int] * 4
+    return lib
 
 
-def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel: torch.Tensor, u_acc: torch.Tensor):
-    """Launch the exchange kernel; returns (cache, lnpsi, n_accepted).
+def kernel_lanes(h: int) -> int:
+    """The kernel's lanes per walker G at H hidden units (it chooses: 8 at
+    H <= 64, 16 at H <= 128, else 32; measured at the Hubbard flagship,
+    PERF.md)."""
+    return _library().nqs_exchange_lanes(h)
+
+
+def stages_w(n: int, h: int, b: int, has_c: bool) -> bool:
+    """Whether the kernel reads W from shared memory (staged once per block)
+    at this shape, as it chooses: where the block's layout fits its budget;
+    else through L1/L2."""
+    return bool(_library().nqs_exchange_stages_w(n, h, b, int(has_c)))
+
+
+def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=None):
+    """Launch the exchange kernel once for every round; returns (cache, lnpsi,
+    n_accepted).
 
     `bonds` is a contiguous (B, 2) int32 tensor on the walkers' device with
     1 <= B <= N and entries in [0, N) (the kernel traps on an entry out of
-    range). The complex ln psi of the final states is recomputed from the
-    final cache with the plain log-cosh, as in ``ops.sweep.sweep_cuda``.
+    range). ``u_sel`` is an ``ExchangeDraws`` (the kernel draws on the chip)
+    or the (n_steps, K) selection block beside ``u_acc``. The complex ln psi
+    of the final states is recomputed once from the final cache with the
+    plain log-cosh, as in ``ops.sweep.sweep_cuda``.
     """
     k, n = cache.spins.shape
     h = work.w.shape[1]
     dev = cache.spins.device
     if cache.spins.dtype != torch.float32:
         raise NotImplementedError(f"exchange kernel: only float32 is ported, got {cache.spins.dtype}")
-    b, n_steps = bonds.shape[0], u_sel.shape[0]
+    b = bonds.shape[0]
     if not 1 <= b <= n:
         raise ValueError(f"exchange kernel: bond count {b} not in [1, N={n}]")
+    philox = _check_uniforms(u_sel, u_acc)
+    n_steps = u_sel.n_steps if philox else u_sel.shape[0]
     tensors, weights = engine.kernel_weights(work)
-    build.check_inputs("exchange", dev, h, tensors | {
+    tensors |= {
         "bonds": (bonds, torch.int32, (b, 2)),
         "spins": (cache.spins, torch.float32, (k, n)),
         "y": (cache.y, torch.complex64, (k, h)),
         "sa": (cache.sa, torch.complex64, (k,)),
-        "u_sel": (u_sel, torch.float32, (n_steps, k)),
-        "u_acc": (u_acc, torch.float32, (n_steps, k)),
-    })
+    }
+    if philox:
+        tensors["key"] = (u_sel.key, torch.int64, (2,))
+        uniforms = (None, None, u_sel.key.data_ptr())
+    else:
+        tensors["u_sel"] = (u_sel, torch.float32, (n_steps, k))
+        tensors["u_acc"] = (u_acc, torch.float32, (n_steps, k))
+        uniforms = (u_sel.data_ptr(), u_acc.data_ptr(), None)
+    build.check_inputs("exchange", dev, h, tensors)
     if n_steps == 0:
-        raise ValueError("exchange kernel: no proposal rounds (u_sel has 0 rows)")
+        raise ValueError("exchange kernel: no proposal rounds")
+    ptr, idx = kernel_incidence(bonds, n)
     spins = torch.empty_like(cache.spins)
     y = torch.empty_like(cache.y)
     sa = torch.empty_like(cache.sa)
     acc = torch.empty(k, dtype=torch.int32, device=dev)
-    rc = _kernel()(
-        *weights, bonds.data_ptr(), cache.spins.data_ptr(), cache.y.data_ptr(),
-        cache.sa.data_ptr(), u_sel.data_ptr(), u_acc.data_ptr(), spins.data_ptr(), y.data_ptr(),
-        sa.data_ptr(), acc.data_ptr(), k, n, h, b, n_steps, torch.cuda.current_stream(dev).cuda_stream,
+    rc = _library().nqs_exchange_f32(
+        *weights, bonds.data_ptr(), ptr.data_ptr(), idx.data_ptr(), cache.spins.data_ptr(), cache.y.data_ptr(),
+        cache.sa.data_ptr(), *uniforms, spins.data_ptr(), y.data_ptr(), sa.data_ptr(), acc.data_ptr(),
+        k, n, h, b, n_steps, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(rc, "exchange kernel")
     exchange_cuda.launches += 1
@@ -113,8 +215,10 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel: torch.Te
 exchange_cuda.launches = 0
 
 
-def exchange_steps(work: Work, cache: Cache, lnpsi: torch.Tensor, bonds: torch.Tensor, u_sel: torch.Tensor, u_acc: torch.Tensor):
-    """Run u_sel.shape[0] pair-exchange rounds; returns (cache, lnpsi, n_accepted).
+def exchange_steps(work: Work, cache: Cache, lnpsi: torch.Tensor, bonds: torch.Tensor, u_sel, u_acc=None):
+    """Run the pair-exchange rounds of ``u_sel`` (an ``ExchangeDraws``, or the
+    (n_steps, K) selection block beside ``u_acc``); returns (cache, lnpsi,
+    n_accepted).
 
     The kernel on a CUDA tensor (or an error), the plain version on a CPU one.
     """

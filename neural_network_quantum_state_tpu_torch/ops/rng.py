@@ -1,16 +1,17 @@
 """Random-number helpers over an explicit ``torch.Generator``, and the
-Philox4x32-10 stream of the sweep kernel.
+Philox4x32-10 streams of the sweep and exchange kernels.
 
 The JAX package threads threefry keys; here every random draw takes a
 generator that lives on the device of the tensors it fills. The two
 frameworks give different numbers from the same seed, so tests make their
 inputs with numpy and hand them to both.
 
-On the card the sweep kernel draws its accept uniforms itself, from a
-Philox4x32-10 counter stream (Salmon et al., SC'11) on a 64-bit key that the
-caller draws once per call from the state's generator (``PhiloxDraws``).
-``philox_uniforms`` makes the same numbers with int64 tensor arithmetic, so
-the plain sweep decides on the kernel's stream.
+On the card the sweep and exchange kernels draw their uniforms themselves,
+from a Philox4x32-10 counter stream (Salmon et al., SC'11) on a 64-bit key
+that the caller draws once per call from the state's generator
+(``PhiloxDraws``, ``ExchangeDraws``). ``philox_uniforms`` makes the same
+numbers with int64 tensor arithmetic, so the plain versions decide on the
+kernels' streams.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import torch
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _MASK32 = 0xFFFFFFFF
-# Counter word 3 of each stream: the flips' uniforms and the swap phases'.
-FLIP_STREAM, SWAP_STREAM = 0, 1
+# Counter word 3 of each stream: the sweep's flip and swap-phase uniforms, the
+# exchange kernel's selection and acceptance uniforms.
+FLIP_STREAM, SWAP_STREAM, SELECT_STREAM, ACCEPT_STREAM = 0, 1, 2, 3
 
 
 def make_generator(seed: int, device: torch.device | str) -> torch.Generator:
@@ -79,8 +81,9 @@ def philox_uniforms(key: torch.Tensor, stream: int, shape: tuple[int, int]) -> t
     word t % 4 of Philox4x32-10 at counter (t // 4, k, 0, stream) under
     ``key`` ((2,) int64 words in [0, 2^32)), made from its top 24 bits as
     (bits >> 8) * 2^-24 (the TPU kernel's conversion). ``stream`` is
-    FLIP_STREAM or SWAP_STREAM. The sweep kernel draws the same numbers
-    (csrc/rbm.cuh ``FlipDraws``)."""
+    FLIP_STREAM or SWAP_STREAM, which the sweep kernel draws (csrc/rbm.cuh
+    ``FlipDraws``), or SELECT_STREAM or ACCEPT_STREAM, which the exchange
+    kernel draws (csrc/exchange.cu ``ExchangeDraws``)."""
     n_rows, k = shape
     dev = key.device
     blocks = torch.arange((n_rows + 3) // 4, dtype=torch.int64, device=dev)[:, None]
@@ -112,3 +115,21 @@ class PhiloxDraws(NamedTuple):
     def swaps(self, n_sweeps: int, k: int) -> torch.Tensor:
         """(n_sweeps, 2, K) swap uniforms (even-pair, then odd-pair phase)."""
         return philox_uniforms(self.key, SWAP_STREAM, (2 * n_sweeps, k)).reshape(n_sweeps, 2, k)
+
+
+class ExchangeDraws(NamedTuple):
+    """The uniforms of one exchange call, drawn on the chip: ``n_steps`` rows
+    of selection and of acceptance uniforms, on the selection and acceptance
+    streams of a fresh key (one per call, which alone keeps the calls'
+    streams apart)."""
+
+    key: torch.Tensor  # (2,) int64 words in [0, 2^32), on the walkers' device
+    n_steps: int
+
+    def selection(self, k: int) -> torch.Tensor:
+        """(n_steps, K) bond-selection uniforms."""
+        return philox_uniforms(self.key, SELECT_STREAM, (self.n_steps, k))
+
+    def acceptance(self, k: int) -> torch.Tensor:
+        """(n_steps, K) acceptance uniforms."""
+        return philox_uniforms(self.key, ACCEPT_STREAM, (self.n_steps, k))

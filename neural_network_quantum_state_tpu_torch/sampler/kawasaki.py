@@ -2,15 +2,19 @@
 
 Proposals exchange the two ends of a randomly chosen active (anti-aligned)
 bond, so the particle number is conserved: the move class of the
-Jordan-Wigner Hubbard chain. The active-bond mask is recomputed from the
-spins at every proposal; the bond is chosen by the running-sum inverse CDF
-(``ops.exchange.select_active_bond``).
+Jordan-Wigner Hubbard chain. The bond is chosen by the running-sum inverse
+CDF over the active-bond mask (``ops.exchange.select_active_bond``).
 
-``exchange_sweeps`` runs each sweep through ``ops.exchange.exchange_steps``:
-one launch of the exchange kernel for walkers on the card, the plain
-PyTorch version for walkers on the CPU. Each sweep draws its own
+``exchange_sweeps`` runs through ``ops.exchange.exchange_steps``. For
+walkers on the card one call is one launch of the exchange kernel for all
+its sweeps, as the JAX package's fused exchange: the call draws one Philox
+key from the state's generator and the kernel draws its uniforms on the chip
+(``rng.ExchangeDraws``), and ln psi is recomputed once per call. For walkers
+on the CPU each sweep is one call of the plain PyTorch version on its own
 (n_unit_steps, K) blocks of selection and acceptance uniforms from the
-state's generator.
+state's generator, so memory does not grow with the number of sweeps: a run
+on the card is reproducible from its seed, but does not take the CPU run's
+numbers.
 
 Lattice topologies:
 - ring_bonds(n): one ring over all inputs; exchanges may cross the up/down
@@ -26,7 +30,7 @@ import torch
 
 from neural_network_quantum_state_tpu_torch.ops.engine import Work
 from neural_network_quantum_state_tpu_torch.ops.exchange import exchange_steps
-from neural_network_quantum_state_tpu_torch.ops.rng import uniform_block
+from neural_network_quantum_state_tpu_torch.ops.rng import ExchangeDraws, philox_key, uniform_block
 from neural_network_quantum_state_tpu_torch.sampler.metropolis import MCState
 
 
@@ -43,16 +47,23 @@ def two_ring_bonds(l: int) -> np.ndarray:
 
 
 def exchange_sweeps(work: Work, state: MCState, bonds: torch.Tensor, n_sweeps: int, n_unit_steps: int) -> MCState:
-    """Run ``n_sweeps`` sweeps of ``n_unit_steps`` exchange proposals each,
-    one ``exchange_steps`` call (one kernel launch on the card) per sweep.
-    `bonds` is the (B, 2) int32 table on the walkers' device."""
+    """Run ``n_sweeps`` sweeps of ``n_unit_steps`` exchange proposals each:
+    one kernel launch for all of them on the card, one ``exchange_steps``
+    call per sweep on the CPU. `bonds` is the (B, 2) int32 table on the
+    walkers' device."""
     k = state.lnpsi.shape[0]
     cache, lnpsi, n_acc = state.cache, state.lnpsi, state.n_accepted
-    for _ in range(n_sweeps):
-        u_sel = uniform_block(state.generator, (n_unit_steps, k), cache.spins.dtype)
-        u_acc = uniform_block(state.generator, (n_unit_steps, k), cache.spins.dtype)
-        cache, lnpsi, acc = exchange_steps(work, cache, lnpsi, bonds, u_sel, u_acc)
-        n_acc = n_acc + acc
+    if cache.spins.device.type != "cpu":
+        if n_sweeps * n_unit_steps > 0:
+            draws = ExchangeDraws(philox_key(state.generator), n_sweeps * n_unit_steps)
+            cache, lnpsi, acc = exchange_steps(work, cache, lnpsi, bonds, draws)
+            n_acc = n_acc + acc
+    else:
+        for _ in range(n_sweeps):
+            u_sel = uniform_block(state.generator, (n_unit_steps, k), cache.spins.dtype)
+            u_acc = uniform_block(state.generator, (n_unit_steps, k), cache.spins.dtype)
+            cache, lnpsi, acc = exchange_steps(work, cache, lnpsi, bonds, u_sel, u_acc)
+            n_acc = n_acc + acc
     return MCState(
         cache=cache,
         lnpsi=lnpsi,

@@ -12,7 +12,8 @@ a Python loop. The sampler is chosen once, from the Hamiltonian's
 schedule, the same with replica exchange for n_beta > 1 (parallel
 tempering; the estimators read the beta = 1 replicas ``[::n_beta]``), or
 Kawasaki pair-exchange sweeps over its bonds (the Hubbard chain). On the
-card each sweep is one launch of the sweep or the exchange kernel and the
+card each sweep is one launch of the sweep kernel, each sampler call (a
+warm-up, a step's sweeps) one launch of the exchange kernel, and the
 spin chains' off-diagonal local energy one launch of the energy kernel
 (float32 only: another machine dtype on the card raises); on the CPU all of
 them run as plain PyTorch. A run whose walkers collapse escalates to

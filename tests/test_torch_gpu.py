@@ -20,8 +20,8 @@ from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
 from neural_network_quantum_state_tpu_torch.ops import sweep_energy
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
-from neural_network_quantum_state_tpu_torch.ops.rng import PhiloxDraws, make_generator, philox_key
-from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard
+from neural_network_quantum_state_tpu_torch.ops.rng import ExchangeDraws, PhiloxDraws, make_generator, philox_key
+from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard, init_state, kawasaki
 
 
 @pytest.fixture
@@ -137,9 +137,136 @@ def test_exchange_kernel_matches_plain_on_card(cuda, per_flavor_rings, l, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True])
+@pytest.mark.parametrize(
+    "per_flavor_rings, l, k",
+    [(True, 8, 512), (False, 8, 512), (True, 20, 500)],
+    ids=["two-rings", "one-ring", "two-rings-L20-K500"],
+)
+def test_exchange_kernel_matches_plain_on_philox_stream(cuda, per_flavor_rings, l, k, has_c):
+    """The kernel drawing its own uniforms (4 sweeps in one launch) against
+    the plain rounds on the same Philox stream, with and without output
+    weights c: the same decisions but for near-ties (and near-cut walkers),
+    y and ln psi where they agree, the sectors kept, y consistent with the
+    spins."""
+    h, n_sweeps = 32, 4
+    n = 2 * l
+    if has_c:
+        work, _, _, g = _scaled_ffnn(cuda, n, h, 8, 30 + l)
+    else:
+        work, _, _, g = _scaled_rbm(cuda, n, h, 8, 30 + l, scale=10.0)
+    ham = HubbardChain(n_sites=n, n_up=3, n_down=4, per_flavor_rings=per_flavor_rings)
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    cache, ln = engine.full_forward(work, ham.init_spins(g, k))
+    draws = ExchangeDraws(philox_key(g), n_sweeps * n)
+    launches = exchange_ops.exchange_cuda.launches
+    ck, lk, acc_k = exchange_ops.exchange_steps(work, cache, ln, bonds, draws)
+    cp, lp, acc_p = exchange_ops.exchange_plain(work, cache, ln, bonds, draws)
+    assert exchange_ops.exchange_cuda.launches == launches + 1
+    same = _agreeing(ck, cp, 1e-2)
+    torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=1e-5)
+    torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=1e-4)
+    assert 0 < float(acc_k) < n_sweeps * n * k
+    assert abs(float(acc_k - acc_p)) <= 1e-2 * n_sweeps * n * k
+    up, dn = _sector_counts(ck.spins, l)
+    if per_flavor_rings:
+        assert bool((up == 3).all()) and bool((dn == 4).all())
+    else:
+        assert bool((up + dn == 7).all())
+    fresh, _ = engine.full_forward(work, ck.spins)
+    torch.testing.assert_close(ck.y, fresh.y, rtol=0, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True])
+@pytest.mark.parametrize("h", [16, 80, 384])
+def test_exchange_kernel_philox_at_any_width_and_both_w_branches(cuda, h, has_c):
+    """At H = 16, 80 and 384 the kernel reads W from shared memory where its
+    block's layout fits (H = 16, 80 at N = 32; with c the rotation's table)
+    and through L1 where it does not (H = 384), at the lanes per walker it
+    chooses: each against the plain rounds on the same stream."""
+    n, k = 32, 256
+    work, _, _, g = _scaled_ffnn(cuda, n, h, 8, 50 + h) if has_c else _scaled_rbm(cuda, n, h, 8, 50 + h)
+    ham = HubbardChain(n_sites=n, n_up=3, n_down=3)
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    cache, ln = engine.full_forward(work, ham.init_spins(g, k))
+    assert exchange_ops.stages_w(n, h, bonds.shape[0], has_c) == (h < 384)
+    draws = ExchangeDraws(philox_key(g), 2 * n)
+    ck, lk, _ = exchange_ops.exchange_cuda(work, cache, bonds, draws)
+    cp, lp, _ = exchange_ops.exchange_plain(work, cache, ln, bonds, draws)
+    same = _agreeing(ck, cp, 2e-2)
+    torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=2e-5)
+    torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True])
+def test_exchange_kernel_chooses_lanes_and_w_branch_at_the_flagship_width(cuda, has_c):
+    """The kernel's own choices: 8 lanes per walker up to H = 64, 16 up to
+    128, else 32; W staged at the Hubbard flagship's N = 64, H = 64 (with c
+    too); there, against the plain rounds on one stream."""
+    assert [exchange_ops.kernel_lanes(h) for h in (1, 64, 65, 128, 129, 512)] == [8, 8, 16, 16, 32, 32]
+    n, h, k = 64, 64, 512
+    work, _, _, g = _scaled_ffnn(cuda, n, h, 8, 64) if has_c else _scaled_rbm(cuda, n, h, 8, 64, scale=10.0)
+    ham = HubbardChain(n_sites=n, n_up=5, n_down=5)
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    assert exchange_ops.stages_w(n, h, bonds.shape[0], has_c)
+    cache, ln = engine.full_forward(work, ham.init_spins(g, k))
+    draws = ExchangeDraws(philox_key(g), 2 * n)
+    ck, lk, _ = exchange_ops.exchange_cuda(work, cache, bonds, draws)
+    cp, lp, _ = exchange_ops.exchange_plain(work, cache, ln, bonds, draws)
+    same = _agreeing(ck, cp, 1e-2)
+    torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=2e-5)
+    torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_exchange_kernel_keeps_words_past_its_registers(cuda):
+    """A ring of 300 sites (B = N = 300: spin and mask words past the four
+    in registers live in shared memory) against the plain rounds, on the
+    stream and on caller uniforms."""
+    n, h, k = 300, 16, 96
+    work, _, _, g = _scaled_rbm(cuda, n, h, 8, 300)
+    bonds = torch.as_tensor(kawasaki.ring_bonds(n), device=cuda)
+    cache, ln = engine.full_forward(work, torch.where(torch.rand((k, n), generator=g, device=cuda) < 0.5, -1.0, 1.0))
+    u_sel, u_acc = torch.rand((n, k), generator=g, device=cuda), torch.rand((n, k), generator=g, device=cuda)
+    for args in ((ExchangeDraws(philox_key(g), 2 * n),), (u_sel, u_acc)):
+        ck, lk, acc = exchange_ops.exchange_cuda(work, cache, bonds, *args)
+        cp, lp, _ = exchange_ops.exchange_plain(work, cache, ln, bonds, *args)
+        same = (ck.spins == cp.spins).all(dim=1)
+        assert float(same.double().mean()) >= 1.0 - 3e-2
+        torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
+        assert bool(((ck.spins > 0).sum(1) == (cache.spins > 0).sum(1)).all()) and float(acc) > 0
+
+
+@pytest.mark.gpu
+def test_exchange_sweeps_make_one_launch_per_call_on_card(cuda):
+    """kawasaki.exchange_sweeps on the card: one launch for all the sweeps
+    of a call, no uniform block drawn (one key), the plain rounds' decisions
+    on the same stream, the proposals counted."""
+    l, k, n_sweeps = 8, 256, 7
+    ham = HubbardChain(n_sites=2 * l, n_up=3, n_down=3)
+    work, _, _, g = _scaled_rbm(cuda, 2 * l, 32, 8, 77, scale=10.0)
+    bonds = torch.as_tensor(ham.bonds, dtype=torch.int32, device=cuda)
+    state = init_state(work, ham.init_spins(g, k), make_generator(78, cuda))
+    key = philox_key(make_generator(78, cuda))  # the key the call draws
+    launches, plain = exchange_ops.exchange_cuda.launches, exchange_ops.exchange_plain.calls
+    got = kawasaki.exchange_sweeps(work, state, bonds, n_sweeps, ham.n_unit_steps)
+    assert exchange_ops.exchange_cuda.launches == launches + 1 and exchange_ops.exchange_plain.calls == plain
+    assert float(got.n_proposed) == n_sweeps * ham.n_unit_steps * k
+    cp, lp, acc_p = exchange_ops.exchange_plain(work, state.cache, state.lnpsi, bonds,
+                                                ExchangeDraws(key, n_sweeps * ham.n_unit_steps))
+    same = (got.cache.spins == cp.spins).all(dim=1)
+    assert float(same.double().mean()) >= 1.0 - 2e-2
+    torch.testing.assert_close(got.lnpsi[same], lp[same], rtol=0, atol=1e-4)
+    assert abs(float(got.n_accepted) - float(acc_p)) <= 2e-2 * n_sweeps * ham.n_unit_steps * k
+
+
+@pytest.mark.gpu
 def test_hubbard_vmc_runs_through_the_exchange_kernel_on_card(cuda):
-    """Hubbard training on the card: one exchange launch per sweep, no plain
-    version and no single-flip sweep, the sector kept, finite energies."""
+    """Hubbard training on the card: one exchange launch per sampler call
+    (the warm-up's 20 sweeps, each step's sweep), no plain version and no
+    single-flip sweep, the sector kept, finite energies."""
     l = 8
     vmc = VMC(
         RBM(n_inputs=2 * l, n_hiddens=32, dtype=torch.float32),
@@ -153,7 +280,7 @@ def test_hubbard_vmc_runs_through_the_exchange_kernel_on_card(cuda):
     state = vmc.warm_up(params, state, 20)
     params, state, history, _ = vmc.run(params, state, 5)
     assert all(np.isfinite(r["energy"]) for r in history)
-    assert exchange_ops.exchange_cuda.launches == ex0 + 20 + 5
+    assert exchange_ops.exchange_cuda.launches == ex0 + 1 + 5
     assert sweep_ops.sweep_cuda.launches == sw0
     assert exchange_ops.exchange_plain.calls + sweep_ops.sweep_plain.calls == plain0
     up, dn = _sector_counts(state.cache.spins, l)

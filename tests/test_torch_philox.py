@@ -1,10 +1,12 @@
-"""The sweep kernel's Philox4x32-10 stream in plain PyTorch.
+"""The sweep and exchange kernels' Philox4x32-10 streams in plain PyTorch.
 
 ``ops.rng.philox_uniforms`` is held to the Random123 known-answer vectors
-and to a scalar pure-Python Philox4x32-10, element for element; the plain
-sweep on those draws is held to exact |psi|^2 by chi^2 at N=8, as
-test_torch_sampler.py holds it on the generator's blocks. The kernel's own
-draws are compared with these on the card (test_torch_gpu.py).
+and to a scalar pure-Python Philox4x32-10, element for element, for the
+sweep's flip and swap streams and the exchange kernel's selection and
+acceptance streams; the plain sweep on those draws is held to exact |psi|^2
+by chi^2 at N=8, as test_torch_sampler.py holds it on the generator's
+blocks (the plain exchange: test_torch_exchange.py). The kernels' own draws
+are compared with these on the card (test_torch_gpu.py).
 """
 
 import numpy as np
@@ -15,7 +17,8 @@ from neural_network_quantum_state_tpu_torch.models import RBM
 from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
 from neural_network_quantum_state_tpu_torch.ops.rng import (
-    FLIP_STREAM, SWAP_STREAM, PhiloxDraws, make_generator, philox4x32_10, philox_key, philox_uniforms,
+    ACCEPT_STREAM, FLIP_STREAM, SELECT_STREAM, SWAP_STREAM, ExchangeDraws, PhiloxDraws, make_generator, philox4x32_10,
+    philox_key, philox_uniforms,
 )
 from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard
 from neural_network_quantum_state_tpu_torch.sampler.metropolis import sweep_draws
@@ -85,6 +88,45 @@ def test_philox_uniforms_layout(t_n, k, n_sweeps):
         torch.testing.assert_close(u, philox_uniforms(key, stream, tuple(u.shape)), rtol=0, atol=0)
         assert 0.0 <= float(u.min()) and float(u.max()) < 1.0
     assert draws.flips(k).shape[0] == t_n
+
+
+@pytest.mark.parametrize("t_n, k", [(7, 5), (1, 1), (70, 3)])
+def test_exchange_streams_layout(t_n, k):
+    """The exchange kernel's streams: element (t, k) of the selection
+    (acceptance) uniforms is word t % 4 of the scalar Philox4x32-10 (held
+    to the known answers above) at counter (t // 4, k, 0, SELECT_STREAM
+    (ACCEPT_STREAM)), top 24 bits scaled by 2^-24."""
+    key = torch.tensor([0xA4093822, 0x299F31D0], dtype=torch.int64)
+    kk = [int(v) for v in key]
+    draws = ExchangeDraws(key, t_n)
+    assert (SELECT_STREAM, ACCEPT_STREAM) == (2, 3)
+    for stream, u in ((SELECT_STREAM, draws.selection(k)), (ACCEPT_STREAM, draws.acceptance(k))):
+        assert u.dtype == torch.float32 and tuple(u.shape) == (t_n, k)
+        for t in range(t_n):
+            for w in range(k):
+                bits = _philox_scalar((t // 4, w, 0, stream), kk)[t % 4]
+                assert float(u[t, w]) == (bits >> 8) * 2.0**-24
+        assert 0.0 <= float(u.min()) and float(u.max()) < 1.0
+
+
+def test_exchange_streams_are_apart_from_each_other_and_the_sweep_streams():
+    """On one key the four streams (flip, swap, selection, acceptance) share
+    no counter, so their uniforms are independent: no two of them agree on
+    more elements than 24-bit coincidences allow, and each is uniform."""
+    key = torch.tensor([17, 99], dtype=torch.int64)
+    t_n, k = 64, 256
+    blocks = {stream: philox_uniforms(key, stream, (t_n, k))
+              for stream in (FLIP_STREAM, SWAP_STREAM, SELECT_STREAM, ACCEPT_STREAM)}
+    draws = ExchangeDraws(key, t_n)
+    assert torch.equal(draws.selection(k), blocks[SELECT_STREAM]) and torch.equal(draws.acceptance(k), blocks[ACCEPT_STREAM])
+    streams = list(blocks)
+    for a in range(len(streams)):
+        u = blocks[streams[a]]
+        assert abs(float(u.mean()) - 0.5) < 0.01 and abs(float(u.var()) - 1.0 / 12.0) < 0.005
+        for b in range(a + 1, len(streams)):
+            assert int((u == blocks[streams[b]]).sum()) <= 2
+            corr = float(torch.corrcoef(torch.stack([u.reshape(-1), blocks[streams[b]].reshape(-1)]))[0, 1])
+            assert abs(corr) < 0.02
 
 
 def test_philox_key_and_cpu_draws():
