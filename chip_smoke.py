@@ -28,10 +28,16 @@ Phases, each printed with its seconds:
    with c the table of its rotation, from shared memory at H = 16 and 80 and
    through L1 at 384: both branches of both instances must run); and the sweep kernel's Philox mode (its uniforms drawn on the chip)
    against the plain sweep on the same Philox stream, at n_beta = 1 and 8,
-   with and without c, at full width and at H = 16, 80 and 384;
+   with and without c, at full width and at H = 16, 80 and 384; 5 sweeps
+   in one launch (a sampler call's mode) at full width, n_beta = 1 and 8,
+   with and without c; the sweep kernel on the 8x8 square-checkerboard and
+   the 9x9 three-colour schedules; the energy kernel's float64 instance
+   against its plain float64 version at full width and H = 16, 80 and 384,
+   with and without c, to a relative 1e-12;
 4. drive the LITFI flagship through the user's entry points (VMC.init,
    warm_up, run) and check that it ran through the sweep and energy
-   kernels, never through a plain version, with finite energies;
+   kernels, never through a plain version, with finite energies: one sweep
+   launch per sampler call (1 for the warm-up, 1 per step);
 5. drive the Hubbard flagship (the L=32 trap chain, 500 warm-up sweeps, 20
    SR steps) the same way and check that each sampler call ran as one
    launch of the exchange kernel (1 for the warm-up, 1 per step), that every
@@ -46,15 +52,41 @@ Phases, each printed with its seconds:
 8. drive FFNN(64, 64) on the Hubbard flagship's trap chain (200 warm-up
    sweeps, 5 SR steps): each sampler call one launch of the exchange
    kernel's instance with c (1 + 5), the particle sectors kept;
-9. the megakernel A/B (``megakernel_ab``, n_beta = 1 and 8): its
+9. the SR solvers on the card: one (O, E) of the warmed LITFI flagship in
+   float64, at the first step's lambda (90) and at its floor (1e-2); on
+   S + lambda diag S, cholesky, svd, CG and MINRES-QLP (tol 1e-10) against
+   the LU solve; sr_dense_solve's lu, cholesky and svd (with the dense
+   ridge) against each other; minSR against the dense solve at its absolute
+   ridge; each to a relative 1e-8. At the floor CG and MINRES-QLP run also
+   at tol 1e-12, held to 1e-8, and their tol 1e-10 runs are held to
+   cond(A) times their relative residual;
+10. 10 SR steps of the LITFI flagship with each solver and mode (lu,
+   cholesky, svd, minsr, sgd, minresqlp, auto, auto with CG capped at 2
+   iterations, which must fall back to MINRES-QLP, cholesky with 3
+   sampling rounds, cg with precond_ema, energy_dtype float64 with the RBM
+   and with FFNNTrSymm(64, alpha=4), energy_dtype "compensated", block
+   moves), each through VMC.init, warm_up and run: one sweep launch per
+   sampler call, the energy kernel's float32 instance once per round (its
+   float64 instance once per step for energy_dtype=float64, the one with c
+   for the FFNN; none for the compensated sum), no plain version, finite
+   energies;
+11. the Hubbard flagship with minSR (the recorded production run's
+   options: float32 solve, 5 steps per host loop), 500 warm-up sweeps and
+   20 steps: 1 + 20 exchange launches, every sector kept;
+12. 2D dense SR: FFNN(64, 64) on the 8x8 J1-J2 checkerboard, K=4096, lu,
+   2 sampling rounds per step, 100 warm-up sweeps and 10 steps, through
+   the sweep and energy kernels' instances with c;
+13. the megakernel A/B (``megakernel_ab``, n_beta = 1 and 8): its
    cross-check and the time of each arm;
-10. the device time of each kernel and instance on phase 3's inputs
+14. the device time of each kernel and instance on phase 3's inputs
    (torch.profiler; the sweep and exchange in the main paths' Philox mode,
    and also on caller uniforms), beside the instance's registers and spill
-   bytes from the build, and the exchange kernel's 5-sweep launch;
-11. profile 5 more LITFI SR steps, 12. 5 more Hubbard SR steps, 13. 5 more
-   FFNN flagship SR steps.
-The profiler runs only after the timed phases 4 to 9, so that it cannot
+   bytes from the build, the exchange's and the sweep's 5-sweep launches,
+   and the energy kernel's float64 instance;
+15. profile 5 more LITFI SR steps, 16. 5 more Hubbard SR steps, 17. 5 more
+   FFNN flagship SR steps, 18. 3 more Hubbard minSR steps, 19. 3 more 2D
+   dense SR steps.
+The profiler runs only after the timed phases 4 to 13, so that it cannot
 disturb their times.
 
 Then one JSON line with the kernels' numbers, the card's name and power
@@ -128,9 +160,27 @@ EXCHANGE_MULTI_SWEEPS = 5  # the sweeps of the one-launch comparison
 # A replica-exchange phase per walker row: the difference of Re ln psi, the
 # beta-scaled min, the exp, the compare and the select.
 SWAP_OPS = 5
-# each wrapper's CUDA kernel, as the profiler names it
+MULTI_SWEEPS = 5  # the sweep kernel's one-launch comparison (a sampler call's mode)
+# The energy kernel's float64 instance: its bar against the plain float64
+# sum, and the H100 SXM's float64 rate outside the tensor cores (NVIDIA data
+# sheet), over which its operations are bounded.
+F64_ENERGY_RTOL, PEAK_F64_FLOPS = 1e-12, 34e12
+SOLVER_CHECK_RTOL = 1e-8  # the on-card solver cross-check (phase 9)
+# its CG and MINRES-QLP tolerances: 1e-10, held to the bar at the first
+# step's lambda and at the floor to what its residual allows there (cond(A)
+# times the relative residual); and at the floor also 1e-12, held to the bar
+SOLVER_CHECK_TOLS, SOLVER_CHECK_MAX_ITERS = (1e-10, 1e-12), 1000
+SOLVER_STEPS = 10  # SR steps of each solver and mode (phase 10)
+AUTO_FORCED_CAP = 2  # cg_max_iters of phase 10's auto run that must fall back to MINRES-QLP
+# 2D dense SR (the reference's 2D drivers): FFNN(64, 64) on the 8x8 J1-J2
+# checkerboard (h=-1.5, J1=-1, J2=0.3, pbc), K=4096, lu, 2 sampling rounds
+TWO_D_L, TWO_D_H, TWO_D_K, TWO_D_WARM, TWO_D_STEPS, TWO_D_ROUNDS = 8, 64, 4096, 100, 10, 2
+TRI_L = 9  # the three-colour schedule's comparison: the 9x9 triangular lattice
+NEW_PROFILE_STEPS = 3  # the profiles of the Hubbard minSR and 2D paths
+# each wrapper's CUDA kernel, as the profiler names it (the energy kernel's
+# float64 instance: "energy_f64")
 KERNEL_NAMES = {"sweep": "sweep_kernel", "energy": "offdiag_kernel", "exchange": "exchange_kernel",
-                "sweep_energy": "sweep_energy_kernel"}
+                "sweep_energy": "sweep_energy_kernel", "energy_f64": "offdiag_kernel_f64"}
 
 _phase = ["start"]
 
@@ -221,24 +271,27 @@ def _profile_steps(torch, vmc, params, state, step0: int, n_steps: int = 5) -> N
         print(f"  {ms:8.4f} ms/step  {count:6.1f} calls/step  {key[:90]}")
 
 
-# the template parameters of each kernel after R: C (output weights c) and T
-# (the sweep's tempered instance, n_beta > 1), as the instances are named
-TEMPLATE_BOOLS = {"sweep": "ct", "energy": "c", "exchange": "c", "sweep_energy": "t"}
+# the template parameters of each kernel after R: C (output weights c), T
+# (the sweep's tempered instance, n_beta > 1) and M (the sweep's launch of
+# more than one sweep with c), as the instances are named
+TEMPLATE_BOOLS = {"sweep": "ctm", "energy": "c", "exchange": "c", "sweep_energy": "t"}
 
 
 def _ptxas_table(name: str, lines) -> dict:
     """{instance: 'registers[+spill bytes B]'} from the ptxas -v lines of one
     kernel library; an instance is R = ceil(H/32) (the exchange kernel: G x U,
     its lanes per walker and units per lane) followed by the letters of its
-    true template flags (c: output weights, t: tempered)."""
+    true template flags (c: output weights, t: tempered, m: many sweeps) and d for the
+    energy kernel's float64 instance."""
     out, key = {}, None
     for line in lines:
-        m = re.search(r"_kernelI((?:L[ib]\d+E)+)E", line)
+        m = re.search(r"_kernel(_f64)?I((?:L[ib]\d+E)+)E", line)
         if "Compiling entry function" in line and m:
-            args = re.findall(r"L([ib])(\d+)E", m.group(1))
+            args = re.findall(r"L([ib])(\d+)E", m.group(2))
             ints = "x".join(v for t, v in args if t == "i")
             flags = [int(v) for t, v in args if t == "b"]
-            key, spill = ints + "".join(f for f, v in zip(TEMPLATE_BOOLS[name], flags) if v), 0
+            key = ints + "".join(f for f, v in zip(TEMPLATE_BOOLS[name], flags) if v) + ("d" if m.group(1) else "")
+            spill = 0
         elif key is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif key is not None and "registers" in line:
@@ -252,7 +305,7 @@ def _ptxas_table(name: str, lines) -> dict:
 # or a build without the tempered flag) and energy kernels, by their mangled
 # template flags after R, and the floating-point and special-function opcodes.
 SASS_R = 8
-SASS_INSTANCES = (("sweep_kernel", "Lb0E(?:Lb0E)?", "sweep RBM"), ("sweep_kernel", "Lb1E(?:Lb0E)?", "sweep has_c"),
+SASS_INSTANCES = (("sweep_kernel", "Lb0E(?:Lb0E){0,2}", "sweep RBM"), ("sweep_kernel", "Lb1E(?:Lb0E){0,2}", "sweep has_c"),
                   ("offdiag_kernel", "Lb0E", "energy RBM"), ("offdiag_kernel", "Lb1E", "energy has_c"))
 SASS_FP = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FRND", "MUFU")
 # The exchange kernel's instance of the Hubbard flagship (H = 64): G = 8 lanes
@@ -402,7 +455,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from neural_network_quantum_state_tpu_torch import VMC, VMCConfig, megakernel_ab
-    from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain
+    from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain, TFICheckerBoard, TFITRI
     from neural_network_quantum_state_tpu_torch.models import FFNN, FFNNTrSymm, RBM, RBMSfSymm, RBMTrSymm
     from neural_network_quantum_state_tpu_torch.ops import build, engine
     from neural_network_quantum_state_tpu_torch.ops.energy import offdiag_near_cut, offdiag_sum_cuda, offdiag_sum_plain
@@ -412,6 +465,11 @@ def main() -> int:
     )
     from neural_network_quantum_state_tpu_torch.ops.sweep import sweep_cuda, sweep_plain
     from neural_network_quantum_state_tpu_torch.ops.sweep_energy import sweeps_offdiag_cuda, sweeps_offdiag_plain
+    from neural_network_quantum_state_tpu_torch.optim import solvers
+    from neural_network_quantum_state_tpu_torch.optim.minres import sr_minres_solve
+    from neural_network_quantum_state_tpu_torch.optim.sr import (
+        LAMBDA_MIN, build_s_matrix, force_vector, lambda_schedule, sr_cg_solve, sr_dense_solve, sr_minsr_solve,
+    )
 
     wrappers = {"sweep": sweep_cuda, "energy": offdiag_sum_cuda, "exchange": exchange_cuda,
                 "sweep_energy": sweeps_offdiag_cuda}
@@ -420,11 +478,22 @@ def main() -> int:
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
+        offdiag_sum_cuda.launches_f64 = offdiag_sum_cuda.launches_f64_c = 0
         for fn in plains:
             fn.calls = 0
 
     def read_counts():
-        return {name: fn.launches for name, fn in wrappers.items()}, sum(fn.calls for fn in plains)
+        """The launches of each kernel ("energy_f64": the energy kernel's
+        float64 instances, "energy_f64_c": those of them with c) and the
+        calls of all plain versions."""
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        counts["energy_f64"] = offdiag_sum_cuda.launches_f64
+        counts["energy_f64_c"] = offdiag_sum_cuda.launches_f64_c
+        return counts, sum(fn.calls for fn in plains)
+
+    def expect(**want):
+        """The launch counts of a path: the given ones, 0 for every other kernel."""
+        return {name: want.get(name, 0) for name in (*wrappers, "energy_f64", "energy_f64_c")}
 
     hub_v = tuple(float(x) for x in [HUB_TRAP * (i - (HUB_L - 1) / 2.0) ** 2 for i in range(HUB_L)] * 2)
     hubbard = HubbardChain(n_sites=2 * HUB_L, u=4.0, t=1.0, n_up=HUB_PARTICLES, n_down=HUB_PARTICLES, pbc=True, v=hub_v)
@@ -661,6 +730,53 @@ def main() -> int:
                 wp, wlp, _ = sweep_plain(wwork, wcache, wln, wsched, draws, nb)
                 _compare(f"H={wh} sweep{label} philox n_beta={nb}", wk, wlk, wp, wlp, WIDTH_MISMATCH_MAX, SWEEP_Y_ATOL,
                          SWEEP_LNPSI_ATOL, failures, cut=bool(label))
+    # a sampler call's mode: MULTI_SWEEPS sweeps in one launch on one stream
+    multi = {}
+    multi_draws_sweep = PhiloxDraws(philox_key(g), MULTI_SWEEPS * N)
+    for label, w_, c_, ln_, cut in (("", work, cache, lnpsi, False), (" with c", fwork, fcache, flnpsi, True)):
+        for nb in (1, CHECK_NBETA):
+            ck, lk, acc_k = sweep_cuda(w_, c_, sched, multi_draws_sweep, nb)
+            cp, lp, acc_p = sweep_plain(w_, c_, ln_, sched, multi_draws_sweep, nb)
+            multi[(label, nb)] = _compare(f"sweep{label} {MULTI_SWEEPS} sweeps in one launch n_beta={nb}", ck, lk, cp,
+                                          lp, SWEEP_MISMATCH_MAX, SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL, failures, cut=cut)[:2]
+            print(f"sweep{label} {MULTI_SWEEPS} sweeps n_beta={nb}: flip acceptance kernel "
+                  f"{float(acc_k) / (MULTI_SWEEPS * N * K):.4f}, plain {float(acc_p) / (MULTI_SWEEPS * N * K):.4f}")
+    # the 2D schedules: the 8x8 square checkerboard and the 9x9 three-colour order
+    two_d = {}
+    for lab, ham2 in (("8x8 checkerboard", TFICheckerBoard(n_sites=TWO_D_L**2)), (f"{TRI_L}x{TRI_L} three-colour",
+                                                                                   TFITRI(n_sites=TRI_L**2))):
+        n2, s2 = ham2.n_sites, torch.as_tensor(ham2.schedule())
+        for clab, m2 in (("", RBM(n_inputs=n2, n_hiddens=TWO_D_H)),
+                         (" with c", FFNN(n_inputs=n2, n_hiddens=TWO_D_H, dtype=torch.float32))):
+            w2 = ffnn_work(m2) if clab else m2.make_work({k: PARAM_SCALE * v for k, v in m2.init_params(g).items()})
+            c2_, l2_ = engine.full_forward(w2, random_spins(g, TWO_D_K, n2))
+            d2 = PhiloxDraws(philox_key(g), 2 * n2)
+            ck, lk, _ = sweep_cuda(w2, c2_, s2, d2)
+            cp, lp, _ = sweep_plain(w2, c2_, l2_, s2, d2)
+            two_d[lab + clab] = _compare(f"sweep{clab} on the {lab} schedule, 2 sweeps", ck, lk, cp, lp,
+                                         SWEEP_MISMATCH_MAX, SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL, failures, cut=bool(clab))[:2]
+
+    # the energy kernel's float64 instance against the plain float64 sum
+    def widened(w_, c_):
+        w64 = engine.Work(*(None if t is None else t.to(torch.complex128) for t in w_))
+        return (w64, *engine.full_forward(w64, c_.spins.double()))
+
+    f64_cases = {"": widened(work, cache), " with c": widened(fwork, fcache)}
+    f64_err = {}
+    for label, (w64, c64, l64) in f64_cases.items():
+        got, want = offdiag_sum_cuda(w64, c64), offdiag_sum_plain(w64, c64, l64)
+        f64_err[label] = (_rel(got, want), float((got - want).abs().max()))
+    for wh in WIDTHS:
+        for label, wm in (("", RBM(n_inputs=WIDTH_N, n_hiddens=wh)),
+                          (" with c", FFNN(n_inputs=WIDTH_N, n_hiddens=wh, dtype=torch.float32))):
+            wwork = ffnn_work(wm) if label else wm.make_work({k: PARAM_SCALE * v for k, v in wm.init_params(g).items()})
+            w64, c64, l64 = widened(wwork, engine.full_forward(wwork, random_spins(g, WIDTH_K, WIDTH_N))[0])
+            f64_err[f" H={wh}{label}"] = (_rel(offdiag_sum_cuda(w64, c64), offdiag_sum_plain(w64, c64, l64)), None)
+    for label, (rel, _) in f64_err.items():
+        print(f"energy float64{label}: max|kernel-plain| / max|plain| {rel:.3e} (tol {F64_ENERGY_RTOL:.0e})")
+        if not rel <= F64_ENERGY_RTOL:
+            failures.append(f"energy float64{label}: relative error {rel:.3e}")
+
     philox_draws = PhiloxDraws(philox_key(g), N)
     print(f"exchange: (with c, W from shared memory) over the comparisons: {sorted(staged_seen)}")
     if len(staged_seen) != 4:
@@ -680,6 +796,14 @@ def main() -> int:
         "energy_c": (lambda: offdiag_sum_cuda(fwork, fcache), lambda: offdiag_sum_plain(fwork, fcache, flnpsi)),
         "exchange_c": (lambda: exchange_cuda(hfwork, hfcache, bonds, exchange_draws),
                        lambda: exchange_plain(hfwork, hfcache, hflnpsi, bonds, exchange_draws)),
+        # the energy kernel's float64 instance on the widened inputs of the same shapes
+        "energy_f64": (lambda: offdiag_sum_cuda(*f64_cases[""][:2]), lambda: offdiag_sum_plain(*f64_cases[""])),
+        "energy_f64_c": (lambda: offdiag_sum_cuda(*f64_cases[" with c"][:2]),
+                         lambda: offdiag_sum_plain(*f64_cases[" with c"])),
+    }
+    multi_calls = {  # the sweep as a sampler call runs it: MULTI_SWEEPS sweeps in one launch
+        "sweep": lambda: sweep_cuda(work, cache, sched, multi_draws_sweep),
+        "sweep_c": lambda: sweep_cuda(fwork, fcache, sched, multi_draws_sweep),
     }
     uniform_calls = {  # the sweep and exchange on caller uniforms, as the tests (and the A/B) feed them
         "sweep": lambda: sweep_cuda(work, cache, sched, u),
@@ -696,12 +820,15 @@ def main() -> int:
     timing = {name: (_time_ms(torch, fn, 20), _time_ms(torch, plain, 2)) for name, (fn, plain) in calls.items()}
     tempered_ms = {name: _time_ms(torch, fn, 20) for name, fn in tempered_calls.items()}
     uniform_ms = {name: _time_ms(torch, fn, 20) for name, fn in uniform_calls.items()}
+    sweep_multi_ms = {name: _time_ms(torch, fn, 10) for name, fn in multi_calls.items()}
     for name, (w_ms, p_ms) in timing.items():
         print(f"{name}: wrapper {w_ms:.4f} ms, plain {p_ms:.3f} ms per call (CUDA events; a sweep or exchange call is one sweep)")
     for name, w_ms in tempered_ms.items():
         print(f"{name} n_beta={CHECK_NBETA}: wrapper {w_ms:.4f} ms per call (one sweep and its swap phases)")
     for name, w_ms in uniform_ms.items():
         print(f"{name} on caller uniforms: wrapper {w_ms:.4f} ms per call")
+    for name, w_ms in sweep_multi_ms.items():
+        print(f"{name} {MULTI_SWEEPS} sweeps in one launch: wrapper {w_ms:.4f} ms per call")
     _require(not failures, "; ".join(failures))
     c64, f32b, i32b = 8, 4, 4
     # the state in and out, the weights, the counts; the sweep reads a 16-byte
@@ -728,6 +855,21 @@ def main() -> int:
     sweep_c_t_bound = _bound_ms(K * N * h * SWEEP_OPS_C + swap_ops, sweep_bytes + h * c64)
     sweep_energy_t_bound = _bound_ms(K * N * h * (SWEEP_OPS + ENERGY_OPS) + swap_ops,
                                      sweep_bytes + uniform_bytes + 2 * K * f32b + K * c64)
+    # a sampler call of MULTI_SWEEPS sweeps: their operations, the state moved once
+    sweep_m_bound = _bound_ms(MULTI_SWEEPS * K * N * h * SWEEP_OPS, sweep_bytes)
+    sweep_c_m_bound = _bound_ms(MULTI_SWEEPS * K * N * h * SWEEP_OPS_C, sweep_bytes + h * c64)
+    # the energy kernel's float64 instance: the float32 instance's operations
+    # at the float64 rate; y, a, c and the output in complex128, the spins in
+    # float64, its (N, H, 4) float64 table
+    c128, f64b = 16, 8
+
+    def f64_bound(ops_per):
+        ops = K * N * h * ops_per
+        nbytes = K * h * c128 + K * N * f64b + N * h * 4 * f64b + N * c128 + K * c128 + (h * c128 if ops_per == ENERGY_OPS_C else 0)
+        t_ops, t_bytes = ops / PEAK_F64_FLOPS, nbytes / PEAK_BYTES_S
+        return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    energy_f64_bound, energy_f64_c_bound = f64_bound(ENERGY_OPS), f64_bound(ENERGY_OPS_C)
     # the exchange: the state in and out, the weights, the bonds and their
     # incidence table, the counts, and the 16-byte key (the training paths'
     # mode) or the two (n_unit, K) uniform blocks
@@ -744,6 +886,10 @@ def main() -> int:
     exchange_u_bound = _bound_ms(exchange_ops, exchange_bytes(HUB_H, True))
     exchange_c_bound = _bound_ms(exchange_c_ops, exchange_bytes(FFNN_HUB_H, False) + FFNN_HUB_H * c64)
     exchange_c_u_bound = _bound_ms(exchange_c_ops, exchange_bytes(FFNN_HUB_H, True) + FFNN_HUB_H * c64)
+    # one launch of EXCHANGE_MULTI_SWEEPS sweeps: their operations, the state moved once
+    exchange_m_bound = _bound_ms(EXCHANGE_MULTI_SWEEPS * exchange_ops, exchange_bytes(HUB_H, False))
+    exchange_c_m_bound = _bound_ms(EXCHANGE_MULTI_SWEEPS * exchange_c_ops,
+                                   exchange_bytes(FFNN_HUB_H, False) + FFNN_HUB_H * c64)
 
     def drive(label, make_vmc, n_warm, n_steps, drift_tol):
         """Run one configuration through VMC.init, warm_up and run with the
@@ -796,8 +942,9 @@ def main() -> int:
         ),
         WARM_SWEEPS, SR_STEPS, CACHE_ATOL,
     )
-    _require(launches == {"sweep": WARM_SWEEPS + SR_STEPS, "energy": SR_STEPS, "exchange": 0, "sweep_energy": 0},
-             f"launches {launches}: expected one sweep launch per sweep and one energy launch per step")
+    _require(launches == expect(sweep=1 + SR_STEPS, energy=SR_STEPS) and warm_launches["LITFI"]["sweep"] == 1,
+             f"launches {launches}: expected one sweep launch per sampler call (the warm-up's {WARM_SWEEPS} sweeps, "
+             "each step's sweep) and one energy launch per step")
     path_launches["LITFI"] = launches
 
     _enter("5 Hubbard flagship SR steps", t0)
@@ -810,8 +957,7 @@ def main() -> int:
         ),
         HUB_WARM_SWEEPS, HUB_SR_STEPS, CACHE_ATOL,
     )
-    _require(hub_launches == {"sweep": 0, "energy": 0, "exchange": 1 + HUB_SR_STEPS, "sweep_energy": 0}
-             and warm_launches["Hubbard"]["exchange"] == 1,
+    _require(hub_launches == expect(exchange=1 + HUB_SR_STEPS) and warm_launches["Hubbard"]["exchange"] == 1,
              f"Hubbard launches {hub_launches}: expected one exchange launch per sampler call (the warm-up's "
              f"{HUB_WARM_SWEEPS} sweeps, each step's sweep) and nothing else")
     _require(sector_ok(hub_warm.cache.spins) and sector_ok(hub_state.cache.spins),
@@ -829,9 +975,9 @@ def main() -> int:
         ),
         WARM_SWEEPS, SR_STEPS, CACHE_ATOL,
     )
-    _require(pt_launches == {"sweep": WARM_SWEEPS + SR_STEPS, "energy": SR_STEPS, "exchange": 0, "sweep_energy": 0},
-             f"tempered launches {pt_launches}: expected one sweep launch per sweep (the ladder in the kernel) "
-             "and one energy launch per step")
+    _require(pt_launches == expect(sweep=1 + SR_STEPS, energy=SR_STEPS),
+             f"tempered launches {pt_launches}: expected one sweep launch per sampler call (the ladder in the "
+             "kernel) and one energy launch per step")
     _require(tuple(pt_state.cache.spins.shape) == (K, N), f"tempered state {tuple(pt_state.cache.spins.shape)}")
     path_launches["tempered LITFI"] = pt_launches
 
@@ -845,8 +991,8 @@ def main() -> int:
         ),
         WARM_SWEEPS, SR_STEPS, CACHE_ATOL,
     )
-    _require(ffnn_launches == {"sweep": WARM_SWEEPS + SR_STEPS, "energy": SR_STEPS, "exchange": 0, "sweep_energy": 0},
-             f"FFNN launches {ffnn_launches}: expected one sweep launch per sweep and one energy launch per step")
+    _require(ffnn_launches == expect(sweep=1 + SR_STEPS, energy=SR_STEPS),
+             f"FFNN launches {ffnn_launches}: expected one sweep launch per sampler call and one energy launch per step")
     path_launches["FFNN LITFI"] = ffnn_launches
 
     _enter("8 FFNN Hubbard SR steps", t0)
@@ -859,8 +1005,7 @@ def main() -> int:
         ),
         FFNN_HUB_WARM_SWEEPS, FFNN_HUB_SR_STEPS, CACHE_ATOL,
     )
-    _require(fh_launches == {"sweep": 0, "energy": 0, "exchange": 1 + FFNN_HUB_SR_STEPS, "sweep_energy": 0}
-             and warm_launches["FFNN Hubbard"]["exchange"] == 1,
+    _require(fh_launches == expect(exchange=1 + FFNN_HUB_SR_STEPS) and warm_launches["FFNN Hubbard"]["exchange"] == 1,
              f"FFNN Hubbard launches {fh_launches}: expected one exchange launch per sampler call and nothing else")
     _require(sector_ok(fh_warm.cache.spins) and sector_ok(fh_state.cache.spins),
              f"FFNN Hubbard: a walker left the {HUB_PARTICLES}+{HUB_PARTICLES} sector")
@@ -868,7 +1013,132 @@ def main() -> int:
           "and the steps")
     path_launches["FFNN Hubbard"] = fh_launches
 
-    _enter("9 megakernel A/B", t0)
+    _enter("9 solver cross-check", t0)
+    # one (O, E) of the warmed LITFI flagship in float64 (solve_dtype), at
+    # the first step's lambda and at the floor: lu, cholesky, svd, CG and
+    # MINRES-QLP on the same system S + lam diag S against its LU solve;
+    # sr_dense_solve's three solvers against each other (they add
+    # _regularize_dense's 1e-7 max ridge, which moves the solution by more
+    # than the bar: "ridge_shift"); minSR against the dense solve at its ridge
+    check_vmc = VMC(vmc.machine, vmc.hamiltonian, VMCConfig(n_walkers=K, solve_dtype=torch.float64, seed=3), device=dev)
+    e64, o64 = check_vmc.estimator_terms(params, state.cache, state.lnpsi)
+    f_vec, a_o = force_vector(o64, e64)
+    s_mat = build_s_matrix(o64, a_o)
+
+    def rel_vec(a, b):
+        return float((a - b).abs().norm() / b.abs().norm())
+
+    solver_check, gated = {}, {}
+    for lam in (lambda_schedule(0), LAMBDA_MIN):
+        a_mat = s_mat + torch.diag_embed(lam * torch.diagonal(s_mat).real).to(s_mat.dtype)
+        x_ref = solvers.lu_solve(a_mat, f_vec)
+        cond = float(torch.linalg.cond(a_mat))
+        dense = {name: sr_dense_solve(o64, e64, lam, solvers.SOLVERS[name]) for name in ("lu", "cholesky", "svd")}
+        x_minsr, lam_abs = sr_minsr_solve(o64, e64, lam)
+        x_abs = solvers.lu_solve(s_mat + float(lam_abs) * torch.eye(s_mat.shape[0], dtype=s_mat.dtype, device=dev), f_vec)
+        row = {"cond": cond, "cholesky_vs_lu": rel_vec(solvers.cholesky_solve(a_mat, f_vec), x_ref),
+               "svd_vs_lu": rel_vec(solvers.svd_lstsq(a_mat, f_vec), x_ref),
+               "dense_cholesky_vs_lu": rel_vec(dense["cholesky"], dense["lu"]),
+               "dense_svd_vs_lu": rel_vec(dense["svd"], dense["lu"]),
+               "minsr_vs_dense_at_its_ridge": rel_vec(x_minsr, x_abs), "ridge_shift": rel_vec(dense["lu"], x_ref)}
+        floor = lam == LAMBDA_MIN
+        for tol in SOLVER_CHECK_TOLS if floor else SOLVER_CHECK_TOLS[:1]:
+            for name, solve in (("cg", sr_cg_solve), ("minresqlp", sr_minres_solve)):
+                x, res = solve(o64, e64, lam, tol=tol, max_iters=SOLVER_CHECK_MAX_ITERS)
+                err = rel_vec(x, x_ref)
+                # the forward error its relative residual allows: cond(A) ||A x - f|| / ||f||
+                allowed = cond * rel_vec(a_mat @ x, f_vec)
+                row[f"{name}_tol{tol:.0e}"] = {"vs_lu": err, "iterations": res.iterations, "cond_x_residual": allowed}
+                bar = allowed if floor and tol == SOLVER_CHECK_TOLS[0] else SOLVER_CHECK_RTOL
+                gated[f"lambda {lam:g} {name} tol {tol:.0e}"] = (err, bar)
+        for key in ("cholesky_vs_lu", "svd_vs_lu", "dense_cholesky_vs_lu", "dense_svd_vs_lu", "minsr_vs_dense_at_its_ridge"):
+            gated[f"lambda {lam:g} {key}"] = (row[key], SOLVER_CHECK_RTOL)
+        solver_check[f"lambda {lam:g}"] = row
+    print(f"solver cross-check (K={K}, V={o64.shape[1]}, complex128): {json.dumps(solver_check)} "
+          f"(bar {SOLVER_CHECK_RTOL:.0e})")
+    _require(all(err <= bar for err, bar in gated.values()),
+             f"solver cross-check: {({k: v for k, v in gated.items() if not v[0] <= v[1]})}")
+    del o64, e64, s_mat, a_mat, check_vmc
+
+    _enter("10 solvers and modes, 10 SR steps each", t0)
+    modes = {  # label: (machine, the change to the flagship's configuration)
+        "lu": (RBMTrSymm, {"solver": "lu"}), "cholesky": (RBMTrSymm, {"solver": "cholesky"}),
+        "svd": (RBMTrSymm, {"solver": "svd"}), "minsr": (RBMTrSymm, {"solver": "minsr"}),
+        "sgd": (RBMTrSymm, {"solver": "sgd"}), "minresqlp": (RBMTrSymm, {"solver": "minresqlp"}),
+        "auto": (RBMTrSymm, {"solver": "auto"}),
+        # CG capped at 2 iterations ends unconverged: auto's MINRES-QLP fallback runs
+        "auto, CG capped": (RBMTrSymm, {"solver": "auto", "cg_max_iters": AUTO_FORCED_CAP}),
+        "cholesky, 3 rounds": (RBMTrSymm, {"solver": "cholesky", "n_accumulations": 3}),
+        "cg, precond_ema 0.9": (RBMTrSymm, {"precond_ema": 0.9}),
+        "energy_dtype float64": (RBMTrSymm, {"energy_dtype": torch.float64}),
+        # the float64 energy instance with c, on a main path
+        "FFNN energy_dtype float64": (FFNNTrSymm, {"energy_dtype": torch.float64}),
+        "energy_dtype compensated": (RBMTrSymm, {"energy_dtype": "compensated"}),
+        "block moves": (RBMTrSymm, {"block_moves_per_sweep": 1}),
+    }
+    auto_fallbacks = {}
+    for label, (machine_cls, change) in modes.items():
+        rounds = change.get("n_accumulations", 1)
+        mvmc, _, _, _, m_launches = drive(
+            f"LITFI {label}",
+            lambda machine_cls=machine_cls, change=change: VMC(
+                machine_cls(n_inputs=N, alpha=ALPHA, dtype=torch.float32),
+                LITFIChain(n_sites=N, h=-0.5, j=0.866, alpha=2.5, pbc=True),
+                VMCConfig(n_walkers=K, learning_rate=1e-2, use_fused_sweeps=True, seed=3,
+                          **({"solver": "cg"} | change)),
+                device=dev,
+            ),
+            WARM_SWEEPS, SOLVER_STEPS, CACHE_ATOL,
+        )
+        f64 = SOLVER_STEPS if change.get("energy_dtype") == torch.float64 else 0
+        want = expect(sweep=1 + SOLVER_STEPS * rounds,
+                      energy=0 if "energy_dtype" in change else SOLVER_STEPS * rounds,
+                      energy_f64=f64, energy_f64_c=f64 if machine_cls is FFNNTrSymm else 0)
+        _require(m_launches == want, f"LITFI {label}: launches {m_launches}, expected {want}")
+        if change.get("solver") == "auto":
+            auto_fallbacks[label] = mvmc.n_qlp_fallbacks
+            print(f"LITFI {label}: MINRES-QLP fallbacks {mvmc.n_qlp_fallbacks} in {SOLVER_STEPS} steps")
+        path_launches[f"LITFI {label}"] = m_launches
+    _require(auto_fallbacks["auto, CG capped"] > 0,
+             f"auto with CG capped at {AUTO_FORCED_CAP} iterations never fell back to MINRES-QLP: {auto_fallbacks}")
+
+    _enter("11 Hubbard minSR SR steps", t0)
+    ms_vmc, ms_params, ms_state, ms_warm, ms_launches = drive(
+        "Hubbard minSR",
+        lambda: VMC(
+            RBM(n_inputs=2 * HUB_L, n_hiddens=HUB_H, dtype=torch.float32),
+            hubbard,
+            VMCConfig(n_walkers=HUB_K, learning_rate=1e-2, solver="minsr", use_fused_sweeps=True,
+                      steps_per_host_loop=5, seed=11),
+            device=dev,
+        ),
+        HUB_WARM_SWEEPS, HUB_SR_STEPS, CACHE_ATOL,
+    )
+    _require(ms_vmc.config.solve_dtype is None, "Hubbard minSR: the solve must stay float32, as in JAX")
+    _require(ms_launches == expect(exchange=1 + HUB_SR_STEPS) and warm_launches["Hubbard minSR"]["exchange"] == 1,
+             f"Hubbard minSR launches {ms_launches}: expected one exchange launch per sampler call")
+    _require(sector_ok(ms_warm.cache.spins) and sector_ok(ms_state.cache.spins),
+             f"Hubbard minSR: a walker left the {HUB_PARTICLES}+{HUB_PARTICLES} sector")
+    print(f"Hubbard minSR: every walker holds {HUB_PARTICLES} up and {HUB_PARTICLES} down particles; float32 solve")
+    path_launches["Hubbard minSR"] = ms_launches
+
+    _enter("12 2D dense SR steps", t0)
+    cb = TFICheckerBoard(n_sites=TWO_D_L**2, h=-1.5, j1=-1.0, j2=0.3, pbc=True)
+    cb_vmc, cb_params, cb_state, _, cb_launches = drive(
+        "2D checkerboard lu",
+        lambda: VMC(
+            FFNN(n_inputs=cb.n_sites, n_hiddens=TWO_D_H, dtype=torch.float32),
+            cb,
+            VMCConfig(n_walkers=TWO_D_K, learning_rate=1e-2, solver="lu", n_accumulations=TWO_D_ROUNDS, seed=3),
+            device=dev,
+        ),
+        TWO_D_WARM, TWO_D_STEPS, CACHE_ATOL,
+    )
+    _require(cb_launches == expect(sweep=1 + TWO_D_STEPS * TWO_D_ROUNDS, energy=TWO_D_STEPS * TWO_D_ROUNDS),
+             f"2D launches {cb_launches}: expected one sweep launch per sampler call, one energy launch per round")
+    path_launches["2D checkerboard"] = cb_launches
+
+    _enter("13 megakernel A/B", t0)
     reset_counts()
     ab = {nb: megakernel_ab.run_ab(nb) for nb in (1, CHECK_NBETA)}
     ab_launches, ab_plain = read_counts()
@@ -883,16 +1153,19 @@ def main() -> int:
     _require(ab_plain == 0 and ab_launches["sweep_energy"] > 0, f"A/B launches {ab_launches}, plain calls {ab_plain}")
     path_launches["megakernel A/B"] = ab_launches
 
-    _enter("10 kernel device times", t0)
+    _enter("14 kernel device times", t0)
     # the instance each timed call runs: R = ceil(H/32) (exchange: G x U), then c and t
     hub_g = kernel_lanes(HUB_H)
     r_of = {"exchange": f"{hub_g}x{-(-HUB_H // hub_g)}"}
 
-    def instance(name, tempered=False):
+    def instance(name, tempered=False, multi=False):
         base = name.removesuffix("_c")
-        r = r_of.get(base, (h + 31) // 32)
-        key = f"{r}" + ("c" if name.endswith("_c") else "") + ("t" if tempered and "t" in TEMPLATE_BOOLS[base] else "")
-        return key, ptxas[base].get(key, "not built in this run")
+        lib, f64 = base.removesuffix("_f64"), base.endswith("_f64")  # the float64 instance is in energy's library
+        r = r_of.get(lib, (h + 31) // 32)
+        c = name.endswith("_c")
+        key = (f"{r}" + ("c" if c else "") + ("t" if tempered and "t" in TEMPLATE_BOOLS[lib] else "")
+               + ("m" if multi and c and "m" in TEMPLATE_BOOLS[lib] else "") + ("d" if f64 else ""))
+        return key, ptxas[lib].get(key, "not built in this run")
 
     def device(fn, name):
         return _device_ms(torch, fn, 20, KERNEL_NAMES[name.removesuffix("_c")])
@@ -912,17 +1185,30 @@ def main() -> int:
     for name, d_ms in multi_ms.items():
         print(f"{name} {EXCHANGE_MULTI_SWEEPS} sweeps in one launch: kernel "
               f"{'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call (device time, profiler)")
+    # the sweep kernel: a sampler call's MULTI_SWEEPS sweeps in one launch
+    sweep_multi_device_ms = {name: device(fn, name) for name, fn in multi_calls.items()}
+    for name, d_ms in sweep_multi_device_ms.items():
+        key, regs = instance(name, multi=True)
+        print(f"{name} {MULTI_SWEEPS} sweeps in one launch: kernel "
+              f"{'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call (device time, profiler); "
+              f"instance {key}: registers {regs}")
 
-    _enter("11 LITFI step profile", t0)
+    _enter("15 LITFI step profile", t0)
     _profile_steps(torch, vmc, params, state, SR_STEPS)
 
-    _enter("12 Hubbard step profile", t0)
+    _enter("16 Hubbard step profile", t0)
     _profile_steps(torch, hub_vmc, hub_params, hub_state, HUB_SR_STEPS)
 
-    _enter("13 FFNN flagship step profile", t0)
+    _enter("17 FFNN flagship step profile", t0)
     _profile_steps(torch, ffnn_vmc, ffnn_params, ffnn_state, SR_STEPS)
 
-    _enter("14 report", t0)
+    _enter("18 Hubbard minSR step profile", t0)
+    _profile_steps(torch, ms_vmc, ms_params, ms_state, HUB_SR_STEPS, NEW_PROFILE_STEPS)
+
+    _enter("19 2D dense SR step profile", t0)
+    _profile_steps(torch, cb_vmc, cb_params, cb_state, TWO_D_STEPS, NEW_PROFILE_STEPS)
+
+    _enter("20 report", t0)
     print(f"launches by path: {json.dumps(path_launches)}")
     errs = {
         "sweep": {"max_abs_err": philox[("", 1)][1], "tolerance": SWEEP_LNPSI_ATOL, "mismatch_share": philox[("", 1)][0],
@@ -932,7 +1218,14 @@ def main() -> int:
                   "uniforms": {"max_abs_err": ln_err, "mismatch_share": share, f"nbeta{CHECK_NBETA}_mismatch_share": t_share,
                                f"nbeta{CHECK_NBETA}_max_abs_err": t_ln_err, "kernel_ms": uniform_device_ms["sweep"],
                                "wrapper_ms": uniform_ms["sweep"], "bound_ms": sweep_u_bound[0]},
-                  f"nbeta{CHECK_NBETA}_bound_ms": sweep_t_bound[0]},
+                  f"nbeta{CHECK_NBETA}_bound_ms": sweep_t_bound[0],
+                  # a sampler call's mode: MULTI_SWEEPS sweeps in one launch on one stream
+                  "multi_sweep": {"sweeps": MULTI_SWEEPS, "max_abs_err": multi[("", 1)][1],
+                                  "mismatch_share": multi[("", 1)][0],
+                                  f"nbeta{CHECK_NBETA}_mismatch_share": multi[("", CHECK_NBETA)][0],
+                                  "kernel_ms": sweep_multi_device_ms["sweep"], "wrapper_ms": sweep_multi_ms["sweep"],
+                                  "bound_ms": sweep_m_bound[0], "registers": instance("sweep", multi=True)[1]},
+                  "schedules_2d": {k: {"mismatch_share": v[0], "max_abs_err": v[1]} for k, v in two_d.items()}},
         "energy": {"max_abs_err": e_abs, "rel_err": e_rel, "tolerance": ENERGY_RTOL},
         # the headline: one sweep on the kernel's Philox stream, the training paths' mode
         "exchange": {"max_abs_err": x_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": x_share,
@@ -940,7 +1233,7 @@ def main() -> int:
                                   "kernel_ms": uniform_device_ms["exchange"], "wrapper_ms": uniform_ms["exchange"],
                                   "bound_ms": exchange_u_bound[0]},
                      "multi_sweep": {"sweeps": EXCHANGE_MULTI_SWEEPS, "max_abs_err": xm_ln_err, "mismatch_share": xm_share,
-                                     "kernel_ms": multi_ms["exchange"]},
+                                     "kernel_ms": multi_ms["exchange"], "bound_ms": exchange_m_bound[0]},
                      "lanes": hub_g, "w_in_shared_memory": stages_w(hn, HUB_H, nb, False)},
         "sweep_energy": {"tolerance": SWEEP_LNPSI_ATOL, "offdiag_tolerance": OFFDIAG_RTOL, **mega[1],
                          f"nbeta{CHECK_NBETA}": mega[CHECK_NBETA], f"nbeta{CHECK_NBETA}_bound_ms": sweep_energy_t_bound[0],
@@ -955,7 +1248,7 @@ def main() -> int:
         "sweep_energy": "neural_network_quantum_state_tpu/ops/pallas_sweep_energy.py:49",
     }
     # the instances with output weights c: the FFNN paths launched them
-    ffnn_paths = ("FFNN LITFI", "FFNN Hubbard")
+    ffnn_paths = ("FFNN LITFI", "FFNN Hubbard", "2D checkerboard", "LITFI FFNN energy_dtype float64")
     has_c_errs = {
         "sweep": {"max_abs_err": philox[(" with c", 1)][1], "tolerance": SWEEP_LNPSI_ATOL,
                   "mismatch_share": philox[(" with c", 1)][0],
@@ -966,14 +1259,19 @@ def main() -> int:
                                f"nbeta{CHECK_NBETA}_max_abs_err": sweep_c[CHECK_NBETA][1],
                                "kernel_ms": uniform_device_ms["sweep_c"], "wrapper_ms": uniform_ms["sweep_c"],
                                "bound_ms": sweep_c_u_bound[0]},
-                  f"nbeta{CHECK_NBETA}_bound_ms": sweep_c_t_bound[0]},
+                  f"nbeta{CHECK_NBETA}_bound_ms": sweep_c_t_bound[0],
+                  "multi_sweep": {"sweeps": MULTI_SWEEPS, "max_abs_err": multi[(" with c", 1)][1],
+                                  "mismatch_share": multi[(" with c", 1)][0],
+                                  f"nbeta{CHECK_NBETA}_mismatch_share": multi[(" with c", CHECK_NBETA)][0],
+                                  "kernel_ms": sweep_multi_device_ms["sweep_c"], "wrapper_ms": sweep_multi_ms["sweep_c"],
+                                  "bound_ms": sweep_c_m_bound[0], "registers": instance("sweep_c", multi=True)[1]}},
         "energy": {"max_abs_err": ec_abs, "rel_err": ec_rel, "tolerance": ENERGY_RTOL, "near_cut_share": ec_near},
         "exchange": {"max_abs_err": xc_ln_err, "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": xc_share,
                      "uniforms": {"max_abs_err": xcu_ln_err, "mismatch_share": xcu_share,
                                   "kernel_ms": uniform_device_ms["exchange_c"], "wrapper_ms": uniform_ms["exchange_c"],
                                   "bound_ms": exchange_c_u_bound[0]},
                      "multi_sweep": {"sweeps": EXCHANGE_MULTI_SWEEPS, "max_abs_err": xcm_ln_err, "mismatch_share": xcm_share,
-                                     "kernel_ms": multi_ms["exchange_c"]},
+                                     "kernel_ms": multi_ms["exchange_c"], "bound_ms": exchange_c_m_bound[0]},
                      "w_in_shared_memory": stages_w(hn, FFNN_HUB_H, nb, True)},
     }
     has_c_bounds = {"sweep": sweep_c_bound, "energy": energy_c_bound, "exchange": exchange_c_bound}
@@ -1008,6 +1306,25 @@ def main() -> int:
         }
         for name in ("sweep", "energy", "exchange", "sweep_energy")
     ]
+
+    def f64_entry(name, err, bound):
+        # launches: both float64 instances over every path; has_c: the instance with c alone
+        return {"launches": sum(p.get(name, 0) for p in path_launches.values()),
+                "max_abs_err": err[1], "rel_err": err[0], "tolerance": F64_ENERGY_RTOL,
+                "ms": device_ms[name] if device_ms[name] is not None else timing[name][0],
+                "kernel_ms": device_ms[name], "wrapper_ms": timing[name][0], "plain_ms": timing[name][1],
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None, "registers": instance(name)[1]}
+
+    # the energy kernel's float64 instance (energy_dtype=float64), where the
+    # JAX package runs XLA (hamiltonians/ising.py::_offdiag_sum in float64)
+    kernels.append({
+        "name": "energy_f64", "route": "cuda", "source": "neural_network_quantum_state_tpu_torch/csrc/energy.cu",
+        "replaces": replaces["energy"], "instance_of": "energy",
+        **f64_entry("energy_f64", f64_err[""], energy_f64_bound),
+        "widths_rel_err": {k.strip(): v[0] for k, v in f64_err.items() if "H=" in k},
+        "has_c": f64_entry("energy_f64_c", f64_err[" with c"], energy_f64_c_bound),
+    })
+    print(f"solver cross-check: {json.dumps(solver_check)}; auto's MINRES-QLP fallbacks: {json.dumps(auto_fallbacks)}")
     print(json.dumps({"kernels": kernels}))
     print(_smi())  # the card's name and power limit, as nvidia-smi prints them
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -386,19 +386,25 @@ __device__ __forceinline__ void swap_phase(const SweepArgs& p, const FlipDraws& 
 // (the energy kernel's, p.wt), and an accepted flip rotates the kept pair,
 // so no proposal evaluates a trig function (the half-angle form of the TPU
 // kernel's recur_cos). The rotations round by about 1e-7 each, so their
-// drift grows as the square root of the flips accepted in one call (a call
-// starts from exact values); s_c is the block's copy of c (load_c).
+// drift grows as the square root of the flips accepted; s_c is the block's
+// copy of c (load_c). M = true, for a launch of more than one sweep with c,
+// restarts them from Im y at every sweep (each n_sites rounds), so such a
+// launch drifts no further than one sweep; M = false carries no restart, so
+// the one-sweep launch of every SR step keeps the registers it had before.
 // T = false is the n_beta = 1 instance (no beta, no swap phases, the walker's
 // row fixed); T = true takes any n_beta <= 16, and then every warp of the
 // block must call this (idle ones with active = false): the swap phases
 // synchronise it.
-template <int R, bool C, bool T>
+template <int R, bool C, bool T, bool M = false>
 __device__ __forceinline__ void sweep_walker(const SweepArgs& p, const float2* s_c, bool active, int base, int& row,
                                              float* sp, float (&yr)[R], float (&yi)[R], float2& sa, float* s_ln,
                                              int* s_flip, int* s_swap) {
+  static_assert(C || !M, "M restarts the instances with c");
   const int lane = threadIdx.x & 31;
-  const int rounds = T ? p.n_sites : p.n_steps;
-  const int n_sweeps = T ? p.n_steps / rounds : 1;
+  // sweeps of n_sites rounds (for M the last may be partial), or for T = M =
+  // false all n_steps rounds in one run over the schedule, repeated
+  const int rounds = (T || M) ? p.n_sites : p.n_steps;
+  const int n_sweeps = (T || M) ? (p.n_steps + rounds - 1) / rounds : 1;
   FlipDraws draws(p);
   [[maybe_unused]] float cy[C ? R : 1], sy[C ? R : 1];  // C = true: cos/sin(Im y)
   float ln0 = 0.0f;
@@ -419,12 +425,19 @@ __device__ __forceinline__ void sweep_walker(const SweepArgs& p, const float2* s
   }
   for (int s = 0; s < n_sweeps; ++s) {
     if (active) {
+      if constexpr (M) {
+        if (s > 0) {  // a new sweep: cos/sin(Im y) afresh
+#pragma unroll
+          for (int r = 0; r < R; ++r) sincosf(yi[r], &sy[r], &cy[r]);
+        }
+      }
       // beta_r = (n_beta - r) / n_beta of the walker's current row
       const float beta = T ? static_cast<float>(p.n_beta - row % p.n_beta) / static_cast<float>(p.n_beta) : 1.0f;
       draws.restart();
       int acc = 0;
-      int ts = 0;  // t % n_sites: every sweep of T = true starts a schedule
-      for (int t = s * rounds; t < (s + 1) * rounds; ++t) {
+      int ts = 0;  // t % n_sites: every sweep of T or M starts a schedule
+      const int t1 = M ? min((s + 1) * rounds, p.n_steps) : (s + 1) * rounds;
+      for (int t = s * rounds; t < t1; ++t) {
         const float u = draws(p, t, row, lane);
         const int site = p.sched[ts];
         ts = ts + 1 == p.n_sites ? 0 : ts + 1;

@@ -45,7 +45,7 @@ namespace {
 
 using nqs::SweepArgs;
 
-template <int R, bool C, bool T>
+template <int R, bool C, bool T, bool M>
 __global__ void __launch_bounds__(32 * nqs::sweep_block_warps(T),
                                   nqs::min_blocks(C ? nqs::kWideRegs : nqs::narrow_regs(R), nqs::sweep_block_warps(T)))
 sweep_kernel(SweepArgs p, const float2* __restrict__ c, const float* __restrict__ spins_in,
@@ -79,7 +79,7 @@ sweep_kernel(SweepArgs p, const float2* __restrict__ c, const float* __restrict_
   else __syncthreads();
 
   int row = k;
-  nqs::sweep_walker<R, C, T>(p, s_c, active, base, row, sp, yr, yi, sa, s_ln, s_flip, s_swap);
+  nqs::sweep_walker<R, C, T, M>(p, s_c, active, base, row, sp, yr, yi, sa, s_ln, s_flip, s_swap);
 
   if (active) {
     nqs::store_row<R>(y_out + (size_t)row * p.H, p.H, lane, yr, yi);
@@ -93,7 +93,7 @@ sweep_kernel(SweepArgs p, const float2* __restrict__ c, const float* __restrict_
   }
 }
 
-template <int R, bool C, bool T>
+template <int R, bool C, bool T, bool M>
 cudaError_t launch(const SweepArgs& p, const float2* c, const float* spins_in, const float2* y_in,
                    const float2* sa_in, float* spins_out, float2* y_out, float2* sa_out, int* flip_out,
                    int* swap_out, cudaStream_t stream) {
@@ -101,22 +101,22 @@ cudaError_t launch(const SweepArgs& p, const float2* c, const float* spins_in, c
   const dim3 grid((p.K + G - 1) / G);
   const size_t smem = nqs::sweep_smem_bytes<R, C>(G, p.N);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(sweep_kernel<R, C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t e = cudaFuncSetAttribute(sweep_kernel<R, C, T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  sweep_kernel<R, C, T><<<grid, 32 * G, smem, stream>>>(p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out,
-                                                     flip_out, swap_out);
+  sweep_kernel<R, C, T, M><<<grid, 32 * G, smem, stream>>>(p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out,
+                                                        flip_out, swap_out);
   return cudaGetLastError();
 }
 
-template <bool C, bool T>
+template <bool C, bool T, bool M>
 cudaError_t dispatch(const SweepArgs& p, const void* c, const void* spins_in, const void* y_in,
                      const void* sa_in, void* spins_out, void* y_out, void* sa_out, void* flip_out,
                      void* swap_out, void* stream) {
 #define NQS_SWEEP_CASE(R)                                                                          \
   case R:                                                                                          \
-    return launch<R, C, T>(p, static_cast<const float2*>(c), static_cast<const float*>(spins_in),    \
+    return launch<R, C, T, M>(p, static_cast<const float2*>(c), static_cast<const float*>(spins_in), \
                         static_cast<const float2*>(y_in), static_cast<const float2*>(sa_in),       \
                         static_cast<float*>(spins_out), static_cast<float2*>(y_out),               \
                         static_cast<float2*>(sa_out), static_cast<int*>(flip_out),                 \
@@ -159,8 +159,12 @@ extern "C" int nqs_sweep_f32(const void* w, const void* a, const void* c, const 
                     static_cast<const long long*>(key), static_cast<const float4*>(wt), K, N, H, n_sites, n_steps,
                     n_beta};
 #define NQS_SWEEP_ARGS p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out, flip_out, swap_out, stream
+  // with c, a launch of more than one sweep takes the instance that restarts
+  // cos/sin(Im y) at each sweep (M, rbm.cuh sweep_walker)
+  if (c != nullptr && n_steps > n_sites)
+    return n_beta > 1 ? dispatch<true, true, true>(NQS_SWEEP_ARGS) : dispatch<true, false, true>(NQS_SWEEP_ARGS);
   if (c != nullptr)
-    return n_beta > 1 ? dispatch<true, true>(NQS_SWEEP_ARGS) : dispatch<true, false>(NQS_SWEEP_ARGS);
-  return n_beta > 1 ? dispatch<false, true>(NQS_SWEEP_ARGS) : dispatch<false, false>(NQS_SWEEP_ARGS);
+    return n_beta > 1 ? dispatch<true, true, false>(NQS_SWEEP_ARGS) : dispatch<true, false, false>(NQS_SWEEP_ARGS);
+  return n_beta > 1 ? dispatch<false, true, false>(NQS_SWEEP_ARGS) : dispatch<false, false, false>(NQS_SWEEP_ARGS);
 #undef NQS_SWEEP_ARGS
 }

@@ -2,10 +2,13 @@
 
 ``offdiag_sum`` returns, per walker, the complex
 ``sum_i exp(ln psi(flip_i s) - ln psi(s))`` over all N sites. A CUDA tensor
-goes to the kernel in ``csrc/energy.cu`` (float32; an instance for the RBM
-family, c = 1, and one for the FFNN family's complex output weights), which
-reads the weights through the table ``engine.kernel_table``; a CPU tensor
-goes to ``offdiag_sum_plain``, the chunked PyTorch computation.
+goes to the kernel in ``csrc/energy.cu``: its float32 instances (one for the
+RBM family, c = 1, and one for the FFNN family's complex output weights),
+or for float64 tensors (``energy_dtype=torch.float64``) its float64
+instance, which the JAX package sends to XLA (its Pallas kernel is float32
+only); any other dtype raises. The kernel reads the weights through the
+table ``engine.kernel_table``. A CPU tensor goes to ``offdiag_sum_plain``,
+the chunked PyTorch computation, in any dtype.
 
 Replaces ``neural_network_quantum_state_tpu/ops/pallas_energy.py``.
 """
@@ -56,38 +59,52 @@ def offdiag_near_cut(work: Work, cache: Cache) -> torch.Tensor:
     return out
 
 
-def _kernel():
-    fn = build.library("energy").nqs_offdiag_f32
+# The kernel's instances by the spins' dtype: (C symbol, complex dtype).
+INSTANCES = {torch.float32: ("nqs_offdiag_f32", torch.complex64), torch.float64: ("nqs_offdiag_f64", torch.complex128)}
+
+
+def _kernel(symbol: str):
+    fn = getattr(build.library("energy"), symbol)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def offdiag_sum_cuda(work: Work, cache: Cache) -> torch.Tensor:
-    """Launch the energy kernel; returns (K,) complex64. ln psi(s) is
-    recomputed in the kernel from y, so no ln psi argument is taken."""
+    """Launch the energy kernel's instance for the cache's dtype: float32
+    (``launches``) or float64 (``launches_f64``, of which those with output
+    weights c also in ``launches_f64_c``); returns (K,) complex of that
+    precision. ln psi(s) is recomputed in the kernel from y, so no ln
+    psi argument is taken. Any other dtype raises."""
     k, n = cache.spins.shape
     h = work.w.shape[1]
     dev = cache.spins.device
-    if cache.spins.dtype != torch.float32:
-        raise NotImplementedError(f"energy kernel: only float32 is ported, got {cache.spins.dtype}")
-    tensors, weights = engine.kernel_weights(work)
+    if cache.spins.dtype not in INSTANCES:
+        raise NotImplementedError(f"energy kernel: float32 and float64 are ported, got {cache.spins.dtype}")
+    symbol, cdt = INSTANCES[cache.spins.dtype]
+    tensors, weights = engine.kernel_weights(work, cdt)
     build.check_inputs("energy", dev, h, tensors | {
-        "spins": (cache.spins, torch.float32, (k, n)),
-        "y": (cache.y, torch.complex64, (k, h)),
+        "spins": (cache.spins, cache.spins.dtype, (k, n)),
+        "y": (cache.y, cdt, (k, h)),
     })
     table = engine.kernel_table(work.w)
-    out = torch.empty(k, dtype=torch.complex64, device=dev)
-    rc = _kernel()(
+    out = torch.empty(k, dtype=cdt, device=dev)
+    rc = _kernel(symbol)(
         table.data_ptr(), *weights[1:], cache.spins.data_ptr(), cache.y.data_ptr(), out.data_ptr(), k, n, h,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check_launch(rc, "energy kernel")
-    offdiag_sum_cuda.launches += 1
+    build.check_launch(rc, f"energy kernel ({symbol})")
+    if cache.spins.dtype == torch.float32:
+        offdiag_sum_cuda.launches += 1
+    else:
+        offdiag_sum_cuda.launches_f64 += 1
+        offdiag_sum_cuda.launches_f64_c += int(work.c is not None)
     return out
 
 
 offdiag_sum_cuda.launches = 0
+offdiag_sum_cuda.launches_f64 = 0
+offdiag_sum_cuda.launches_f64_c = 0
 
 
 def offdiag_sum(work: Work, cache: Cache, lnpsi: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ Spins are real {-1,+1}; y, sa and ln psi are native complex tensors.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -36,25 +37,25 @@ class Work(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _zero_bias(n: int, device: torch.device) -> torch.Tensor:
-    return torch.zeros(n, dtype=torch.complex64, device=device)
+def _zero_bias(n: int, device: torch.device, dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+    return torch.zeros(n, dtype=dtype, device=device)
 
 
-def kernel_weights(work: Work) -> tuple[dict, tuple]:
+def kernel_weights(work: Work, dtype: torch.dtype = torch.complex64) -> tuple[dict, tuple]:
     """What the CUDA kernels read of `work`: the ``build.check_inputs``
-    entries of w, a and c, and the pointers (w, a, c) in the kernels'
-    argument order.
+    entries of w, a and c in the complex ``dtype`` of the kernel instance,
+    and the pointers (w, a, c) in the kernels' argument order.
 
     A machine without a visible bias (``a`` None) gets zeros for a, made
-    once per size and device, as the JAX package's kernels feed; without
-    output weights (``c`` None, c = 1: the RBM family) the c pointer is None
-    and the kernels' instance without c runs.
+    once per size, device and dtype, as the JAX package's kernels feed;
+    without output weights (``c`` None, c = 1: the RBM family) the c pointer
+    is None and the kernels' instance without c runs.
     """
     n, h = work.w.shape
-    a = work.a if work.a is not None else _zero_bias(n, work.w.device)
-    entries = {"w": (work.w, torch.complex64, (n, h)), "a": (a, torch.complex64, (n,))}
+    a = work.a if work.a is not None else _zero_bias(n, work.w.device, dtype)
+    entries = {"w": (work.w, dtype, (n, h)), "a": (a, dtype, (n,))}
     if work.c is not None:
-        entries["c"] = (work.c, torch.complex64, (h,))
+        entries["c"] = (work.c, dtype, (h,))
     c_ptr = None if work.c is None else work.c.data_ptr()
     return entries, (work.w.data_ptr(), a.data_ptr(), c_ptr)
 
@@ -64,9 +65,10 @@ _table_memo: list = [None]
 
 
 def kernel_table(w: torch.Tensor) -> torch.Tensor:
-    """(N, H, 4) float32 (Re w, Im w, cos 2 Im w, sin 2 Im w) of complex64 w:
-    the weights as the energy kernel, the megakernel and the sweep's
-    instances with c read them, one 16-byte load per (site, hidden unit).
+    """(N, H, 4) real (Re w, Im w, cos 2 Im w, sin 2 Im w) of complex w, in
+    w's real dtype: the weights as the energy kernel, the megakernel and the
+    sweep's instances with c read them, one 16-byte load per (site, hidden
+    unit) in float32 (two of 16 bytes in the energy kernel's float64 instance).
     The kernels take a flipped unit's cos/sin(Im y - 2 s Im w) by angle
     addition from cos/sin(2 Im w), as the JAX energy kernel's XLA caller
     tabulates them (``pallas_energy.py``'s c2w/s2w).
@@ -223,3 +225,50 @@ def all_flip2_log_psi(work: Work, cache: Cache, sites_a: torch.Tensor, sites_b: 
     if work.a is not None:
         lnpsi = lnpsi + (-ta * work.a[sites_a][None, :] - tb * work.a[sites_b][None, :])
     return lnpsi
+
+
+def _bounded_parts(x: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(log-magnitude residual, phase) of ln cosh(x + iv) without its |x| -
+    ln 2 part: both bounded by O(1), so a float32 evaluation carries only
+    ~eps absolute error."""
+    e = torch.exp(-2.0 * x.abs())
+    sgn = 1.0 - 2.0 * (x < 0).to(x.dtype)
+    pre = (1.0 + e) * torch.cos(v)
+    pim = (1.0 - e) * torch.sin(v) * sgn
+    return 0.5 * torch.log(pre * pre + pim * pim), torch.atan2(pim, pre)
+
+
+def all_flip_delta_log_psi(work: Work, cache: Cache, sites: torch.Tensor, accum_dtype=None) -> torch.Tensor:
+    """ln psi(flip_i s) - ln psi(s) for every site in `sites`: (K, n), the
+    compensated form (``energy_dtype="compensated"``).
+
+    The per-hidden-unit differences ln cosh(y') - ln cosh(y) are formed
+    first, each O(|2 s w|) and so exact to float32 eps of a small number,
+    and only then summed, in `accum_dtype` (float64) when given: the two
+    O(|ln psi|) totals of the plain form never cancel. The |x| part of each
+    difference is taken exactly in the accumulation dtype, the angles are
+    folded into (-pi, pi] there before the float32 cos/sin, and only the
+    bounded log/atan2 parts (``_bounded_parts``) are evaluated in float32.
+    sa cancels and never appears.
+    """
+    adt = cache.y.real.dtype if accum_dtype is None else accum_dtype
+    two_s = 2.0 * cache.spins[:, sites]  # (K, n) real
+    t_re = two_s[:, :, None] * work.w.real[sites][None]
+    t_im = two_s[:, :, None] * work.w.imag[sites][None]
+    x0 = cache.y.real[:, None, :].to(adt)
+    v0 = cache.y.imag[:, None, :].to(adt)
+    x1 = x0 - t_re.to(adt)
+    v1 = v0 - t_im.to(adt)
+    dabs = x1.abs() - x0.abs()
+    two_pi = 2.0 * math.pi
+    v0_f = v0 - two_pi * torch.round(v0 * (1.0 / two_pi))
+    v1_f = v1 - two_pi * torch.round(v1 * (1.0 / two_pi))
+    f32 = torch.float32
+    lr1, li1 = _bounded_parts(x1.to(f32), v1_f.to(f32))
+    lr0, li0 = _bounded_parts(x0.to(f32), v0_f.to(f32))
+    dly = torch.complex((lr1.to(adt) - lr0.to(adt)) + dabs, li1.to(adt) - li0.to(adt))
+    cdt = dly.dtype
+    d = dly.sum(-1) if work.c is None else (dly * work.c.to(cdt)).sum(-1)
+    if work.a is not None:
+        d = d + (-two_s.to(adt)) * work.a[sites].to(cdt)[None, :]
+    return d

@@ -14,7 +14,9 @@ even-pair and then the odd-pair swap phase (``swap_phase``) on the caller's
 tensors drawn by the caller or a ``rng.PhiloxDraws`` (a key): the kernel
 then draws them on the chip and the plain version makes the same
 numbers with ``rng.philox_uniforms``. Either way both take the same uniforms,
-so they make the same decisions. The kernel has an
+so they make the same decisions. The sampler gives the kernel a whole
+call's rounds at once (``sampler/metropolis.py::sweep_calls``), as the JAX
+package's ``pallas_sweeps`` runs a call in one ``pallas_call``. The kernel has an
 instance for the RBM family (c = 1) and one for the FFNN family's complex
 output weights ``work.c``, each at n_beta = 1 and for n_beta > 1; a machine
 without a visible bias gets zeros.
@@ -36,6 +38,10 @@ from neural_network_quantum_state_tpu_torch.ops.rng import PhiloxDraws
 
 # The kernel's blocks hold whole replica groups of at most 16 warps.
 MAX_NBETA = 16
+# The kernel counts rounds in an int and takes word 0 of a round's Philox
+# counter as t / 4, so one launch takes fewer than 2^31 rounds (a sampler
+# call of 500 sweeps of 81 sites is 40 500).
+MAX_ROUNDS = 2**31 - 1
 
 
 def replica_betas(n_beta: int, kb: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -166,8 +172,8 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
         raise ValueError(f"{kernel} kernel: n_beta={n_beta} above the in-kernel ladder's limit of {MAX_NBETA}")
     sched = torch.as_tensor(schedule, dtype=torch.int32, device=dev)
     n_steps = n_rounds(uniforms)
-    if n_steps == 0:
-        raise ValueError(f"{kernel} kernel: no proposal rounds (uniforms has 0 rows)")
+    if not 0 < n_steps <= MAX_ROUNDS:
+        raise ValueError(f"{kernel} kernel: {n_steps} proposal rounds, not in [1, {MAX_ROUNDS}]")
     philox = isinstance(uniforms, PhiloxDraws)
     n_sweeps = _check_tempering(k, n_steps, sched.shape[0], n_beta, swap_uniforms, philox)
     tensors, weights = engine.kernel_weights(work)

@@ -8,14 +8,14 @@ phase between adjacent replicas (accept prob
 
 The layout is the JAX package's replica-minor one: walker w = k*n_beta + r,
 so each physical chain's replicas are adjacent and the estimators read the
-beta = 1 replicas as the strided slice ``[::n_beta]``. Each sweep is one
-``ops.sweep.metropolis_sweeps`` call: on the card one launch of the sweep
-kernel, which runs the swap phases in the kernel; on the CPU the plain
-rounds and swap phase (``_tempered_flip_rounds``, ``_swap_phase``, held in
+beta = 1 replicas as the strided slice ``[::n_beta]``. On the card a whole
+sampler call is one launch of the sweep kernel, which runs the swap phases
+in the kernel; on the CPU each sweep is one call of the plain rounds and
+swap phase (``_tempered_flip_rounds``, ``_swap_phase``, held in
 ``ops/sweep.py`` beside the kernel they mirror). Every draw comes from the
-state's generator (``metropolis.sweep_draws``): on the CPU one (n_sites, K)
+state's generator (``metropolis.sweep_calls``): on the CPU one (n_sites, K)
 flip block and one (1, 2, K) swap block per sweep, on the card one key of
-the kernel's Philox stream per sweep.
+the kernel's Philox stream per call.
 """
 
 from __future__ import annotations
@@ -23,10 +23,10 @@ from __future__ import annotations
 import torch
 
 from neural_network_quantum_state_tpu_torch.ops.engine import Work
-from neural_network_quantum_state_tpu_torch.ops.sweep import metropolis_sweeps, replica_betas
+from neural_network_quantum_state_tpu_torch.ops.sweep import replica_betas
 from neural_network_quantum_state_tpu_torch.ops.sweep import swap_phase as _swap_phase
 from neural_network_quantum_state_tpu_torch.ops.sweep import tempered_flip_rounds as _tempered_flip_rounds
-from neural_network_quantum_state_tpu_torch.sampler.metropolis import MCState, sweep_draws, sweeps
+from neural_network_quantum_state_tpu_torch.sampler.metropolis import MCState, sweep_calls, sweeps
 
 __all__ = ["replica_betas", "swap_acceptance_probe", "tempering_sweeps", "tune_n_beta",
            "_swap_phase", "_tempered_flip_rounds"]
@@ -54,12 +54,8 @@ def swap_acceptance_probe(work: Work, state: MCState, schedule: torch.Tensor, n_
     if k % n_beta != 0:
         raise ValueError(f"tempering: n_walkers ({k}) must be a multiple of n_beta ({n_beta})")
     kb, n_rounds = k // n_beta, schedule.shape[0]
-    cache, lnpsi = state.cache, state.lnpsi
-    stats = torch.zeros((2, k), dtype=torch.float64, device=lnpsi.device)
-    for _ in range(n_sweeps):
-        uniforms, swaps = sweep_draws(state.generator, cache.spins, n_rounds, n_beta)
-        cache, lnpsi, rows = metropolis_sweeps(work, cache, lnpsi, schedule, uniforms, n_beta, swaps, rows=True)
-        stats = stats + rows
+    cache, lnpsi, stats = sweep_calls(work, state.cache, state.lnpsi, schedule, n_sweeps, n_beta, state.generator,
+                                      rows=True)
     per_replica = stats.reshape(2, kb, n_beta).sum(1)  # row w is replica w % n_beta
     new_state = MCState(
         cache=cache,

@@ -255,13 +255,19 @@ def test_wrapper_runs_plain_on_cpu_and_kernel_refuses_cpu(rng):
 
 
 def test_off_cpu_tensors_never_run_the_plain_sum(rng):
-    """A tensor off the CPU goes to the kernel or raises: float64 is not
-    ported (NotImplementedError); float32 reaches the kernel's input checks,
-    which want a CUDA device (here the tensors are on the meta device)."""
-    calls, launches = energy.offdiag_sum_plain.calls, energy.offdiag_sum_cuda.launches
-    for f64, err in ((True, NotImplementedError), (False, ValueError)):
+    """A tensor off the CPU goes to the kernel or raises: float64 and
+    float32 (the kernel's two instances) reach the kernel's input checks,
+    which want a CUDA device (here the tensors are on the meta device); a
+    dtype with no instance (float16) is not ported (NotImplementedError)."""
+    calls = energy.offdiag_sum_plain.calls
+    launches = (energy.offdiag_sum_cuda.launches, energy.offdiag_sum_cuda.launches_f64)
+    for f64, half, err in ((True, False, ValueError), (False, False, ValueError), (False, True, NotImplementedError)):
         _, (work, cache, ln) = _setup("RBMTrSymm", 16, 8, rng, f64=f64)
         meta_work = Work(*(None if t is None else t.to("meta") for t in work))
+        meta_cache = Cache(*(t.to("meta") for t in cache))
+        if half:
+            meta_cache = meta_cache._replace(spins=meta_cache.spins.half())
         with pytest.raises(err):
-            energy.offdiag_sum(meta_work, Cache(*(t.to("meta") for t in cache)), ln.to("meta"))
-    assert energy.offdiag_sum_plain.calls == calls and energy.offdiag_sum_cuda.launches == launches
+            energy.offdiag_sum(meta_work, meta_cache, ln.to("meta"))
+    assert energy.offdiag_sum_plain.calls == calls
+    assert (energy.offdiag_sum_cuda.launches, energy.offdiag_sum_cuda.launches_f64) == launches

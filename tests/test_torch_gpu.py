@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from neural_network_quantum_state_tpu_torch import VMC, VMCConfig
-from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain, TFIChain
+from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain, TFIChain, TFICheckerBoard, TFITRI
 from neural_network_quantum_state_tpu_torch.models import FFNN, FFNNTrSymm, RBM, RBMSfSymm, RBMTrSymm, RBMZ2PrSymm
 from neural_network_quantum_state_tpu_torch.ops import energy, engine
 from neural_network_quantum_state_tpu_torch.ops import exchange as exchange_ops
@@ -21,7 +21,7 @@ from neural_network_quantum_state_tpu_torch.ops import sweep_energy
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
 from neural_network_quantum_state_tpu_torch.ops.rng import ExchangeDraws, PhiloxDraws, make_generator, philox_key
-from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard, init_state, kawasaki
+from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard, init_state, kawasaki, metropolis, tempering
 
 
 @pytest.fixture
@@ -73,7 +73,8 @@ def test_energy_kernel_matches_plain_on_card(cuda):
 @pytest.mark.parametrize("use_fused_sweeps", [False, True])
 def test_vmc_runs_through_both_kernels_on_card(cuda, use_fused_sweeps):
     """Whatever use_fused_sweeps says, the card runs both kernels: one
-    sweep launch per sweep, one energy launch per step, no plain version."""
+    sweep launch per sampler call (the warm-up's 20 sweeps, each step's
+    sweep), one energy launch per step, no plain version."""
     n = 16
     vmc = VMC(
         RBMTrSymm(n_inputs=n, alpha=2, dtype=torch.float32),
@@ -87,7 +88,7 @@ def test_vmc_runs_through_both_kernels_on_card(cuda, use_fused_sweeps):
     state = vmc.warm_up(params, state, 20)
     params, state, history, _ = vmc.run(params, state, 5)
     assert all(np.isfinite(r["energy"]) for r in history)
-    assert sweep_ops.sweep_cuda.launches == sweeps0 + 20 + 5
+    assert sweep_ops.sweep_cuda.launches == sweeps0 + 1 + 5
     assert energy.offdiag_sum_cuda.launches == energy0 + 5
     assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain0
 
@@ -463,8 +464,8 @@ def test_kernels_match_plain_at_any_hidden_width(cuda, h):
 @pytest.mark.gpu
 def test_tempered_vmc_runs_through_the_kernels_on_card(cuda):
     """Tempered training on the card at the e2e oracle's H=16 (TFI, N=8):
-    one sweep launch per sweep (the swap phases inside it), one energy
-    launch per step on the beta = 1 replicas, no plain version."""
+    one sweep launch per sampler call (the swap phases inside it), one
+    energy launch per step on the beta = 1 replicas, no plain version."""
     n, nb = 8, 4
     vmc = VMC(
         RBM(n_inputs=n, n_hiddens=16, dtype=torch.float32),
@@ -478,7 +479,7 @@ def test_tempered_vmc_runs_through_the_kernels_on_card(cuda):
     state = vmc.warm_up(params, state, 30)
     params, state, history, _ = vmc.run(params, state, 20)
     assert len(history) == 20 and all(np.isfinite(r["energy"]) for r in history)
-    assert sweep_ops.sweep_cuda.launches == sweeps0 + 30 + 20
+    assert sweep_ops.sweep_cuda.launches == sweeps0 + 1 + 20
     assert energy.offdiag_sum_cuda.launches == energy0 + 20
     assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain0
     assert all(0.0 < r["acceptance"] < 1.0 for r in history)
@@ -580,8 +581,8 @@ def test_bias_free_rbms_run_the_kernels_on_card(cuda, kind):
 @pytest.mark.gpu
 def test_ffnn_vmc_runs_through_the_kernels_on_card(cuda):
     """FFNNTrSymm training on the card: one sweep launch (its instance with
-    c) per sweep, one energy launch per step, no plain version, finite
-    energies, y consistent with the spins."""
+    c) per sampler call, one energy launch per step, no plain version,
+    finite energies, y consistent with the spins."""
     n = 16
     vmc = VMC(
         FFNNTrSymm(n_inputs=n, alpha=2, dtype=torch.float32),
@@ -595,7 +596,7 @@ def test_ffnn_vmc_runs_through_the_kernels_on_card(cuda):
     state = vmc.warm_up(params, state, 20)
     params, state, history, _ = vmc.run(params, state, 5)
     assert len(history) == 5 and all(np.isfinite(r["energy"]) for r in history)
-    assert sweep_ops.sweep_cuda.launches == sweeps0 + 20 + 5
+    assert sweep_ops.sweep_cuda.launches == sweeps0 + 1 + 5
     assert energy.offdiag_sum_cuda.launches == energy0 + 5
     assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain0
     fresh, _ = engine.full_forward(vmc.machine.make_work(params), state.cache.spins)
@@ -637,3 +638,137 @@ def test_redesigned_kernels_match_plain_on_uniforms_and_philox(cuda, h, n_beta, 
     near = energy.offdiag_near_cut(work, cache) if has_c else torch.zeros(k, dtype=torch.bool, device=cuda)
     got, want = energy.offdiag_sum_cuda(work, cache), energy.offdiag_sum_plain(work, cache, ln)
     assert float((got[~near] - want[~near]).abs().max() / want[~near].abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_beta", [1, 8])
+def test_sweeps_make_one_launch_per_sampler_call_on_card(cuda, n_beta):
+    """metropolis.sweeps and tempering.tempering_sweeps run a whole call (5
+    sweeps, with the swap phases for n_beta > 1) as one launch on one
+    Philox key, count every proposal, and leave y consistent."""
+    n, k = 16, 512
+    work, cache, ln = _scaled_rbm(cuda, n, 32, k, 81)[:3]
+    state = init_state(work, cache.spins, make_generator(4, cuda))
+    sched = torch.as_tensor(chain_checkerboard(n), device=cuda)
+    launches, plain = sweep_ops.sweep_cuda.launches, sweep_ops.sweep_plain.calls
+    if n_beta == 1:
+        out = metropolis.sweeps(work, state, sched, 5)
+    else:
+        out = tempering.tempering_sweeps(work, state, sched, 5, n_beta)
+    assert sweep_ops.sweep_cuda.launches == launches + 1 and sweep_ops.sweep_plain.calls == plain
+    assert float(out.n_proposed) == 5 * n * k and 0 < float(out.n_accepted) < 5 * n * k
+    fresh, lnpsi = engine.full_forward(work, out.cache.spins)
+    torch.testing.assert_close(out.cache.y, fresh.y, rtol=0, atol=1e-4)
+    torch.testing.assert_close(out.lnpsi, lnpsi, rtol=0, atol=1e-3)
+    none = metropolis.sweeps(work, state, sched, 0)
+    assert torch.equal(none.cache.spins, state.cache.spins) and float(none.n_proposed) == 0.0
+    assert sweep_ops.sweep_cuda.launches == launches + 1  # no sweep: no launch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True])
+@pytest.mark.parametrize("n_beta", [1, 8])
+def test_five_sweeps_in_one_launch_match_plain_on_one_philox_stream(cuda, n_beta, has_c):
+    """5 sweeps in one launch against the plain sweep on the same Philox
+    stream: the same decisions but for near-ties and near-cut walkers."""
+    n, h, k = 16, 48, 512
+    if has_c:
+        work, cache, ln, g = _scaled_ffnn(cuda, n, h, k, 91)
+    else:
+        work, cache, ln, g = _scaled_rbm(cuda, n, h, k, 91)
+    sched = torch.as_tensor(chain_checkerboard(n))
+    draws = PhiloxDraws(philox_key(g), 5 * n)
+    ck, lk, rows_k = sweep_ops.sweep_cuda(work, cache, sched, draws, n_beta, rows=True)
+    cp, lp, rows_p = sweep_ops.sweep_plain(work, cache, ln, sched, draws, n_beta, rows=True)
+    same = _agreeing(ck, cp, 2e-2)
+    torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=2e-5)
+    torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
+    assert abs(float(rows_k[0].sum() - rows_p[0].sum())) <= 2e-2 * 5 * n * k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lattice", ["checkerboard", "triangular"])
+def test_sweep_kernel_on_2d_schedules_matches_plain(cuda, lattice):
+    """The sweep kernel takes any schedule: the 8x8 square checkerboard and
+    the 9x9 three-colour one, against the plain sweep on one stream."""
+    ham = TFICheckerBoard(n_sites=64) if lattice == "checkerboard" else TFITRI(n_sites=81)
+    work, cache, ln, g = _scaled_rbm(cuda, ham.n_sites, 64, 512, 93)
+    sched = torch.as_tensor(ham.schedule())
+    draws = PhiloxDraws(philox_key(g), 2 * ham.n_sites)
+    ck, lk, _ = sweep_ops.sweep_cuda(work, cache, sched, draws)
+    cp, lp, _ = sweep_ops.sweep_plain(work, cache, ln, sched, draws)
+    same = _agreeing(ck, cp, 1e-2)
+    torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
+
+
+def _widened(work, cache):
+    w64 = Work(*(None if t is None else t.to(torch.complex128) for t in work))
+    return (w64, *engine.full_forward(w64, cache.spins.double()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True])
+@pytest.mark.parametrize("h", [16, 80, 384])
+def test_float64_energy_instance_matches_plain(cuda, h, has_c):
+    """The energy kernel's float64 instance against the plain float64 sum:
+    1e-12 relative; it counts in launches_f64 (with c also in
+    launches_f64_c), not in launches."""
+    n, k = 16, 512
+    maker = _scaled_ffnn if has_c else _scaled_rbm
+    work, cache, ln = maker(cuda, n, h, k, 100 + h)[:3]
+    w64, c64, l64 = _widened(work, cache)
+    fn = energy.offdiag_sum_cuda
+    counts = (fn.launches, fn.launches_f64, fn.launches_f64_c)
+    got = energy.offdiag_sum(w64, c64, l64)
+    assert (fn.launches, fn.launches_f64, fn.launches_f64_c) == (counts[0], counts[1] + 1, counts[2] + int(has_c))
+    want = energy.offdiag_sum_plain(w64, c64, l64)
+    assert got.dtype == torch.complex128
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-12
+
+
+@pytest.mark.gpu
+def test_energy_wrapper_refuses_other_dtypes(cuda):
+    work, cache = _scaled_rbm(cuda, 16, 32, 64, 5)[:2]
+    launches = (energy.offdiag_sum_cuda.launches, energy.offdiag_sum_cuda.launches_f64)
+    with pytest.raises(NotImplementedError, match="float32 and float64"):
+        energy.offdiag_sum_cuda(work, cache._replace(spins=cache.spins.half()))
+    w64 = Work(*(None if t is None else t.to(torch.complex128) for t in work))
+    with pytest.raises(ValueError, match="must be"):  # float32 spins with float64 weights
+        energy.offdiag_sum_cuda(w64, cache)
+    assert (energy.offdiag_sum_cuda.launches, energy.offdiag_sum_cuda.launches_f64) == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "change",
+    [
+        {"solver": "lu"}, {"solver": "cholesky"}, {"solver": "svd"}, {"solver": "minsr"}, {"solver": "sgd"},
+        {"solver": "minresqlp"}, {"solver": "auto"}, {"solver": "cholesky", "n_accumulations": 3},
+        {"precond_ema": 0.9}, {"energy_dtype": torch.float64}, {"energy_dtype": "compensated"},
+        {"block_moves_per_sweep": 1}, {"solver": "auto", "cg_max_iters": 2},
+    ],
+    ids=["lu", "cholesky", "svd", "minsr", "sgd", "minresqlp", "auto", "accumulated", "precond_ema",
+         "energy_float64", "compensated", "block_moves", "auto_fallback"],
+)
+def test_vmc_solvers_and_modes_run_through_the_kernels_on_card(cuda, change):
+    """Each solver and precision mode on the card: one sweep launch per
+    sampler call, the energy kernel's float32 instance once per sampling
+    round (its float64 instance for energy_dtype=float64, none for the
+    compensated sum), no plain version, finite energies."""
+    n, steps = 16, 4
+    rounds = change.get("n_accumulations", 1)
+    vmc = VMC(RBMTrSymm(n_inputs=n, alpha=2, dtype=torch.float32), LITFIChain(n_sites=n, h=-0.5, j=0.866, alpha=2.5),
+              VMCConfig(n_walkers=512, learning_rate=1e-2, seed=8, **change), device=cuda)
+    counts0 = (sweep_ops.sweep_cuda.launches, energy.offdiag_sum_cuda.launches, energy.offdiag_sum_cuda.launches_f64)
+    plain0 = sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls
+    params, state = vmc.init()
+    state = vmc.warm_up(params, state, 20)
+    params, state, history, _ = vmc.run(params, state, steps)
+    assert len(history) == steps and all(np.isfinite(r["energy"]) for r in history)
+    e32 = 0 if "energy_dtype" in change else steps * rounds
+    e64 = steps if change.get("energy_dtype") == torch.float64 else 0
+    assert (sweep_ops.sweep_cuda.launches - counts0[0], energy.offdiag_sum_cuda.launches - counts0[1],
+            energy.offdiag_sum_cuda.launches_f64 - counts0[2]) == (1 + steps * rounds, e32, e64)
+    assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain0
+    if "cg_max_iters" in change:  # CG capped at 2 iterations, unconverged: auto falls back to MINRES-QLP
+        assert vmc.n_qlp_fallbacks > 0

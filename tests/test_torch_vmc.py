@@ -49,24 +49,43 @@ def test_litfi_chain_converges_to_exact(dtype):
 @pytest.mark.parametrize(
     "change",
     [
-        {"solver": "cholesky"},
         {"n_beta": 4, "hamiltonian": HubbardChain(n_sites=4, n_up=1, n_down=1)},
-        {"energy_dtype": torch.float64},
-        {"precond_ema": 0.9},
-        {"block_moves_per_sweep": 1},
         {"mesh": object()},
+        {"device": "cuda"},
     ],
-    ids=["solver", "n_beta", "energy_dtype", "precond_ema", "block_moves", "mesh"],
+    ids=["n_beta", "mesh", "float64_on_card"],
 )
 def test_unported_options_raise(change):
-    """Options not ported raise. n_beta > 1 is ported for flip Hamiltonians
-    (test_tempered_vmc_runs_on_the_beta1_replicas); with an exchange
-    Hamiltonian (tempered exchange) it still raises."""
+    """Options not ported raise: tempered exchange (n_beta > 1 with an
+    exchange Hamiltonian; flip Hamiltonians are ported,
+    test_tempered_vmc_runs_on_the_beta1_replicas), meshes, and a float64
+    machine on the card (only float32 sweep kernels exist)."""
     machine = RBM(n_inputs=4, n_hiddens=4, dtype=torch.float64)
     ham = change.pop("hamiltonian", TFIChain(n_sites=4))
     mesh = change.pop("mesh", None)
+    device = change.pop("device", "cpu")
     with pytest.raises(NotImplementedError):
-        VMC(machine, ham, dataclasses.replace(VMCConfig(), **change), mesh=mesh, device="cpu")
+        VMC(machine, ham, dataclasses.replace(VMCConfig(), **change), mesh=mesh, device=device)
+
+
+@pytest.mark.parametrize(
+    "change",
+    [
+        {"solver": "cholesky"},
+        {"energy_dtype": torch.float64},
+        {"precond_ema": 0.9},
+        {"block_moves_per_sweep": 1},
+    ],
+    ids=["solver", "energy_dtype", "precond_ema", "block_moves"],
+)
+def test_ported_options_take_a_step(change):
+    """The options that raised before the solvers and precision modes were
+    ported now build and take SR steps with finite energies."""
+    vmc = VMC(RBM(n_inputs=4, n_hiddens=4, dtype=torch.float32), TFIChain(n_sites=4),
+              dataclasses.replace(VMCConfig(n_walkers=64, seed=2), **change), device="cpu")
+    params, state = vmc.init()
+    params, state, history, _ = vmc.run(params, vmc.warm_up(params, state, 5), 2)
+    assert len(history) == 2 and all(np.isfinite(h["energy"]) for h in history)
 
 
 def test_tempered_vmc_runs_on_the_beta1_replicas(monkeypatch):
@@ -85,9 +104,9 @@ def test_tempered_vmc_runs_on_the_beta1_replicas(monkeypatch):
     seen = []
     sr_update = vmc.sr_update
 
-    def spy(params, cache, lnpsi, step_idx):
+    def spy(params, cache, lnpsi, step_idx, extra_rounds=()):
         seen.append((cache.spins.clone(), cache.spins.is_contiguous() and lnpsi.is_contiguous()))
-        return sr_update(params, cache, lnpsi, step_idx)
+        return sr_update(params, cache, lnpsi, step_idx, extra_rounds=extra_rounds)
 
     monkeypatch.setattr(vmc, "sr_update", spy)
     before = state.cache.spins.clone()
