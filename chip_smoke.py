@@ -33,7 +33,16 @@ Phases, each printed with its seconds:
    with and without c; the sweep kernel on the 8x8 square-checkerboard and
    the 9x9 three-colour schedules; the energy kernel's float64 instance
    against its plain float64 version at full width and H = 16, 80 and 384,
-   with and without c, to a relative 1e-12;
+   with and without c, to a relative 1e-12; the exchange kernel's tempered
+   instance (tempered exchange: n_beta > 1, its swap phases in the kernel)
+   against the plain tempered exchange at the Hubbard flagship's shape, at
+   n_beta = 4 and 8, with and without c (FFNN(64, 64)), on its Philox stream
+   (one sweep and 5 in one launch) and on caller uniforms, with the
+   exchange gates and every replica in its sector, and at H = 16, 80 and
+   384; the hot-math chain-rate probe, both bodies at bench.py's size
+   (2^22 elements, 32 bodies a chain), against its plain version to a
+   relative 1e-5 of the largest |value| (the elements whose energy-body
+   chain takes a phase near the branch cut left out, their share bounded);
 4. drive the LITFI flagship through the user's entry points (VMC.init,
    warm_up, run) and check that it ran through the sweep and energy
    kernels, never through a plain version, with finite energies: one sweep
@@ -78,15 +87,27 @@ Phases, each printed with its seconds:
    the sweep and energy kernels' instances with c;
 13. the megakernel A/B (``megakernel_ab``, n_beta = 1 and 8): its
    cross-check and the time of each arm;
-14. the device time of each kernel and instance on phase 3's inputs
+14. drive the tempered Hubbard flagship (n_beta = 4, the collapse
+   escalation's default: 1024 chains of 4 replicas, 500 warm-up sweeps, 20
+   SR steps) the same way: each sampler call one launch of the exchange
+   kernel's tempered instance (1 + 20), every replica in its sector, finite
+   energies of the beta = 1 replicas, no plain version; then FFNN(64, 64)
+   on the same ladder (200 warm-up sweeps, 5 SR steps) through the tempered
+   instance with c (1 + 5);
+15. the port's benchmark (``neural_network_quantum_state_tpu_torch.bench``)
+   at bench.py's sizes: its five lines, every number finite, the N=16 TFI
+   error below bench.py's bar of 1e-4, every kernel it runs counted (the
+   sweep, energy, exchange and chain-rate kernels), no plain version;
+16. the device time of each kernel and instance on phase 3's inputs
    (torch.profiler; the sweep and exchange in the main paths' Philox mode,
    and also on caller uniforms), beside the instance's registers and spill
    bytes from the build, the exchange's and the sweep's 5-sweep launches,
-   and the energy kernel's float64 instance;
-15. profile 5 more LITFI SR steps, 16. 5 more Hubbard SR steps, 17. 5 more
-   FFNN flagship SR steps, 18. 3 more Hubbard minSR steps, 19. 3 more 2D
-   dense SR steps.
-The profiler runs only after the timed phases 4 to 13, so that it cannot
+   the energy kernel's float64 instance, the exchange's tempered instance
+   and the chain-rate probe;
+17. profile 5 more LITFI SR steps, 18. 5 more Hubbard SR steps, 19. 5 more
+   FFNN flagship SR steps, 20. 3 more Hubbard minSR steps, 21. 3 more 2D
+   dense SR steps, 22. 5 more tempered Hubbard SR steps.
+The profiler runs only after the timed phases 4 to 15, so that it cannot
 disturb their times.
 
 Then one JSON line with the kernels' numbers, the card's name and power
@@ -178,9 +199,25 @@ TWO_D_L, TWO_D_H, TWO_D_K, TWO_D_WARM, TWO_D_STEPS, TWO_D_ROUNDS = 8, 64, 4096, 
 TRI_L = 9  # the three-colour schedule's comparison: the 9x9 triangular lattice
 NEW_PROFILE_STEPS = 3  # the profiles of the Hubbard minSR and 2D paths
 # each wrapper's CUDA kernel, as the profiler names it (the energy kernel's
-# float64 instance: "energy_f64")
+# float64 instance: "energy_f64"; the exchange kernel's tempered instance:
+# "exchange_tempered")
 KERNEL_NAMES = {"sweep": "sweep_kernel", "energy": "offdiag_kernel", "exchange": "exchange_kernel",
-                "sweep_energy": "sweep_energy_kernel", "energy_f64": "offdiag_kernel_f64"}
+                "sweep_energy": "sweep_energy_kernel", "energy_f64": "offdiag_kernel_f64",
+                "exchange_tempered": "exchange_kernel", "chain_rate": "chain_kernel", "chain_rate_energy": "chain_kernel"}
+# The hot-math chain-rate probe: bench.py's 2^22 elements and 32 bodies a
+# chain; its bar against the plain chain (max|kernel - plain| over both
+# outputs relative to their largest |value|), and the share of elements
+# whose energy-body chain takes a phase within BRANCH_CUT_TOL of pi, left
+# out of that comparison (0.40% of these inputs in the plain chain); float
+# operations per body (a fused multiply-add counts two: the candidate move,
+# the log-cosh with its reduced cos or its polynomial atan2, the mix) and
+# special-function-unit results per body (ex2, lg2; the energy's rcp), at
+# the H100 SXM's 16 MUFU results per SM per clock on 132 SMs at its 1.98
+# GHz boost clock (NVIDIA's data sheet and CUDA's throughput table).
+CHAIN_RTOL, CHAIN_NEAR_CUT_MAX = 1e-5, 1e-2
+CHAIN_OPS, CHAIN_MUFU = {"sweep": 38, "energy": 60}, {"sweep": 2, "energy": 3}
+PEAK_MUFU_S = 132 * 16 * 1.98e9
+BENCH_REL_ERR_BAR = 1e-4  # bench.py's precision bar for its N=16 TFI error (bench.py:29)
 
 _phase = ["start"]
 
@@ -274,7 +311,7 @@ def _profile_steps(torch, vmc, params, state, step0: int, n_steps: int = 5) -> N
 # the template parameters of each kernel after R: C (output weights c), T
 # (the sweep's tempered instance, n_beta > 1) and M (the sweep's launch of
 # more than one sweep with c), as the instances are named
-TEMPLATE_BOOLS = {"sweep": "ctm", "energy": "c", "exchange": "c", "sweep_energy": "t"}
+TEMPLATE_BOOLS = {"sweep": "ctm", "energy": "c", "exchange": "ct", "sweep_energy": "t", "chain_rate": ""}
 
 
 def _ptxas_table(name: str, lines) -> dict:
@@ -309,7 +346,8 @@ SASS_INSTANCES = (("sweep_kernel", "Lb0E(?:Lb0E){0,2}", "sweep RBM"), ("sweep_ke
                   ("offdiag_kernel", "Lb0E", "energy RBM"), ("offdiag_kernel", "Lb1E", "energy has_c"))
 SASS_FP = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FRND", "MUFU")
 # The exchange kernel's instance of the Hubbard flagship (H = 64): G = 8 lanes
-# per walker, U = 8 units per lane; its proposal loop with W in shared memory.
+# per walker, U = 8 units per lane, n_beta = 1 (T = false); its proposal loop
+# with W in shared memory.
 SASS_EXCHANGE_G, SASS_EXCHANGE_U = 8, 8
 
 
@@ -332,9 +370,10 @@ def _per_element(label, body, per) -> str:
             f"(MUFU {mufu / per:.2f}, LDL {ldl / per:.2f})")
 
 
-def _sass_per_element(cuobjdump: str, lib) -> list[str]:
+def _sass_per_element(text: str) -> list[str]:
     """Static SASS instructions per (site or proposal, hidden unit) element
-    in the hot loop of each instance above in the library `lib`. Sweep and
+    in the hot loop of each instance above in `text`, a library's
+    ``cuobjdump -sass``. Sweep and
     energy: the innermost backward-branch loop with at least R loads and five
     shuffles, over R units times its sites per iteration (4 where it holds
     the energy kernel's reduce-scatter of 4 sites, which has four lane-16
@@ -345,8 +384,6 @@ def _sass_per_element(cuobjdump: str, lib) -> list[str]:
     has it). Cold paths inside the loop count too (a library sincosf's slow
     reduction, the Philox refill, the words past the registers), so this
     bounds the issued instructions per element from above."""
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, timeout=120,
-                          check=True).stdout
     funcs = {}
     for chunk in re.split(r"\n\s*Function : ", text)[1:]:
         name, body = chunk.split("\n", 1)
@@ -366,7 +403,7 @@ def _sass_per_element(cuobjdump: str, lib) -> list[str]:
         lines.append(_per_element(f"{label} (R={SASS_R})", body, SASS_R * sites))
     g, u = SASS_EXCHANGE_G, SASS_EXCHANGE_U
     for flag, label in (("0", "exchange RBM"), ("1", "exchange has_c")):
-        names = [n for n in funcs if re.search(rf"exchange_kernelILi{g}ELi{u}ELb{flag}E", n)]
+        names = [n for n in funcs if re.search(rf"exchange_kernelILi{g}ELi{u}ELb{flag}ELb0E", n)]
         if not names:
             continue
         loops = [body for body in _loops(funcs[names[0]])
@@ -388,7 +425,22 @@ def _sass_report(libs) -> list[str]:
     cuobjdump = Path(nvcc()).with_name("cuobjdump")
     if not cuobjdump.exists():
         return [f"SASS per element: not measured ({cuobjdump} not found)"]
-    return [f"{Path(lib).name}: {line}" for lib in libs for line in _sass_per_element(str(cuobjdump), lib)]
+    # one disassembler process per library, all started together
+    procs = [(lib, subprocess.Popen([str(cuobjdump), "-sass", str(lib)], stdout=subprocess.PIPE, text=True))
+             for lib in libs]
+    lines = []
+    try:
+        for lib, proc in procs:
+            text, _ = proc.communicate(timeout=120)
+            if proc.returncode != 0:
+                raise RuntimeError(f"cuobjdump failed on {lib} (rc {proc.returncode})")
+            lines += [f"{Path(lib).name}: {line}" for line in _sass_per_element(text)]
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return lines
 
 
 def _ptxas_summary(table: dict) -> str:
@@ -455,11 +507,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from neural_network_quantum_state_tpu_torch import VMC, VMCConfig, megakernel_ab
+    from neural_network_quantum_state_tpu_torch import bench as port_bench
     from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain, TFICheckerBoard, TFITRI
     from neural_network_quantum_state_tpu_torch.models import FFNN, FFNNTrSymm, RBM, RBMSfSymm, RBMTrSymm
     from neural_network_quantum_state_tpu_torch.ops import build, engine
+    from neural_network_quantum_state_tpu_torch.ops.chain_rate import (
+        BODIES, CHAIN_LEN, N_ELEMS, chain_cuda, chain_near_cut, chain_plain, probe_inputs,
+    )
     from neural_network_quantum_state_tpu_torch.ops.energy import offdiag_near_cut, offdiag_sum_cuda, offdiag_sum_plain
-    from neural_network_quantum_state_tpu_torch.ops.exchange import exchange_cuda, exchange_plain, kernel_lanes, stages_w
+    from neural_network_quantum_state_tpu_torch.ops.exchange import (
+        exchange_cuda, exchange_plain, kernel_lanes, stages_w, tempered_exchange_plain,
+    )
     from neural_network_quantum_state_tpu_torch.ops.rng import (
         ExchangeDraws, PhiloxDraws, make_generator, philox_key, random_spins, uniform_block,
     )
@@ -472,28 +530,35 @@ def main() -> int:
     )
 
     wrappers = {"sweep": sweep_cuda, "energy": offdiag_sum_cuda, "exchange": exchange_cuda,
-                "sweep_energy": sweeps_offdiag_cuda}
-    plains = (sweep_plain, offdiag_sum_plain, exchange_plain, sweeps_offdiag_plain)
+                "sweep_energy": sweeps_offdiag_cuda, "chain_rate": chain_cuda}
+    plains = (sweep_plain, offdiag_sum_plain, exchange_plain, sweeps_offdiag_plain, chain_plain)
 
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
         offdiag_sum_cuda.launches_f64 = offdiag_sum_cuda.launches_f64_c = 0
+        exchange_cuda.launches_tempered = exchange_cuda.launches_tempered_c = 0
         for fn in plains:
             fn.calls = 0
 
     def read_counts():
         """The launches of each kernel ("energy_f64": the energy kernel's
-        float64 instances, "energy_f64_c": those of them with c) and the
-        calls of all plain versions."""
+        float64 instances, "energy_f64_c": those of them with c;
+        "exchange_tempered": the exchange kernel's tempered instance, counted
+        in "exchange" too, "exchange_tempered_c": those of them with c) and
+        the calls of all plain versions (the plain tempered exchange calls
+        the plain exchange)."""
         counts = {name: fn.launches for name, fn in wrappers.items()}
         counts["energy_f64"] = offdiag_sum_cuda.launches_f64
         counts["energy_f64_c"] = offdiag_sum_cuda.launches_f64_c
+        counts["exchange_tempered"] = exchange_cuda.launches_tempered
+        counts["exchange_tempered_c"] = exchange_cuda.launches_tempered_c
         return counts, sum(fn.calls for fn in plains)
 
     def expect(**want):
         """The launch counts of a path: the given ones, 0 for every other kernel."""
-        return {name: want.get(name, 0) for name in (*wrappers, "energy_f64", "energy_f64_c")}
+        return {name: want.get(name, 0)
+                for name in (*wrappers, "energy_f64", "energy_f64_c", "exchange_tempered", "exchange_tempered_c")}
 
     hub_v = tuple(float(x) for x in [HUB_TRAP * (i - (HUB_L - 1) / 2.0) ** 2 for i in range(HUB_L)] * 2)
     hubbard = HubbardChain(n_sites=2 * HUB_L, u=4.0, t=1.0, n_up=HUB_PARTICLES, n_down=HUB_PARTICLES, pbc=True, v=hub_v)
@@ -508,6 +573,7 @@ def main() -> int:
         ptxas[b.name] = _ptxas_table(b.name, b.ptxas)
         print(f"built {b.name}: {b.seconds:.1f} s -> {b.path.name}; registers per instance "
               f"(R = ceil(H/32), c: with c, t: tempered): {_ptxas_summary(ptxas[b.name])}")
+    _require(set(built) == set(build.KERNELS), f"built {sorted(built)}, expected {sorted(build.KERNELS)}")
     for line in _sass_report([built[name].path for name in ("sweep", "energy", "exchange")]):
         print(f"SASS per element: {line}")
 
@@ -592,27 +658,49 @@ def main() -> int:
     exchange_draws = ExchangeDraws(philox_key(g), n_unit)
     multi_draws = ExchangeDraws(philox_key(g), EXCHANGE_MULTI_SWEEPS * n_unit)
     staged_seen = set()  # (with c, W from shared memory) of each exchange comparison
+    staged_seen_t = set()  # the same for the tempered instance
 
-    def exchange_vs_plain(label, w_, c_, ln_, bonds_, uniforms, mismatch_max, cut):
+    def exchange_vs_plain(label, w_, c_, ln_, bonds_, uniforms, mismatch_max, cut, n_beta=1, swaps=None):
         """Kernel vs plain exchange rounds on the same uniforms (an
-        ExchangeDraws, or the (u_sel, u_acc) pair); the sectors kept. Returns
-        (share, ln_err, acceptance)."""
+        ExchangeDraws, or the (u_sel, u_acc) pair; for n_beta > 1 the
+        tempered instance against the plain tempered exchange, in sweeps of
+        N proposals, with the (n_sweeps, 2, K) swap uniforms beside the
+        pair); the sectors kept, per flavor half, in every walker row (the
+        walkers start with the same particle numbers, so a row holds them
+        whichever replica's configuration it ends with). Returns (share,
+        ln_err, acceptance)."""
         args = (uniforms,) if isinstance(uniforms, ExchangeDraws) else uniforms
         k_, n_ = c_.spins.shape
-        staged_seen.add((w_.c is not None, stages_w(n_, w_.w.shape[1], bonds_.shape[0], w_.c is not None)))
-        ck, lk, acc_k = exchange_cuda(w_, c_, bonds_, *args)
-        cp, lp, acc_p = exchange_plain(w_, c_, ln_, bonds_, *args)
+        seen = staged_seen if n_beta == 1 else staged_seen_t
+        seen.add((w_.c is not None, stages_w(n_, w_.w.shape[1], bonds_.shape[0], w_.c is not None, n_beta)))
+        if n_beta > 1:
+            kw = {"n_beta": n_beta, "n_unit": n_, "swap_uniforms": swaps}
+            ck, lk, rows_k = exchange_cuda(w_, c_, bonds_, *args, **kw)
+            cp, lp, rows_p = tempered_exchange_plain(w_, c_, ln_, bonds_, *args, **kw)
+            acc_p = rows_p[0].sum()
+        else:
+            ck, lk, rows_k = exchange_cuda(w_, c_, bonds_, *args)
+            cp, lp, acc_p = exchange_plain(w_, c_, ln_, bonds_, *args)
+        acc_k = rows_k[0].sum()
         share_, ln_err_, _ = _compare(label, ck, lk, cp, lp, mismatch_max, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL,
                                       failures, cut=cut)
         n_steps = args[0].n_steps if isinstance(uniforms, ExchangeDraws) else args[0].shape[0]
-        before = (c_.spins > 0).sum(1)
-        kept = bool(((ck.spins > 0).sum(1) == before).all())
+        half = n_ // 2
+        kept = all(bool(((ck.spins[:, sl] > 0).sum(1) == (c_.spins[:, sl] > 0).sum(1)).all())
+                   for sl in (slice(0, half), slice(half, n_)))
         acc = float(acc_k) / (n_steps * k_)
-        print(f"{label}: acceptance kernel {acc:.4f}, plain {float(acc_p) / (n_steps * k_):.4f}; particles kept: {kept}")
+        print(f"{label}: acceptance kernel {acc:.4f}, plain {float(acc_p) / (n_steps * k_):.4f}; sectors kept: {kept}")
         if not kept:
-            failures.append(f"{label}: a walker changed its particle number")
+            failures.append(f"{label}: a walker row changed its particle numbers")
         if not 0.0 < acc < 1.0:
             failures.append(f"{label}: acceptance {acc}")
+        if n_beta > 1:
+            # each chain proposes its n_beta - 1 adjacent pairs once per sweep
+            proposed = n_steps // n_ * (k_ // n_beta) * (n_beta - 1)
+            swaps_k, swaps_p = float(rows_k[1].sum()), float(rows_p[1].sum())
+            print(f"{label}: accepted swaps kernel {swaps_k:.0f}, plain {swaps_p:.0f} of {proposed} proposed")
+            if not 0 < swaps_k < proposed:
+                failures.append(f"{label}: {swaps_k:.0f} swaps accepted of {proposed}")
         return share_, ln_err_, acc
 
     x_share, x_ln_err, _ = exchange_vs_plain("exchange philox", hwork, hcache, hlnpsi, bonds, exchange_draws,
@@ -654,6 +742,24 @@ def main() -> int:
     if not sector_ok(xk.spins):
         failures.append("exchange kernel with c: a walker left its particle sector")
 
+    # the tempered instance at the flagship's shapes: one sweep and its swap
+    # phases on its Philox stream, on caller uniforms, and 5 sweeps in one
+    # launch, at n_beta = 4 and 8, with and without c
+    u_swap_x = uniform_block(g, (1, 2, HUB_K))
+    tempered_x = {}
+    for clab, w_, c_, ln_ in (("", hwork, hcache, hlnpsi), (" with c", hfwork, hfcache, hflnpsi)):
+        for nb in (TEMPERED_NBETA, CHECK_NBETA):
+            for mode, unif, sw in (("philox", exchange_draws, None), ("uniforms", (u_sel, u_acc), u_swap_x),
+                                   ("multi", multi_draws, None)):
+                label = f"exchange tempered{clab} n_beta={nb} " + {
+                    "philox": "philox", "uniforms": "on caller uniforms",
+                    "multi": f"philox, {EXCHANGE_MULTI_SWEEPS} sweeps in one launch"}[mode]
+                tempered_x[(clab, nb, mode)] = exchange_vs_plain(label, w_, c_, ln_, bonds, unif,
+                                                                 EXCHANGE_MISMATCH_MAX, bool(clab), nb, sw)[:2]
+        xk, _, _ = exchange_cuda(w_, c_, bonds, multi_draws, n_beta=TEMPERED_NBETA, n_unit=n_unit)
+        if not sector_ok(xk.spins):
+            failures.append(f"exchange tempered{clab}: a replica left its particle sector")
+
     # no visible bias (the kernels read zeros for a): RBMSfSymm, alpha = 4
     smachine = RBMSfSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32)
     swork = smachine.make_work({k: PARAM_SCALE * v for k, v in smachine.init_params(g).items()})
@@ -688,6 +794,11 @@ def main() -> int:
         wx = ExchangeDraws(philox_key(g), 2 * WIDTH_N)  # two sweeps in one launch
         exchange_vs_plain(f"H={wh} exchange", wwork, whc, whl, wb, (ws, wa), WIDTH_MISMATCH_MAX, False)
         exchange_vs_plain(f"H={wh} exchange philox", wwork, whc, whl, wb, wx, WIDTH_MISMATCH_MAX, False)
+        wsw = uniform_block(g, (1, 2, WIDTH_K))
+        exchange_vs_plain(f"H={wh} exchange tempered n_beta={TEMPERED_NBETA}", wwork, whc, whl, wb, (ws, wa),
+                          WIDTH_MISMATCH_MAX, False, TEMPERED_NBETA, wsw)
+        exchange_vs_plain(f"H={wh} exchange tempered philox n_beta={TEMPERED_NBETA}", wwork, whc, whl, wb, wx,
+                          WIDTH_MISMATCH_MAX, False, TEMPERED_NBETA)
         print(f"H={wh}: energy relative error {w_rel:.3e}, sweep_energy offdiag {wm_rel:.3e} (tol {ENERGY_RTOL:.0e})")
         if not (w_rel <= ENERGY_RTOL and wm_rel <= ENERGY_RTOL):
             failures.append(f"H={wh}: energy {w_rel:.3e}, sweep_energy {wm_rel:.3e}")
@@ -703,6 +814,10 @@ def main() -> int:
         whc, whl = engine.full_forward(wfwork, wham.init_spins(g, WIDTH_K))
         exchange_vs_plain(f"H={wh} exchange with c", wfwork, whc, whl, wb, (ws, wa), WIDTH_MISMATCH_MAX, True)
         exchange_vs_plain(f"H={wh} exchange with c philox", wfwork, whc, whl, wb, wx, WIDTH_MISMATCH_MAX, True)
+        exchange_vs_plain(f"H={wh} exchange tempered with c n_beta={TEMPERED_NBETA}", wfwork, whc, whl, wb, (ws, wa),
+                          WIDTH_MISMATCH_MAX, True, TEMPERED_NBETA, wsw)
+        exchange_vs_plain(f"H={wh} exchange tempered with c philox n_beta={TEMPERED_NBETA}", wfwork, whc, whl, wb, wx,
+                          WIDTH_MISMATCH_MAX, True, TEMPERED_NBETA)
 
     # the Philox mode: the kernel draws its uniforms on the chip, the plain
     # sweep makes the same numbers (ops/rng.py philox_uniforms)
@@ -777,10 +892,32 @@ def main() -> int:
         if not rel <= F64_ENERGY_RTOL:
             failures.append(f"energy float64{label}: relative error {rel:.3e}")
 
+    # the hot-math chain-rate probe against its plain chain at bench.py's size
+    cx, cy = probe_inputs(N_ELEMS, dev)
+    chain_err = {}
+    for body in BODIES:
+        kx, ky = chain_cuda(body, cx, cy)
+        px, py = chain_plain(body, cx, cy)
+        far = ~chain_near_cut(body, cx, cy)
+        got, want = torch.stack([kx, ky]), torch.stack([px, py])
+        finite = bool(torch.isfinite(got).all())
+        abs_err = float((got - want)[:, far].abs().max())
+        rel = abs_err / float(want.abs().max())
+        near_share = 1.0 - float(far.double().mean())
+        chain_err[body] = {"max_abs_err": abs_err, "rel_err": rel, "near_cut_share": near_share,
+                           "rel_err_all": float((got - want).abs().max() / want.abs().max())}
+        print(f"chain_rate {body}: max|kernel-plain| {abs_err:.3e}, relative to max|plain| {rel:.3e} (tol "
+              f"{CHAIN_RTOL:.0e}) away from the cut; near the cut {near_share:.2e} (max {CHAIN_NEAR_CUT_MAX:.0e}); "
+              f"over all elements {chain_err[body]['rel_err_all']:.3e}; finite {finite}")
+        if not (finite and rel <= CHAIN_RTOL and near_share <= CHAIN_NEAR_CUT_MAX):
+            failures.append(f"chain_rate {body}: relative error {rel:.3e}, near-cut share {near_share:.2e}")
+
     philox_draws = PhiloxDraws(philox_key(g), N)
-    print(f"exchange: (with c, W from shared memory) over the comparisons: {sorted(staged_seen)}")
-    if len(staged_seen) != 4:
-        failures.append(f"exchange: the comparisons missed a W branch: ran {sorted(staged_seen)}")
+    print(f"exchange: (with c, W from shared memory) over the comparisons: {sorted(staged_seen)}; "
+          f"tempered: {sorted(staged_seen_t)}")
+    if len(staged_seen) != 4 or len(staged_seen_t) != 4:
+        failures.append(f"exchange: the comparisons missed a W branch: ran {sorted(staged_seen)}, "
+                        f"tempered {sorted(staged_seen_t)}")
 
     calls = {  # (wrapper, plain version) on the same inputs at the main paths' shapes, in their draw mode
         "sweep": (lambda: sweep_cuda(work, cache, sched, philox_draws),
@@ -796,6 +933,18 @@ def main() -> int:
         "energy_c": (lambda: offdiag_sum_cuda(fwork, fcache), lambda: offdiag_sum_plain(fwork, fcache, flnpsi)),
         "exchange_c": (lambda: exchange_cuda(hfwork, hfcache, bonds, exchange_draws),
                        lambda: exchange_plain(hfwork, hfcache, hflnpsi, bonds, exchange_draws)),
+        # the exchange kernel's tempered instance at the escalation's ladder
+        "exchange_tempered": (lambda: exchange_cuda(hwork, hcache, bonds, exchange_draws, n_beta=TEMPERED_NBETA,
+                                                    n_unit=n_unit),
+                              lambda: tempered_exchange_plain(hwork, hcache, hlnpsi, bonds, exchange_draws, None,
+                                                              TEMPERED_NBETA, n_unit)),
+        "exchange_tempered_c": (lambda: exchange_cuda(hfwork, hfcache, bonds, exchange_draws, n_beta=TEMPERED_NBETA,
+                                                      n_unit=n_unit),
+                                lambda: tempered_exchange_plain(hfwork, hfcache, hflnpsi, bonds, exchange_draws, None,
+                                                                TEMPERED_NBETA, n_unit)),
+        # the chain-rate probe at bench.py's size, each body
+        "chain_rate": (lambda: chain_cuda("sweep", cx, cy), lambda: chain_plain("sweep", cx, cy)),
+        "chain_rate_energy": (lambda: chain_cuda("energy", cx, cy), lambda: chain_plain("energy", cx, cy)),
         # the energy kernel's float64 instance on the widened inputs of the same shapes
         "energy_f64": (lambda: offdiag_sum_cuda(*f64_cases[""][:2]), lambda: offdiag_sum_plain(*f64_cases[""])),
         "energy_f64_c": (lambda: offdiag_sum_cuda(*f64_cases[" with c"][:2]),
@@ -810,12 +959,20 @@ def main() -> int:
         "sweep_c": lambda: sweep_cuda(fwork, fcache, sched, u),
         "exchange": lambda: exchange_cuda(hwork, hcache, bonds, u_sel, u_acc),
         "exchange_c": lambda: exchange_cuda(hfwork, hfcache, bonds, u_sel, u_acc),
+        "exchange_tempered": lambda: exchange_cuda(hwork, hcache, bonds, u_sel, u_acc, n_beta=TEMPERED_NBETA,
+                                                   n_unit=n_unit, swap_uniforms=u_swap_x),
+        "exchange_tempered_c": lambda: exchange_cuda(hfwork, hfcache, bonds, u_sel, u_acc, n_beta=TEMPERED_NBETA,
+                                                     n_unit=n_unit, swap_uniforms=u_swap_x),
     }
     tempered_philox = PhiloxDraws(philox_key(g), N)
     tempered_calls = {  # the sweep as the tempered path draws, the megakernel as the A/B does
         "sweep": lambda: sweep_cuda(work, cache, sched, tempered_philox, CHECK_NBETA),
         "sweep_energy": lambda: sweeps_offdiag_cuda(work, cache, sched, u, CHECK_NBETA, u_swap),
         "sweep_c": lambda: sweep_cuda(fwork, fcache, sched, tempered_philox, CHECK_NBETA),
+        "exchange_tempered": lambda: exchange_cuda(hwork, hcache, bonds, exchange_draws, n_beta=CHECK_NBETA,
+                                                   n_unit=n_unit),
+        "exchange_tempered_c": lambda: exchange_cuda(hfwork, hfcache, bonds, exchange_draws, n_beta=CHECK_NBETA,
+                                                     n_unit=n_unit),
     }
     timing = {name: (_time_ms(torch, fn, 20), _time_ms(torch, plain, 2)) for name, (fn, plain) in calls.items()}
     tempered_ms = {name: _time_ms(torch, fn, 20) for name, fn in tempered_calls.items()}
@@ -823,6 +980,8 @@ def main() -> int:
     sweep_multi_ms = {name: _time_ms(torch, fn, 10) for name, fn in multi_calls.items()}
     for name, (w_ms, p_ms) in timing.items():
         print(f"{name}: wrapper {w_ms:.4f} ms, plain {p_ms:.3f} ms per call (CUDA events; a sweep or exchange call is one sweep)")
+    for body, name in zip(BODIES, ("chain_rate", "chain_rate_energy")):
+        print(f"chain_rate {body}: {N_ELEMS * CHAIN_LEN / (timing[name][0] / 1e3):.4e} elements/s (wrapper time)")
     for name, w_ms in tempered_ms.items():
         print(f"{name} n_beta={CHECK_NBETA}: wrapper {w_ms:.4f} ms per call (one sweep and its swap phases)")
     for name, w_ms in uniform_ms.items():
@@ -873,15 +1032,15 @@ def main() -> int:
     # the exchange: the state in and out, the weights, the bonds and their
     # incidence table, the counts, and the 16-byte key (the training paths'
     # mode) or the two (n_unit, K) uniform blocks
-    nb = bonds.shape[0]
+    n_bonds = bonds.shape[0]
 
     def exchange_bytes(hh, uniforms):
         return (2 * HUB_K * hh * c64 + 2 * HUB_K * hn * f32b + 2 * HUB_K * c64 + hn * hh * c64 + hn * c64
-                + 2 * nb * i32b + (hn + 1 + 2 * nb) * i32b + HUB_K * i32b
+                + 2 * n_bonds * i32b + (hn + 1 + 2 * n_bonds) * i32b + HUB_K * i32b
                 + (2 * n_unit * HUB_K * f32b if uniforms else 16))
 
-    exchange_ops = HUB_K * n_unit * (HUB_H * EXCHANGE_OPS_HIDDEN + nb * EXCHANGE_OPS_BOND)
-    exchange_c_ops = HUB_K * n_unit * (FFNN_HUB_H * EXCHANGE_OPS_HIDDEN_C + nb * EXCHANGE_OPS_BOND)
+    exchange_ops = HUB_K * n_unit * (HUB_H * EXCHANGE_OPS_HIDDEN + n_bonds * EXCHANGE_OPS_BOND)
+    exchange_c_ops = HUB_K * n_unit * (FFNN_HUB_H * EXCHANGE_OPS_HIDDEN_C + n_bonds * EXCHANGE_OPS_BOND)
     exchange_bound = _bound_ms(exchange_ops, exchange_bytes(HUB_H, False))
     exchange_u_bound = _bound_ms(exchange_ops, exchange_bytes(HUB_H, True))
     exchange_c_bound = _bound_ms(exchange_c_ops, exchange_bytes(FFNN_HUB_H, False) + FFNN_HUB_H * c64)
@@ -1153,15 +1312,75 @@ def main() -> int:
     _require(ab_plain == 0 and ab_launches["sweep_energy"] > 0, f"A/B launches {ab_launches}, plain calls {ab_plain}")
     path_launches["megakernel A/B"] = ab_launches
 
-    _enter("14 kernel device times", t0)
+    _enter("14 tempered Hubbard SR steps", t0)
+    # n_beta = 4 (the collapse escalation's default ladder): tempered exchange,
+    # which refuses use_fused_sweeps as in JAX
+    th_label = f"tempered Hubbard (n_beta={TEMPERED_NBETA})"
+    th_vmc, th_params, th_state, th_warm, th_launches = drive(
+        th_label,
+        lambda: VMC(
+            RBM(n_inputs=2 * HUB_L, n_hiddens=HUB_H, dtype=torch.float32),
+            hubbard,
+            VMCConfig(n_walkers=HUB_K, learning_rate=1e-2, solver="cg", n_beta=TEMPERED_NBETA, seed=11),
+            device=dev,
+        ),
+        HUB_WARM_SWEEPS, HUB_SR_STEPS, CACHE_ATOL,
+    )
+    want = expect(exchange=1 + HUB_SR_STEPS, exchange_tempered=1 + HUB_SR_STEPS)
+    _require(th_launches == want and warm_launches[th_label]["exchange_tempered"] == 1,
+             f"{th_label} launches {th_launches}: expected one launch of the tempered instance per sampler call")
+    _require(sector_ok(th_warm.cache.spins) and sector_ok(th_state.cache.spins),
+             f"{th_label}: a replica left the {HUB_PARTICLES}+{HUB_PARTICLES} sector")
+    print(f"{th_label}: every replica holds {HUB_PARTICLES} up and {HUB_PARTICLES} down particles after the warm-up "
+          "and the steps")
+    path_launches["tempered Hubbard"] = th_launches
+    # the instance with c: the FFNN Hubbard configuration on the same ladder
+    tf_label = f"tempered FFNN Hubbard (n_beta={TEMPERED_NBETA})"
+    _, _, tf_state, tf_warm, tf_launches = drive(
+        tf_label,
+        lambda: VMC(
+            FFNN(n_inputs=2 * HUB_L, n_hiddens=FFNN_HUB_H, dtype=torch.float32),
+            hubbard,
+            VMCConfig(n_walkers=HUB_K, learning_rate=1e-2, solver="cg", n_beta=TEMPERED_NBETA, seed=11),
+            device=dev,
+        ),
+        FFNN_HUB_WARM_SWEEPS, FFNN_HUB_SR_STEPS, CACHE_ATOL,
+    )
+    calls_t = 1 + FFNN_HUB_SR_STEPS
+    _require(tf_launches == expect(exchange=calls_t, exchange_tempered=calls_t, exchange_tempered_c=calls_t),
+             f"{tf_label} launches {tf_launches}: expected one launch of the tempered instance with c per sampler call")
+    _require(sector_ok(tf_warm.cache.spins) and sector_ok(tf_state.cache.spins),
+             f"{tf_label}: a replica left the {HUB_PARTICLES}+{HUB_PARTICLES} sector")
+    path_launches["tempered FFNN Hubbard"] = tf_launches
+
+    _enter("15 bench", t0)
+    reset_counts()
+    t_bench = time.perf_counter()
+    bench_lines = port_bench.main([])
+    torch.cuda.synchronize()
+    bench_launches, bench_plain = read_counts()
+    numbers = [v for line in bench_lines for k_, v in line.items() if isinstance(v, float) or k_ == "value"]
+    print(f"bench: {len(bench_lines)} lines in {time.perf_counter() - t_bench:.1f} s; launches {bench_launches}; "
+          f"plain-version calls: {bench_plain}")
+    _require(len(bench_lines) == 5 and all(isinstance(v, float) and math.isfinite(v) for v in numbers),
+             f"bench: lines {bench_lines}")
+    _require(bench_lines[0]["value"] < BENCH_REL_ERR_BAR,
+             f"bench: N=16 TFI relative error {bench_lines[0]['value']} not below {BENCH_REL_ERR_BAR}")
+    _require(bench_plain == 0 and all(bench_launches[name] > 0 for name in ("sweep", "energy", "exchange", "chain_rate")),
+             f"bench: launches {bench_launches}, plain calls {bench_plain}")
+    path_launches["bench"] = bench_launches
+
+    _enter("16 kernel device times", t0)
     # the instance each timed call runs: R = ceil(H/32) (exchange: G x U), then c and t
     hub_g = kernel_lanes(HUB_H)
     r_of = {"exchange": f"{hub_g}x{-(-HUB_H // hub_g)}"}
 
     def instance(name, tempered=False, multi=False):
         base = name.removesuffix("_c")
-        lib, f64 = base.removesuffix("_f64"), base.endswith("_f64")  # the float64 instance is in energy's library
-        r = r_of.get(lib, (h + 31) // 32)
+        # the float64 instance is in energy's library, the tempered one in exchange's
+        lib = {"energy_f64": "energy", "exchange_tempered": "exchange", "chain_rate_energy": "chain_rate"}.get(base, base)
+        f64, tempered = base == "energy_f64", tempered or base == "exchange_tempered"
+        r = {"chain_rate": 0, "chain_rate_energy": 1}.get(base, r_of.get(lib, (h + 31) // 32))  # the probe: its body
         c = name.endswith("_c")
         key = (f"{r}" + ("c" if c else "") + ("t" if tempered and "t" in TEMPLATE_BOOLS[lib] else "")
                + ("m" if multi and c and "m" in TEMPLATE_BOOLS[lib] else "") + ("d" if f64 else ""))
@@ -1179,9 +1398,11 @@ def main() -> int:
             key, regs = instance(name, tempered)
             print(f"{name}{title}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call "
                   f"(device time, profiler); instance {key}: registers {regs}")
-    # the exchange kernel: one launch of several sweeps
-    multi_ms = {name: device(lambda: exchange_cuda(w_, c_, bonds, multi_draws), "exchange")
-                for name, w_, c_ in (("exchange", hwork, hcache), ("exchange_c", hfwork, hfcache))}
+    # the exchange kernel: one launch of several sweeps (tempered: at n_beta = 4)
+    multi_ms = {name: device(lambda: exchange_cuda(w_, c_, bonds, multi_draws, n_beta=nb_, n_unit=n_unit), "exchange")
+                for name, w_, c_, nb_ in (("exchange", hwork, hcache, 1), ("exchange_c", hfwork, hfcache, 1),
+                                          ("exchange_tempered", hwork, hcache, TEMPERED_NBETA),
+                                          ("exchange_tempered_c", hfwork, hfcache, TEMPERED_NBETA))}
     for name, d_ms in multi_ms.items():
         print(f"{name} {EXCHANGE_MULTI_SWEEPS} sweeps in one launch: kernel "
               f"{'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call (device time, profiler)")
@@ -1193,22 +1414,25 @@ def main() -> int:
               f"{'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call (device time, profiler); "
               f"instance {key}: registers {regs}")
 
-    _enter("15 LITFI step profile", t0)
+    _enter("17 LITFI step profile", t0)
     _profile_steps(torch, vmc, params, state, SR_STEPS)
 
-    _enter("16 Hubbard step profile", t0)
+    _enter("18 Hubbard step profile", t0)
     _profile_steps(torch, hub_vmc, hub_params, hub_state, HUB_SR_STEPS)
 
-    _enter("17 FFNN flagship step profile", t0)
+    _enter("19 FFNN flagship step profile", t0)
     _profile_steps(torch, ffnn_vmc, ffnn_params, ffnn_state, SR_STEPS)
 
-    _enter("18 Hubbard minSR step profile", t0)
+    _enter("20 Hubbard minSR step profile", t0)
     _profile_steps(torch, ms_vmc, ms_params, ms_state, HUB_SR_STEPS, NEW_PROFILE_STEPS)
 
-    _enter("19 2D dense SR step profile", t0)
+    _enter("21 2D dense SR step profile", t0)
     _profile_steps(torch, cb_vmc, cb_params, cb_state, TWO_D_STEPS, NEW_PROFILE_STEPS)
 
-    _enter("20 report", t0)
+    _enter("22 tempered Hubbard step profile", t0)
+    _profile_steps(torch, th_vmc, th_params, th_state, HUB_SR_STEPS)
+
+    _enter("23 report", t0)
     print(f"launches by path: {json.dumps(path_launches)}")
     errs = {
         "sweep": {"max_abs_err": philox[("", 1)][1], "tolerance": SWEEP_LNPSI_ATOL, "mismatch_share": philox[("", 1)][0],
@@ -1234,7 +1458,7 @@ def main() -> int:
                                   "bound_ms": exchange_u_bound[0]},
                      "multi_sweep": {"sweeps": EXCHANGE_MULTI_SWEEPS, "max_abs_err": xm_ln_err, "mismatch_share": xm_share,
                                      "kernel_ms": multi_ms["exchange"], "bound_ms": exchange_m_bound[0]},
-                     "lanes": hub_g, "w_in_shared_memory": stages_w(hn, HUB_H, nb, False)},
+                     "lanes": hub_g, "w_in_shared_memory": stages_w(hn, HUB_H, n_bonds, False)},
         "sweep_energy": {"tolerance": SWEEP_LNPSI_ATOL, "offdiag_tolerance": OFFDIAG_RTOL, **mega[1],
                          f"nbeta{CHECK_NBETA}": mega[CHECK_NBETA], f"nbeta{CHECK_NBETA}_bound_ms": sweep_energy_t_bound[0],
                          "ab": {f"nbeta{nb}": {k: r[k] for k in ("two_kernel_ms", "megakernel_ms", "speedup")}
@@ -1272,7 +1496,7 @@ def main() -> int:
                                   "bound_ms": exchange_c_u_bound[0]},
                      "multi_sweep": {"sweeps": EXCHANGE_MULTI_SWEEPS, "max_abs_err": xcm_ln_err, "mismatch_share": xcm_share,
                                      "kernel_ms": multi_ms["exchange_c"], "bound_ms": exchange_c_m_bound[0]},
-                     "w_in_shared_memory": stages_w(hn, FFNN_HUB_H, nb, True)},
+                     "w_in_shared_memory": stages_w(hn, FFNN_HUB_H, n_bonds, True)},
     }
     has_c_bounds = {"sweep": sweep_c_bound, "energy": energy_c_bound, "exchange": exchange_c_bound}
 
@@ -1323,6 +1547,80 @@ def main() -> int:
         **f64_entry("energy_f64", f64_err[""], energy_f64_bound),
         "widths_rel_err": {k.strip(): v[0] for k, v in f64_err.items() if "H=" in k},
         "has_c": f64_entry("energy_f64_c", f64_err[" with c"], energy_f64_c_bound),
+    })
+
+    # the exchange kernel's tempered instance (tempered exchange), where the
+    # JAX package runs XLA (sampler/kawasaki.py::tempered_exchange_sweeps): the
+    # untempered instance's operations and bytes, the per-row swap counts
+    # written, and SWAP_OPS per walker row and swap phase; headline n_beta = 4
+    # at one sweep on its Philox stream
+    swap_x_ops = 2 * HUB_K * SWAP_OPS
+
+    def tempered_bound(hh, ops, uniforms, has_c, sweeps=1):
+        # the swap counts out, the swap uniforms in on caller uniforms, c in
+        nbytes = (exchange_bytes(hh, uniforms) + HUB_K * i32b + (2 * HUB_K * f32b if uniforms else 0)
+                  + (hh * c64 if has_c else 0))
+        return _bound_ms(sweeps * (ops + swap_x_ops), nbytes)
+
+    def tempered_entry(clab, ops, hh):
+        c = "_c" if clab else ""
+        bound = tempered_bound(hh, ops, False, bool(clab))
+        return {
+            "n_beta": TEMPERED_NBETA, "max_abs_err": tempered_x[(clab, TEMPERED_NBETA, "philox")][1],
+            "tolerance": EXCHANGE_LNPSI_ATOL, "mismatch_share": tempered_x[(clab, TEMPERED_NBETA, "philox")][0],
+            f"nbeta{CHECK_NBETA}_mismatch_share": tempered_x[(clab, CHECK_NBETA, "philox")][0],
+            f"nbeta{CHECK_NBETA}_max_abs_err": tempered_x[(clab, CHECK_NBETA, "philox")][1],
+            "uniforms": {"max_abs_err": tempered_x[(clab, TEMPERED_NBETA, "uniforms")][1],
+                         "mismatch_share": tempered_x[(clab, TEMPERED_NBETA, "uniforms")][0],
+                         "kernel_ms": uniform_device_ms[f"exchange_tempered{c}"],
+                         "wrapper_ms": uniform_ms[f"exchange_tempered{c}"],
+                         "bound_ms": tempered_bound(hh, ops, True, bool(clab))[0]},
+            "multi_sweep": {"sweeps": EXCHANGE_MULTI_SWEEPS,
+                            "max_abs_err": tempered_x[(clab, TEMPERED_NBETA, "multi")][1],
+                            "mismatch_share": tempered_x[(clab, TEMPERED_NBETA, "multi")][0],
+                            "kernel_ms": multi_ms[f"exchange_tempered{c}"],
+                            "bound_ms": tempered_bound(hh, ops, False, bool(clab), EXCHANGE_MULTI_SWEEPS)[0]},
+            "ms": device_ms[f"exchange_tempered{c}"] if device_ms[f"exchange_tempered{c}"] is not None
+            else timing[f"exchange_tempered{c}"][0],
+            "kernel_ms": device_ms[f"exchange_tempered{c}"], "wrapper_ms": timing[f"exchange_tempered{c}"][0],
+            "plain_ms": timing[f"exchange_tempered{c}"][1], "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None, "registers": instance(f"exchange_tempered{c}")[1],
+            f"nbeta{CHECK_NBETA}_kernel_ms": tempered_device_ms[f"exchange_tempered{c}"],
+            f"nbeta{CHECK_NBETA}_wrapper_ms": tempered_ms[f"exchange_tempered{c}"],
+            "w_in_shared_memory": stages_w(hn, hh, n_bonds, bool(clab), TEMPERED_NBETA),
+        }
+
+    kernels.append({
+        "name": "exchange_tempered", "route": "cuda", "source": "neural_network_quantum_state_tpu_torch/csrc/exchange.cu",
+        "replaces": replaces["exchange"], "instance_of": "exchange",
+        # launches: the tempered instance's, over every path (counted in exchange's too)
+        "launches": sum(p.get("exchange_tempered", 0) for p in path_launches.values()),
+        **tempered_entry("", exchange_ops, HUB_H),
+        # launches: the tempered instance with c alone, over every path
+        "has_c": {"launches": sum(p.get("exchange_tempered_c", 0) for p in path_launches.values()),
+                  **tempered_entry(" with c", exchange_c_ops, FFNN_HUB_H)},
+    })
+
+    # the chain-rate probe: 2^22 elements in and out (x, y) once, CHAIN_LEN
+    # bodies each; bound by the FMA pipes' float32 rate or the MUFU's, which
+    # ever is slower, or by the bytes
+    def chain_entry(body, name):
+        elems = N_ELEMS * CHAIN_LEN
+        fma_ms, mufu_ms = 1e3 * elems * CHAIN_OPS[body] / PEAK_F32_FLOPS, 1e3 * elems * CHAIN_MUFU[body] / PEAK_MUFU_S
+        bytes_ms = 1e3 * 4 * N_ELEMS * f32b / PEAK_BYTES_S
+        ms = device_ms[name] if device_ms[name] is not None else timing[name][0]
+        return {"body": body, **chain_err[body], "tolerance": CHAIN_RTOL, "near_cut_max": CHAIN_NEAR_CUT_MAX,
+                "ms": ms, "kernel_ms": device_ms[name], "wrapper_ms": timing[name][0], "plain_ms": timing[name][1],
+                "bound_ms": max(fma_ms, mufu_ms, bytes_ms),
+                "bound_by": "operations" if max(fma_ms, mufu_ms) >= bytes_ms else "bytes",
+                "bound_fma_ms": fma_ms, "bound_mufu_ms": mufu_ms, "bound_bytes_ms": bytes_ms, "library_ms": None,
+                "registers": instance(name)[1], "elements_per_s": elems / (ms / 1e3),
+                "bench_elements_per_s": port_bench.probe_rates(dev).get(body)}
+
+    kernels.append({
+        "name": "chain_rate", "route": "cuda", "source": "neural_network_quantum_state_tpu_torch/csrc/chain_rate.cu",
+        "replaces": "bench.py:105", "launches": sum(p.get("chain_rate", 0) for p in path_launches.values()),
+        **chain_entry("sweep", "chain_rate"), "energy_body": chain_entry("energy", "chain_rate_energy"),
     })
     print(f"solver cross-check: {json.dumps(solver_check)}; auto's MINRES-QLP fallbacks: {json.dumps(auto_fallbacks)}")
     print(json.dumps({"kernels": kernels}))

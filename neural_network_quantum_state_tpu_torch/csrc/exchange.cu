@@ -69,6 +69,28 @@
 // - One Philox evaluation per lane gives four uniforms; the G lanes of a
 //   walker hold G/2 counter blocks of each stream and a proposal's two
 //   uniforms come out by two shuffles.
+//
+// The tempered instances (T = true, n_beta > 1: parallel tempering with this
+// move class, which the JAX package runs in XLA only, sampler/kawasaki.py
+// ::tempered_exchange_sweeps) run the walkers replica-minor (row w = chain *
+// n_beta + r at beta_r = (n_beta - r) / n_beta): each sweep of n_unit
+// proposals accepts where u_acc < exp(2 beta min(dln, 0)), then the even-pair
+// and the odd-pair swap phase exchange rows (r, r+1) where u_swap < exp(2
+// (1/n_beta) min(ln_{r+1} - ln_r, 0)). The design is the sweep kernel's
+// tempered one (rbm.cuh swap_phase): a block holds whole replica groups
+// (tempered_walkers), so a swap never leaves it; a walker posts its Re ln psi
+// to shared memory (two buffers, one per parity: one block barrier per
+// phase) and, where its pair swaps, takes its partner's row label, and with
+// it the partner's beta, while its y, spin and mask bits stay in place. Its
+// selection, acceptance and swap uniforms are drawn at its current row, so a
+// label swap makes the decisions of the plain version's configuration
+// gather. The swap uniforms come from their own stream (rbm.cuh
+// swap_uniform, ops/rng.py ExchangeDraws.swaps). Per row it counts the
+// accepted proposals and the accepted swaps as the lower member, by the row
+// held at each decision, and each walker writes its state to the row it ends
+// in. A template instance of its own keeps the n_beta = 1 instance's loop
+// and registers. Bound: the proposals' operations plus an exp and a compare
+// per walker and phase.
 
 #include <cstdint>
 #include <type_traits>
@@ -113,6 +135,17 @@ static_assert(kRegWords == 4, "the incidence bits of a site are one uint4");
 constexpr size_t kSmemBudget = 48 * 1024;
 constexpr size_t kSmemBudgetTable = 112 * 1024;
 constexpr size_t kSmemMax = 227 * 1024;
+// The tempered instances' blocks: at most 16 warps (a group of 16 one-warp
+// walkers at G = 32).
+constexpr int kMaxWarpsT = 16;
+// The most threads a block of an instance takes: 8 warps, or 16 for the
+// tempered instances at G = 32 (block_walkers). Its __launch_bounds__ pairs
+// it with the resident blocks that give every instance the same register
+// cap as the untempered ones (65536 / (kThreads * kMinBlocks)).
+__host__ __device__ constexpr int max_threads(int G, bool T) { return T && G == 32 ? 32 * kMaxWarpsT : kThreads; }
+__host__ __device__ constexpr int min_blocks_for(int G, bool T) {
+  return kMinBlocks * kThreads / max_threads(G, T) > 0 ? kMinBlocks * kThreads / max_threads(G, T) : 1;
+}
 // Counter word 3 of the selection and acceptance streams (ops/rng.py).
 constexpr unsigned kSelectStream = 2, kAcceptStream = 3;
 constexpr float kTwoLog2e = 2.8853900817779268f;  // 2 log2(e)
@@ -129,15 +162,26 @@ struct ExchangeArgs {
   const float2* sa_in;     // (K,)
   const float* u_sel;      // (n_steps, K), or null: the Philox stream
   const float* u_acc;      // (n_steps, K), or null
+  const float* u_swap;     // (n_steps / n_unit, 2, K) with u_sel (tempered instances), or null
   const long long* key;    // (2,) words in [0, 2^32), read when u_sel is null
   float* spins_out;
   float2* y_out;
   float2* sa_out;
-  int* acc_out;  // (K,) accepted proposals per walker
+  int* acc_out;   // (K,) accepted proposals per walker row
+  int* swap_out;  // (K,) accepted swaps with each row as the lower member (tempered instances)
   int K, N, H, B, n_steps;
+  int n_unit, n_beta;  // proposals per sweep and replicas (tempered instances)
 };
 
 __host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
+
+// The walkers of a block at G lanes per walker: 8 warps' worth, or for the
+// tempered instances a whole number of replica groups, at least one (16
+// one-warp walkers at G = 32, n_beta = 16: kMaxWarpsT warps).
+__host__ __device__ constexpr int block_walkers(int G, bool T, int n_beta) {
+  const int w = kWarpsPerBlock * (32 / G);
+  return T ? n_beta * (w / n_beta > 1 ? w / n_beta : 1) : w;
+}
 
 // The lanes per walker G at H hidden units: about 8 units per lane.
 __host__ __device__ constexpr int lanes_for(int H) {
@@ -157,13 +201,17 @@ __host__ __device__ constexpr bool table_w(bool C, int U) { return C && kRotate 
 // Byte offsets of the block's shared memory: the mbarrier of the W copy, W
 // or its table (staged only), a, c (C = true, zero-padded to U * G), the bonds, the CSR
 // table, its rows as bits of the bonds below 32 kRegWords (a uint4 per
-// site), and per walker the spin and mask words past kRegWords.
+// site), per walker slot (32 / G per warp) the spin and mask words past
+// kRegWords, and for the tempered instances per slot two Re ln psi buffers
+// (one per swap parity, indexed by row) and the counts of accepted proposals
+// and of accepted swaps by row.
 struct Layout {
-  size_t w, a, c, bonds, ptr, idx, rows, ext, total;
+  size_t w, a, c, bonds, ptr, idx, rows, ext, ln, cnt, total;
   int ext_words;  // per walker
 };
 
-__host__ __device__ inline Layout layout(int N, int H, int B, int units, bool C, bool tab, bool staged, int walkers) {
+__host__ __device__ inline Layout layout(int N, int H, int B, int units, bool C, bool tab, bool staged, int slots,
+                                         bool T = false) {
   Layout L;
   const int nsw = (N + 31) / 32, nw = (B + 31) / 32;
   L.ext_words = (nsw > kRegWords ? nsw - kRegWords : 0) + (nw > kRegWords ? nw - kRegWords : 0);
@@ -175,7 +223,9 @@ __host__ __device__ inline Layout layout(int N, int H, int B, int units, bool C,
   L.idx = align16(L.ptr + sizeof(int) * (N + 1));
   L.rows = align16(L.idx + sizeof(int) * 2 * B);
   L.ext = L.rows + sizeof(uint4) * N;
-  L.total = L.ext + sizeof(unsigned) * L.ext_words * walkers;
+  L.ln = L.ext + sizeof(unsigned) * L.ext_words * slots;
+  L.cnt = L.ln + (T ? sizeof(float) * 2 * slots : 0);
+  L.total = L.cnt + (T ? sizeof(int) * 2 * slots : 0);
   return L;
 }
 
@@ -311,7 +361,43 @@ struct ExchangeDraws {
     *us = nqs::bits_uniform(__shfl_sync(kFull, w, blk & (kHalf - 1), G));
     *ua = nqs::bits_uniform(__shfl_sync(kFull, w, kHalf + (blk & (kHalf - 1)), G));
   }
+
+  // A tempered walker's row changes between sweeps: draw anew.
+  __device__ __forceinline__ void restart() { base = -1; }
+
+  // The swap uniform of sweep s, parity `parity`, lower row `lower`.
+  __device__ __forceinline__ float swap(const ExchangeArgs& p, int s, int parity, int lower) const {
+    if (p.u_sel) return __ldg(p.u_swap + (size_t)(2 * s + parity) * p.K + lower);
+    return nqs::swap_uniform(key, s, parity, lower);
+  }
 };
+
+// One replica-exchange phase of the tempered instances (rbm.cuh swap_phase
+// with several walkers per warp): the walkers post Re ln psi by row, the
+// block synchronises (every thread, idle walkers too), and each walker of a
+// pair whose swap is accepted takes its partner's row. Every lane of a
+// walker reads the same values and decides alike; its leader counts an
+// accepted swap at the lower row.
+template <int G>
+__device__ __forceinline__ void exchange_swap_phase(const ExchangeArgs& p, const ExchangeDraws<G>& draws, bool valid,
+                                                    bool leader, int first, int s, int parity, int& row, float ln0,
+                                                    float* buf, int* s_swap) {
+  if (valid && leader) buf[row - first] = ln0;
+  __syncthreads();
+  if (!valid) return;
+  const int lower = nqs::swap_lower(row, p.n_beta, parity);
+  if (lower < 0) return;
+  const float dbeta = 1.0f / static_cast<float>(p.n_beta);
+  const float dln = buf[lower + 1 - first] - buf[lower - first];
+  if (draws.swap(p, s, parity, lower) < expf(2.0f * dbeta * fminf(dln, 0.0f))) {
+    if (row == lower) {
+      if (leader) s_swap[lower - first] += 1;
+      row = lower + 1;
+    } else {
+      row = lower;
+    }
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -402,14 +488,18 @@ __device__ __forceinline__ float candidate_rot(const float4* tab, int i, int j, 
   return l;
 }
 
-template <int G, int U, bool C>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int G, int U, bool C, bool T>
+__global__ void __launch_bounds__(max_threads(G, T), min_blocks_for(G, T))
 exchange_kernel(const ExchangeArgs p, const int staged) {
   constexpr int P = 32 / G;  // walkers per warp
-  constexpr int kWalkers = kWarpsPerBlock * P;
+  // walkers per block: 8 warps' worth, or whole replica groups (T), in the
+  // block's walker slots (T: a last warp may hold slots past the groups)
+  const int wb = T ? block_walkers(G, true, p.n_beta) : kWarpsPerBlock * P;
+  const int n_threads = T ? static_cast<int>(blockDim.x) : kThreads;
+  const int slots = n_threads / G;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool kTab = table_w(C, U);
-  const Layout L = layout(p.N, p.H, p.B, U * G, C, kTab, staged != 0, kWalkers);
+  const Layout L = layout(p.N, p.H, p.B, U * G, C, kTab, staged != 0, slots, T);
   const float2* s_w = reinterpret_cast<const float2*>(smem + L.w);
   float2* s_a = reinterpret_cast<float2*>(smem + L.a);
   float2* s_c = reinterpret_cast<float2*>(smem + L.c);
@@ -438,7 +528,7 @@ exchange_kernel(const ExchangeArgs p, const int staged) {
   }
   if (kTab && staged) {
     float4* dst = reinterpret_cast<float4*>(smem + L.w);
-    for (int e = tid; e < p.N * p.H; e += kThreads) {
+    for (int e = tid; e < p.N * p.H; e += n_threads) {
       const float2 v = p.w[e];
       float sw, cw;
       nqs::sincos_fast(2.0f * v.y, &sw, &cw);
@@ -446,21 +536,21 @@ exchange_kernel(const ExchangeArgs p, const int staged) {
     }
   } else if (staged) {
     float2* dst = reinterpret_cast<float2*>(smem + L.w);
-    for (size_t e = bulk_bytes / sizeof(float2) + tid; e < (size_t)p.N * p.H; e += kThreads) dst[e] = p.w[e];
+    for (size_t e = bulk_bytes / sizeof(float2) + tid; e < (size_t)p.N * p.H; e += n_threads) dst[e] = p.w[e];
   }
-  for (int e = tid; e < 2 * p.B; e += kThreads) {
+  for (int e = tid; e < 2 * p.B; e += n_threads) {
     const int v = p.bonds[e];
     const int b = p.inc_idx[e];
     if (v < 0 || v >= p.N || b < 0 || b >= p.B) __trap();  // a bond end outside [0, N), or a bad table
     s_bonds[e] = v;
     s_idx[e] = b;
   }
-  for (int e = tid; e <= p.N; e += kThreads) {
+  for (int e = tid; e <= p.N; e += n_threads) {
     const int v = p.inc_ptr[e];
     if (v < 0 || v > 2 * p.B) __trap();
     s_ptr[e] = v;
   }
-  for (int e = tid; e < p.N; e += kThreads) {
+  for (int e = tid; e < p.N; e += n_threads) {
     s_a[e] = p.a[e];
     unsigned rw[kRegWords] = {};  // the bonds below 32 kRegWords that touch site e, once per end
     const int f1 = min(p.inc_ptr[e + 1], 2 * p.B);  // inside the table even before a bad one traps
@@ -472,7 +562,13 @@ exchange_kernel(const ExchangeArgs p, const int staged) {
     s_rows[e] = make_uint4(rw[0], rw[1], rw[2], rw[3]);
   }
   if constexpr (C) {
-    for (int e = tid; e < U * G; e += kThreads) s_c[e] = e < p.H ? p.c[e] : make_float2(0.0f, 0.0f);
+    for (int e = tid; e < U * G; e += n_threads) s_c[e] = e < p.H ? p.c[e] : make_float2(0.0f, 0.0f);
+  }
+  float* s_ln = reinterpret_cast<float*>(smem + L.ln);  // T: two buffers of `slots`
+  int* s_acc = reinterpret_cast<int*>(smem + L.cnt);    // T: accepted proposals by row
+  int* s_swap = s_acc + slots;                          // T: accepted swaps by lower row
+  if constexpr (T) {
+    for (int e = tid; e < slots; e += n_threads) s_acc[e] = s_swap[e] = 0;
   }
   __syncthreads();
 
@@ -481,10 +577,14 @@ exchange_kernel(const ExchangeArgs p, const int staged) {
   const int q = lane / G;  // the walker in the warp
   const int gl = lane % G;  // the lane in the walker
   const bool leader = gl == 0;
-  const int kbase = (blockIdx.x * kWarpsPerBlock + warp) * P;  // the warp's first walker row
-  const int k = kbase + q;
-  const bool valid = k < p.K;
-  if (kbase >= p.K) return;  // an idle warp past K (uniform over the warp)
+  const int first = blockIdx.x * wb;  // the block's first walker row
+  const int kbase = first + warp * P;  // the warp's first walker row
+  const int k = kbase + q;  // the walker's row (T: its first row)
+  // a walker row of this block's groups: T blocks may hold idle slots past them
+  const auto in_block = [&](int q2) { return (!T || warp * P + q2 < wb) && kbase + q2 < p.K; };
+  const bool valid = in_block(q);
+  const bool idle_warp = (T && warp * P >= wb) || kbase >= p.K;  // uniform over the warp
+  if (!T && idle_warp) return;  // an idle warp past K; T's stay for the block's barriers
   const int N = p.N, H = p.H;
   const int nsw = (N + 31) / 32, nw = (p.B + 31) / 32;
   const int ext_s = nsw > kRegWords ? nsw - kRegWords : 0;
@@ -498,7 +598,7 @@ exchange_kernel(const ExchangeArgs p, const int staged) {
   for (int m = 0; m < nsw; ++m) {
     const int i = m * 32 + lane;
     for (int q2 = 0; q2 < P; ++q2) {
-      const bool up = kbase + q2 < p.K && i < N && p.spins_in[(size_t)(kbase + q2) * N + i] > 0.0f;
+      const bool up = in_block(q2) && i < N && p.spins_in[(size_t)(kbase + q2) * N + i] > 0.0f;
       const unsigned v = __ballot_sync(kFull, up);
       if (q2 == q) spin.set_word(m, v, leader);
     }
@@ -508,8 +608,8 @@ exchange_kernel(const ExchangeArgs p, const int staged) {
     const int b0 = b < p.B ? s_bonds[2 * b] : 0;
     const int b1 = b < p.B ? s_bonds[2 * b + 1] : 0;
     for (int q2 = 0; q2 < P; ++q2) {
-      const float* row = p.spins_in + (size_t)(kbase + q2) * N;
-      const bool on = b < p.B && kbase + q2 < p.K && row[b0] * row[b1] < 0.0f;
+      const float* srow = p.spins_in + (size_t)(kbase + q2) * N;
+      const bool on = b < p.B && in_block(q2) && srow[b0] * srow[b1] < 0.0f;
       const unsigned v = __ballot_sync(kFull, on);
       if (q2 == q) act.set_word(m, v, leader);
     }
@@ -534,14 +634,17 @@ exchange_kernel(const ExchangeArgs p, const int staged) {
   float ln0 = group_sum<G>(l) + sa.x;
   int nb = act.count();
   int acc = 0;
+  int row = k;  // T: the row the walker holds, and with it its beta
+  float scale = kTwoLog2e;  // T: 2 beta log2(e)
   ExchangeDraws<G> draws(p);
   if (bulk_bytes > 0) wait_phase0(bar);
 
-  // The proposals, in one of two loops: W from shared memory or through L1.
-  const auto proposals = [&](auto w_in_smem) {
-    for (int t = 0; t < p.n_steps; ++t) {
+  // The proposals t_begin..t_end-1, in one of two loops: W from shared
+  // memory or through L1.
+  const auto proposals = [&](auto w_in_smem, int t_begin, int t_end) {
+    for (int t = t_begin; t < t_end; ++t) {
       float us, ua;
-      draws(p, t, k, valid, gl, &us, &ua);
+      draws(p, t, T ? row : k, valid, gl, &us, &ua);
       const int target = min(static_cast<int>(floorf(us * static_cast<float>(nb))), nb - 1);
       const int bond = nb > 0 ? act.nth(target) : 0;
       const int i = s_bonds[2 * bond];
@@ -559,7 +662,7 @@ exchange_kernel(const ExchangeArgs p, const int staged) {
       if constexpr (R) part = candidate_rot<G, U>(tab, i, j, H, gl, t1, yr, cs, sn, xr, xi, xs, s_c);
       else part = candidate<G, U, C, S>(S ? s_w : p.w, i, j, H, gl, t1, t2, yr, yi, xr, xi, s_c);
       const float ln1 = (group_sum<G>(part) + sa.x) + (-t1 * ai.x - t2 * aj.x);
-      const bool accept = nb > 0 && ua < nqs::ex2_fast(kTwoLog2e * fminf(ln1 - ln0, 0.0f));
+      const bool accept = nb > 0 && ua < nqs::ex2_fast((T ? scale : kTwoLog2e) * fminf(ln1 - ln0, 0.0f));
       if (has_ext) __syncwarp();  // every lane has read this proposal's shared words
       if (accept) {
 #pragma unroll
@@ -598,79 +701,106 @@ exchange_kernel(const ExchangeArgs p, const int staged) {
       if (accept) nb = act.count();
     }
   };
-  if (staged) proposals(std::true_type{});
-  else proposals(std::false_type{});
+  const auto run = [&](int t_begin, int t_end) {
+    if (staged) proposals(std::true_type{}, t_begin, t_end);
+    else proposals(std::false_type{}, t_begin, t_end);
+  };
+  if constexpr (T) {
+    // sweeps of n_unit proposals at the row's beta, each followed by the even
+    // and the odd swap phase
+    const int n_sweeps = p.n_steps / p.n_unit;
+    for (int s = 0; s < n_sweeps; ++s) {
+      scale = kTwoLog2e * (static_cast<float>(p.n_beta - row % p.n_beta) / static_cast<float>(p.n_beta));
+      acc = 0;
+      if (!idle_warp) run(s * p.n_unit, (s + 1) * p.n_unit);
+      if (valid && leader) s_acc[row - first] += acc;
+      exchange_swap_phase<G>(p, draws, valid, leader, first, s, 0, row, ln0, s_ln, s_swap);
+      exchange_swap_phase<G>(p, draws, valid, leader, first, s, 1, row, ln0, s_ln + slots, s_swap);
+      draws.restart();
+    }
+  } else {
+    run(0, p.n_steps);
+  }
 
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int j = u * G + gl;
-    if (valid && (u < U - 1 || j < H)) p.y_out[(size_t)k * H + j] = make_float2(yr[u], yi[u]);
+    if (valid && (u < U - 1 || j < H)) p.y_out[(size_t)row * H + j] = make_float2(yr[u], yi[u]);
   }
   for (int m = 0; m < nsw; ++m) {
     const unsigned own = spin.word(m);
     const int i = m * 32 + lane;
     for (int q2 = 0; q2 < P; ++q2) {
       const unsigned v = __shfl_sync(kFull, own, q2 * G);
-      if (kbase + q2 < p.K && i < N) p.spins_out[(size_t)(kbase + q2) * N + i] = (v >> lane) & 1u ? 1.0f : -1.0f;
+      const int row2 = T ? __shfl_sync(kFull, row, q2 * G) : kbase + q2;
+      if (in_block(q2) && i < N) p.spins_out[(size_t)row2 * N + i] = (v >> lane) & 1u ? 1.0f : -1.0f;
     }
   }
-  if (valid && leader) {
-    p.sa_out[k] = sa;
-    p.acc_out[k] = acc;
+  if (valid && leader) p.sa_out[row] = sa;
+  if constexpr (T) {
+    __syncthreads();  // every count is in
+    if (valid && leader) {
+      p.acc_out[k] = s_acc[k - first];
+      p.swap_out[k] = s_swap[k - first];
+    }
+  } else {
+    if (valid && leader) p.acc_out[k] = acc;
   }
 }
 
-// Whether the kernel stages W at this shape: where the block's whole layout
-// fits the budget.
-bool stages(int N, int H, int B, bool C) {
+// Whether the kernel stages W at this shape and replica count: where the
+// block's whole layout fits the budget.
+bool stages(int N, int H, int B, bool C, int n_beta) {
 #ifdef NQS_EXCHANGE_W_L1
   return false;
 #else
   const int G = lanes_for(H), U = (H + G - 1) / G;
-  const bool tab = table_w(C, U);
-  return layout(N, H, B, U * G, C, tab, true, kWarpsPerBlock * 32 / G).total <= (tab ? kSmemBudgetTable : kSmemBudget);
+  const bool tab = table_w(C, U), T = n_beta > 1;
+  const int walkers = block_walkers(G, T, n_beta), slots = (walkers + 32 / G - 1) / (32 / G) * (32 / G);
+  return layout(N, H, B, U * G, C, tab, true, slots, T).total <= (tab ? kSmemBudgetTable : kSmemBudget);
 #endif
 }
 
-template <int G, int U, bool C>
+template <int G, int U, bool C, bool T>
 cudaError_t launch(const ExchangeArgs& p, cudaStream_t stream) {
-  constexpr int kWalkers = kWarpsPerBlock * 32 / G;
-  const bool staged = stages(p.N, p.H, p.B, C);
-  const size_t smem = layout(p.N, p.H, p.B, U * G, C, table_w(C, U), staged, kWalkers).total;
-  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  const int walkers = block_walkers(G, T, p.n_beta);
+  const int warps = (walkers + 32 / G - 1) / (32 / G);
+  const bool staged = stages(p.N, p.H, p.B, C, p.n_beta);
+  const size_t smem = layout(p.N, p.H, p.B, U * G, C, table_w(C, U), staged, warps * (32 / G), T).total;
+  if (smem > kSmemMax || 32 * warps > max_threads(G, T)) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(exchange_kernel<G, U, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t e = cudaFuncSetAttribute(exchange_kernel<G, U, C, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((p.K + kWalkers - 1) / kWalkers);
-  exchange_kernel<G, U, C><<<grid, kThreads, smem, stream>>>(p, staged ? 1 : 0);
+  const dim3 grid((p.K + walkers - 1) / walkers);
+  exchange_kernel<G, U, C, T><<<grid, 32 * (T ? warps : kWarpsPerBlock), smem, stream>>>(p, staged ? 1 : 0);
   return cudaGetLastError();
 }
 
 // The instances of G lanes per walker for U = U0..U1 units per lane.
-template <int G, int U, int U1, bool C>
+template <int G, int U, int U1, bool C, bool T>
 cudaError_t launch_units(const ExchangeArgs& p, int units, cudaStream_t stream) {
-  if (units == U) return launch<G, U, C>(p, stream);
-  if constexpr (U < U1) return launch_units<G, U + 1, U1, C>(p, units, stream);
+  if (units == U) return launch<G, U, C, T>(p, stream);
+  if constexpr (U < U1) return launch_units<G, U + 1, U1, C, T>(p, units, stream);
   return cudaErrorInvalidValue;
 }
 
 // The instances lanes_for reaches: G = 8 for H <= 64 (U = 1..8), 16 for
 // H = 65..128 (U = 5..8), 32 for H = 129..512 (U = 5..16).
-template <bool C>
+template <bool C, bool T>
 cudaError_t dispatch(const ExchangeArgs& p, cudaStream_t stream) {
   const int G = lanes_for(p.H), U = (p.H + G - 1) / G;
 #ifdef NQS_EXCHANGE_LANES
-  if (p.H <= 64) return launch_units<NQS_EXCHANGE_LANES, 1, 64 / NQS_EXCHANGE_LANES, C>(p, U, stream);
+  if (p.H <= 64) return launch_units<NQS_EXCHANGE_LANES, 1, 64 / NQS_EXCHANGE_LANES, C, T>(p, U, stream);
 #endif
   switch (G) {
     case 8:
-      return launch_units<8, 1, 8, C>(p, U, stream);
+      return launch_units<8, 1, 8, C, T>(p, U, stream);
     case 16:
-      return launch_units<16, 5, 8, C>(p, U, stream);
+      return launch_units<16, 5, 8, C, T>(p, U, stream);
     case 32:
-      return launch_units<32, 5, 16, C>(p, U, stream);
+      return launch_units<32, 5, 16, C, T>(p, U, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -683,31 +813,45 @@ cudaError_t dispatch(const ExchangeArgs& p, cudaStream_t stream) {
 // (N + 1,) and inc_idx (2B,) the CSR site -> incident-bonds table of the
 // bonds (ops/exchange.py incidence_table); spins (K, N) of +-1; u_sel and
 // u_acc (n_steps, K), or both null and key (2,) int64 words in [0, 2^32)
-// (the Philox stream); acc_out (K,) accepted proposals per walker;
-// 1 <= H <= 512. Returns the cudaError_t of the launch (0 on success).
+// (the Philox stream); acc_out (K,) accepted proposals per walker row;
+// 1 <= H <= 512. n_beta = 1 runs the untempered instance (u_swap, swap_out
+// and n_unit unread); 1 < n_beta <= 16 the tempered one: K a multiple of
+// n_beta, n_steps a multiple of n_unit (the proposals per sweep), u_swap
+// (n_steps / n_unit, 2, K) beside u_sel, and swap_out (K,) accepted swaps
+// with each row as the lower member. Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int nqs_exchange_f32(const void* w, const void* a, const void* c, const void* bonds, const void* inc_ptr,
                                 const void* inc_idx, const void* spins_in, const void* y_in, const void* sa_in,
-                                const void* u_sel, const void* u_acc, const void* key, void* spins_out, void* y_out,
-                                void* sa_out, void* acc_out, int K, int N, int H, int B, int n_steps, void* stream) {
+                                const void* u_sel, const void* u_acc, const void* u_swap, const void* key,
+                                void* spins_out, void* y_out, void* sa_out, void* acc_out, void* swap_out, int K,
+                                int N, int H, int B, int n_steps, int n_unit, int n_beta, void* stream) {
   if (K <= 0 || N <= 0 || B <= 0 || B > N || n_steps <= 0 || H < 1 || H > 32 * nqs::kMaxR)
     return cudaErrorInvalidValue;
   if ((u_sel == nullptr) != (u_acc == nullptr) || (u_sel == nullptr && key == nullptr)) return cudaErrorInvalidValue;
-  const ExchangeArgs p{static_cast<const float2*>(w),     static_cast<const float2*>(a),
-                       static_cast<const float2*>(c),     static_cast<const int*>(bonds),
-                       static_cast<const int*>(inc_ptr),  static_cast<const int*>(inc_idx),
+  if (n_beta < 1 || n_beta > nqs::kMaxNBeta || K % n_beta != 0) return cudaErrorInvalidValue;
+  const bool T = n_beta > 1;
+  if (T && (n_unit < 1 || n_steps % n_unit != 0 || swap_out == nullptr || (u_sel != nullptr && u_swap == nullptr)))
+    return cudaErrorInvalidValue;
+  const ExchangeArgs p{static_cast<const float2*>(w),       static_cast<const float2*>(a),
+                       static_cast<const float2*>(c),       static_cast<const int*>(bonds),
+                       static_cast<const int*>(inc_ptr),    static_cast<const int*>(inc_idx),
                        static_cast<const float*>(spins_in), static_cast<const float2*>(y_in),
-                       static_cast<const float2*>(sa_in), static_cast<const float*>(u_sel),
-                       static_cast<const float*>(u_acc),  static_cast<const long long*>(key),
-                       static_cast<float*>(spins_out),    static_cast<float2*>(y_out),
-                       static_cast<float2*>(sa_out),      static_cast<int*>(acc_out),
-                       K, N, H, B, n_steps};
+                       static_cast<const float2*>(sa_in),   static_cast<const float*>(u_sel),
+                       static_cast<const float*>(u_acc),    static_cast<const float*>(u_swap),
+                       static_cast<const long long*>(key),  static_cast<float*>(spins_out),
+                       static_cast<float2*>(y_out),         static_cast<float2*>(sa_out),
+                       static_cast<int*>(acc_out),          static_cast<int*>(swap_out),
+                       K, N, H, B, n_steps, n_unit, n_beta};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return c != nullptr ? dispatch<true>(p, s) : dispatch<false>(p, s);
+  if (T) return c != nullptr ? dispatch<true, true>(p, s) : dispatch<false, true>(p, s);
+  return c != nullptr ? dispatch<true, false>(p, s) : dispatch<false, false>(p, s);
 }
 
 // The lanes per walker of nqs_exchange_f32 at H hidden units.
 extern "C" int nqs_exchange_lanes(int H) { return lanes_for(H); }
 
-// Whether nqs_exchange_f32 reads W from shared memory at this shape (1) or
-// through L1/L2 (0).
-extern "C" int nqs_exchange_stages_w(int N, int H, int B, int has_c) { return stages(N, H, B, has_c != 0) ? 1 : 0; }
+// Whether nqs_exchange_f32 reads W from shared memory at this shape and
+// replica count (1) or through L1/L2 (0).
+extern "C" int nqs_exchange_stages_w(int N, int H, int B, int has_c, int n_beta) {
+  return stages(N, H, B, has_c != 0, n_beta) ? 1 : 0;
+}

@@ -1,7 +1,8 @@
 // Device code shared by the log-cosh kernels (float32, Hopper): the
 // log-cosh arithmetic, warp sums, the hidden-unit layout, the Philox4x32-10
-// draws, the Metropolis sweep of one walker with its replica-exchange phases,
-// and the off-diagonal local-energy sum of one walker. sweep.cu, energy.cu and
+// draws, the replica-exchange pairs and swap uniforms, the Metropolis sweep
+// of one walker with its replica-exchange phases, and the off-diagonal
+// local-energy sum of one walker. sweep.cu, energy.cu and
 // sweep_energy.cu run the same functions, so the fused kernel makes the
 // decisions and sums of the two kernels it fuses with the same arithmetic;
 // exchange.cu runs the arithmetic and the Philox generator with a layout of
@@ -222,6 +223,31 @@ __device__ __forceinline__ unsigned word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+// ---- The replica-exchange phases (sweep.cu, and exchange.cu's tempered
+// instance) ----
+
+// Counter word 3 of the swap uniforms' Philox stream (ops/rng.py SWAP_STREAM).
+constexpr unsigned kSwapStream = 1;
+
+// The lower row of the pair that walker row `row` belongs to in the swap
+// phase of this parity (pairs of rows (r, r+1) with r of this parity, r =
+// row % n_beta); -1 where the row sits the phase out.
+__device__ __forceinline__ int swap_lower(int row, int n_beta, int parity) {
+  const int r = row % n_beta;
+  if (((r - parity) & 1) == 0) return r >= parity && r + 1 < n_beta ? row : -1;
+  return r > parity ? row - 1 : -1;
+}
+
+// The swap uniform of sweep s, parity `parity` and lower row `lower` on the
+// Philox stream: word (2s + parity) % 4 of philox(counter ((2s + parity) / 4,
+// lower, 0, kSwapStream), key), as ops/rng.py philox_uniforms makes it.
+__device__ __forceinline__ float swap_uniform(uint2 key, int s, int parity, int lower) {
+  const int tt = 2 * s + parity;
+  const uint4 b = philox4x32_10(make_uint4(static_cast<unsigned>(tt >> 2), static_cast<unsigned>(lower), 0u, kSwapStream),
+                                key);
+  return bits_uniform(word(b, tt & 3));
+}
+
 // Copy c (H,) into the block's shared s_c, zero-padded to 32*R values, and
 // synchronise the block. Every thread of the block must call this.
 template <int R>
@@ -318,10 +344,8 @@ struct FlipDraws {
 
   // The swap uniform of sweep s, parity `parity`, lower row `lower`.
   __device__ __forceinline__ float swap(const SweepArgs& p, int s, int parity, int lower) const {
-    const int tt = 2 * s + parity;
-    if (p.u) return __ldg(p.u_swap + (size_t)tt * p.K + lower);
-    const uint4 b = philox4x32_10(make_uint4(static_cast<unsigned>(tt >> 2), static_cast<unsigned>(lower), 0u, 1u), key);
-    return bits_uniform(word(b, tt & 3));
+    if (p.u) return __ldg(p.u_swap + (size_t)(2 * s + parity) * p.K + lower);
+    return swap_uniform(key, s, parity, lower);
   }
 };
 
@@ -348,13 +372,7 @@ __device__ __forceinline__ void swap_phase(const SweepArgs& p, const FlipDraws& 
   if (active && lane == 0) buf[row - base] = ln0;
   __syncthreads();  // every warp of the block, idle ones too
   if (!active) return;
-  const int r = row % p.n_beta;
-  int lower = -1;
-  if (((r - parity) & 1) == 0) {
-    if (r >= parity && r + 1 < p.n_beta) lower = row;
-  } else if (r > parity) {
-    lower = row - 1;
-  }
+  const int lower = swap_lower(row, p.n_beta, parity);
   if (lower < 0) return;
   const float dbeta = 1.0f / static_cast<float>(p.n_beta);
   const float dln = buf[lower + 1 - base] - buf[lower - base];

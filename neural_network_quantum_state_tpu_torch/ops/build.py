@@ -22,11 +22,12 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-KERNELS = ("sweep", "energy", "exchange", "sweep_energy")
+KERNELS = ("sweep", "energy", "exchange", "sweep_energy", "chain_rate")
 # The kernels instantiate R = ceil(H/32) = 1..16 words of hidden units per
 # lane and mask the tail, so they take any 1 <= H <= MAX_HIDDEN; sweep,
 # energy and exchange do so once without and once with output weights c, and
-# the sweep and the megakernel once for n_beta = 1 and once for n_beta > 1.
+# the sweep, the megakernel and the exchange once for n_beta = 1 and once for
+# n_beta > 1. chain_rate is the benchmark's probe of their arithmetic.
 MAX_HIDDEN = 512
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

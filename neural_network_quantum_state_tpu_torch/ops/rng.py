@@ -83,7 +83,8 @@ def philox_uniforms(key: torch.Tensor, stream: int, shape: tuple[int, int]) -> t
     (bits >> 8) * 2^-24 (the TPU kernel's conversion). ``stream`` is
     FLIP_STREAM or SWAP_STREAM, which the sweep kernel draws (csrc/rbm.cuh
     ``FlipDraws``), or SELECT_STREAM or ACCEPT_STREAM, which the exchange
-    kernel draws (csrc/exchange.cu ``ExchangeDraws``)."""
+    kernel draws (csrc/exchange.cu ``ExchangeDraws``; its tempered instance
+    also draws SWAP_STREAM)."""
     n_rows, k = shape
     dev = key.device
     blocks = torch.arange((n_rows + 3) // 4, dtype=torch.int64, device=dev)[:, None]
@@ -121,7 +122,8 @@ class ExchangeDraws(NamedTuple):
     """The uniforms of one exchange call, drawn on the chip: ``n_steps`` rows
     of selection and of acceptance uniforms, on the selection and acceptance
     streams of a fresh key (one per call, which alone keeps the calls'
-    streams apart)."""
+    streams apart), and with n_beta > 1 the swap uniforms of each sweep on
+    the swap stream, in the layout of ``PhiloxDraws.swaps``."""
 
     key: torch.Tensor  # (2,) int64 words in [0, 2^32), on the walkers' device
     n_steps: int
@@ -133,3 +135,7 @@ class ExchangeDraws(NamedTuple):
     def acceptance(self, k: int) -> torch.Tensor:
         """(n_steps, K) acceptance uniforms."""
         return philox_uniforms(self.key, ACCEPT_STREAM, (self.n_steps, k))
+
+    def swaps(self, n_sweeps: int, k: int) -> torch.Tensor:
+        """(n_sweeps, 2, K) swap uniforms (even-pair, then odd-pair phase)."""
+        return philox_uniforms(self.key, SWAP_STREAM, (2 * n_sweeps, k)).reshape(n_sweeps, 2, k)

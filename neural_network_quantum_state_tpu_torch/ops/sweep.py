@@ -94,24 +94,26 @@ def n_rounds(uniforms) -> int:
     return uniforms.n_rounds if isinstance(uniforms, PhiloxDraws) else uniforms.shape[0]
 
 
-def _check_tempering(k: int, n_steps: int, n_sites: int, n_beta: int, swap_uniforms, philox: bool = False) -> int:
-    """Validate a call's replica layout; returns the number of sweeps. With
-    Philox draws the swap uniforms come from the same stream, so the caller
-    passes none."""
+def check_ladder(what: str, k: int, n_steps: int, sweep_len: int, n_beta: int, swap_uniforms,
+                 philox: bool = False) -> int:
+    """Validate a call's replica layout; returns the number of sweeps (of
+    ``sweep_len`` rounds; one for n_beta = 1). With Philox draws the swap
+    uniforms come from the same stream, so the caller passes none. ``what``
+    names the caller in the errors (the sweep, the exchange)."""
     if n_beta < 1 or k % n_beta != 0:
-        raise ValueError(f"sweep: n_walkers ({k}) must be a multiple of n_beta ({n_beta})")
+        raise ValueError(f"{what}: n_walkers ({k}) must be a multiple of n_beta ({n_beta})")
     if philox and swap_uniforms is not None:
-        raise ValueError("sweep: with Philox draws the swap uniforms come from the stream; pass none")
+        raise ValueError(f"{what}: with Philox draws the swap uniforms come from the stream; pass none")
     if n_beta == 1:
         return 1
-    if n_steps % n_sites != 0:
-        raise ValueError(f"sweep: with n_beta > 1 the rounds ({n_steps}) must be whole sweeps of {n_sites}")
-    n_sweeps = n_steps // n_sites
+    if n_steps % sweep_len != 0:
+        raise ValueError(f"{what}: with n_beta > 1 the rounds ({n_steps}) must be whole sweeps of {sweep_len}")
+    n_sweeps = n_steps // sweep_len
     if philox:
         return n_sweeps
     if swap_uniforms is None or tuple(swap_uniforms.shape) != (n_sweeps, 2, k):
         got = None if swap_uniforms is None else tuple(swap_uniforms.shape)
-        raise ValueError(f"sweep: n_beta > 1 needs swap uniforms of shape {(n_sweeps, 2, k)}, got {got}")
+        raise ValueError(f"{what}: n_beta > 1 needs swap uniforms of shape {(n_sweeps, 2, k)}, got {got}")
     return n_sweeps
 
 
@@ -128,7 +130,7 @@ def sweep_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniform
     sites = [int(s) for s in torch.as_tensor(schedule).tolist()]
     k, n_steps = lnpsi.shape[0], n_rounds(uniforms)
     philox = isinstance(uniforms, PhiloxDraws)
-    n_sweeps = _check_tempering(k, n_steps, len(sites), n_beta, swap_uniforms, philox)
+    n_sweeps = check_ladder("sweep", k, n_steps, len(sites), n_beta, swap_uniforms, philox)
     if philox:
         uniforms, swap_uniforms = uniforms.flips(k), uniforms.swaps(n_sweeps, k) if n_beta > 1 else None
     rounds = n_steps // n_sweeps
@@ -175,7 +177,7 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
     if not 0 < n_steps <= MAX_ROUNDS:
         raise ValueError(f"{kernel} kernel: {n_steps} proposal rounds, not in [1, {MAX_ROUNDS}]")
     philox = isinstance(uniforms, PhiloxDraws)
-    n_sweeps = _check_tempering(k, n_steps, sched.shape[0], n_beta, swap_uniforms, philox)
+    n_sweeps = check_ladder(kernel, k, n_steps, sched.shape[0], n_beta, swap_uniforms, philox)
     tensors, weights = engine.kernel_weights(work)
     tensors |= {
         "spins": (cache.spins, torch.float32, (k, n)),

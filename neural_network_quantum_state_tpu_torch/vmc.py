@@ -11,15 +11,16 @@ a Python loop. The sampler is chosen once, from the Hamiltonian's
 ``sampler_kind`` and ``n_beta``: single-site Metropolis sweeps over its
 schedule, the same with replica exchange for n_beta > 1 (parallel
 tempering; the estimators read the beta = 1 replicas ``[::n_beta]``), or
-Kawasaki pair-exchange sweeps over its bonds (the Hubbard chain);
+Kawasaki pair-exchange sweeps over its bonds (the Hubbard chain), tempered
+the same way for n_beta > 1;
 ``block_moves_per_sweep`` appends symmetric block flips to the flip
 samplers. On the card each sampler call (a warm-up, a step's sweeps) is
 one launch of the sweep or the exchange kernel, and the spin chains'
 off-diagonal local energy one launch of the energy kernel (its float32
 instance, or its float64 one for ``energy_dtype=torch.float64``); a
 float64 machine on the card raises. On the CPU all of them run as plain
-PyTorch. A run whose walkers collapse escalates to tempering, or reseeds,
-as in the JAX package.
+PyTorch. A run whose walkers collapse escalates to tempering (tempered
+exchange for an exchange Hamiltonian), or reseeds, as in the JAX package.
 
 The solvers are the JAX package's: matrix-free CG (``cg``), the dense
 ``lu``/``cholesky``/``svd`` solves (with ``n_accumulations`` sampling
@@ -28,8 +29,8 @@ with a MINRES-QLP fallback); ``precond_ema`` preconditions CG with a
 moving average of diag(S). ``energy_dtype`` widens the estimators:
 float64 recomputes ln psi, the local energy and O_k in float64;
 "compensated" takes the float32 log-cosh differences and sums them in
-float64 (ising family). Meshes and tempered exchange are not ported and
-raise NotImplementedError; no option is ignored.
+float64 (ising family). Meshes are not ported and raise
+NotImplementedError; no option is ignored.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ class VMCConfig:
     cg_tol: float = 1e-5
     cg_max_iters: int = 1000
     rsd_cutoff: Optional[float] = None  # early stop
-    n_beta: int = 1  # >1: parallel tempering (flip Hamiltonians; at most 16 on the card)
+    n_beta: int = 1  # >1: parallel tempering (tempered exchange for the Hubbard chain; at most 16 on the card)
     # Trust region on ||S^-1 F||: near-singular solves on a collapsed walker
     # distribution emit huge steps that can pin the sampler. None disables.
     max_dx_norm: Optional[float] = 1.0
@@ -91,7 +92,7 @@ class VMCConfig:
     # sampler (the card always runs the sweep or the exchange kernel), but,
     # as in JAX, it chooses the collapse remediation of an exchange
     # Hamiltonian: True reseeds in the particle sector; False escalates to
-    # tempered exchange, which is not ported and raises when due.
+    # tempered exchange. It refuses n_beta > 1 with an exchange Hamiltonian.
     use_fused_sweeps: bool = False
     # >0: this many symmetric block-flip proposals per sweep after the
     # sampler's sweeps (metropolis.block_flip_moves; flip Hamiltonians only)
@@ -170,15 +171,10 @@ class VMC:
         if config.solve_dtype not in (None, torch.float32, torch.float64):
             raise ValueError(f"solve_dtype must be None, torch.float32 or torch.float64, got {config.solve_dtype!r}")
         exchange = hamiltonian.sampler_kind == "exchange"
-        if exchange and config.n_beta > 1:
-            if config.use_fused_sweeps:
-                raise ValueError(
-                    "use_fused_sweeps does not implement tempered exchange; "
-                    "set use_fused_sweeps=False with n_beta > 1"
-                )
-            raise NotImplementedError(
-                "n_beta > 1 with an exchange Hamiltonian: tempered exchange "
-                "(kawasaki.tempered_exchange_sweeps) is not ported yet"
+        if exchange and config.n_beta > 1 and config.use_fused_sweeps:
+            raise ValueError(
+                "use_fused_sweeps does not implement tempered exchange; "
+                "set use_fused_sweeps=False with n_beta > 1"
             )
         if exchange and config.block_moves_per_sweep > 0:
             raise ValueError(
@@ -191,7 +187,7 @@ class VMC:
         if device.type != "cpu" and machine.dtype != torch.float32:
             raise NotImplementedError(f"{machine.dtype} on {device}: only float32 kernels are ported (use device='cpu')")
         if device.type != "cpu" and config.n_beta > MAX_NBETA:
-            raise ValueError(f"n_beta={config.n_beta} on {device}: the sweep kernel's ladder takes at most {MAX_NBETA}")
+            raise ValueError(f"n_beta={config.n_beta} on {device}: the kernels' ladder takes at most {MAX_NBETA}")
         if (wants_large_v_mixed_precision(machine, config.solver)
                 and config.solve_dtype is None and config.energy_dtype is None):
             config = dataclasses.replace(config, solve_dtype=torch.float64)
@@ -202,8 +198,11 @@ class VMC:
         self.schedule = torch.as_tensor(hamiltonian.schedule(), dtype=torch.int32, device=device)
         if exchange:
             self.bonds = torch.as_tensor(hamiltonian.bonds, dtype=torch.int32, device=device)
-            n_unit = hamiltonian.n_unit_steps
-            sweep = lambda work, state, n: kawasaki.exchange_sweeps(work, state, self.bonds, n, n_unit)
+            n_unit, nb = hamiltonian.n_unit_steps, config.n_beta
+            if nb > 1:  # tempered exchange: the in-kernel ladder on the card
+                sweep = lambda work, state, n: kawasaki.tempered_exchange_sweeps(work, state, self.bonds, n, n_unit, nb)
+            else:
+                sweep = lambda work, state, n: kawasaki.exchange_sweeps(work, state, self.bonds, n, n_unit)
         elif config.n_beta > 1:
             sweep = lambda work, state, n: tempering.tempering_sweeps(work, state, self.schedule, n, config.n_beta)
         else:
@@ -368,23 +367,25 @@ class VMC:
         if cfg.n_beta > 1 or cfg.collapse_escalate_nbeta < 0 or cfg.collapse_escalate_nbeta == 1:
             return False  # already tempered / escalation disabled
         if self.hamiltonian.sampler_kind == "exchange" and cfg.use_fused_sweeps:
-            return False  # the exchange kernel has no tempered ladder: reseed in the sector
+            return False  # as in JAX: the fused exchange has no tempered ladder, reseed in the sector
         if cfg.collapse_escalate_nbeta == 0:
             return any(cfg.n_walkers % nb == 0 for nb in _NBETA_CANDIDATES)
         return cfg.n_walkers % cfg.collapse_escalate_nbeta == 0
 
     def _resolve_escalation_nbeta(self, params: Params, state: metropolis.MCState) -> int:
         """collapse_escalate_nbeta, or - when 0 - the measured-acceptance
-        choice of tempering.tune_n_beta on the live, collapsed ensemble."""
+        choice on the live, collapsed ensemble: tempering.tune_n_beta, or for
+        an exchange Hamiltonian kawasaki.tune_n_beta_exchange (a flip probe
+        would break the particle sectors)."""
         cfg = self.config
         if cfg.collapse_escalate_nbeta > 1:
             return cfg.collapse_escalate_nbeta
+        work = self.machine.make_work(params)
         if self.hamiltonian.sampler_kind == "exchange":
-            raise NotImplementedError(
-                "collapse_escalate_nbeta=0 with an exchange Hamiltonian: the tempered-exchange "
-                "probe (kawasaki.tune_n_beta_exchange) is not ported yet"
-            )
-        nb, diags = tempering.tune_n_beta(self.machine.make_work(params), state, self.schedule, candidates=_NBETA_CANDIDATES)
+            nb, diags = kawasaki.tune_n_beta_exchange(work, state, self.bonds, self.hamiltonian.n_unit_steps,
+                                                      candidates=_NBETA_CANDIDATES)
+        else:
+            nb, diags = tempering.tune_n_beta(work, state, self.schedule, candidates=_NBETA_CANDIDATES)
         for cand, d in diags.items():
             print(f"#   n_beta={cand}: swap/pair = "
                   + "/".join(f"{a:.2f}" for a in d["swap"])

@@ -14,6 +14,7 @@ import torch
 from neural_network_quantum_state_tpu_torch import VMC, VMCConfig
 from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain, TFIChain, TFICheckerBoard, TFITRI
 from neural_network_quantum_state_tpu_torch.models import FFNN, FFNNTrSymm, RBM, RBMSfSymm, RBMTrSymm, RBMZ2PrSymm
+from neural_network_quantum_state_tpu_torch.ops import chain_rate as chain_ops
 from neural_network_quantum_state_tpu_torch.ops import energy, engine
 from neural_network_quantum_state_tpu_torch.ops import exchange as exchange_ops
 from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
@@ -21,6 +22,7 @@ from neural_network_quantum_state_tpu_torch.ops import sweep_energy
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
 from neural_network_quantum_state_tpu_torch.ops.rng import ExchangeDraws, PhiloxDraws, make_generator, philox_key
+from neural_network_quantum_state_tpu_torch.optim import SRStats
 from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard, init_state, kawasaki, metropolis, tempering
 
 
@@ -120,9 +122,10 @@ def test_exchange_kernel_matches_plain_on_card(cuda, per_flavor_rings, l, k):
     u_sel = torch.rand((n_sweeps * n, k), generator=g, device=cuda)
     u_acc = torch.rand((n_sweeps * n, k), generator=g, device=cuda)
     launches = exchange_ops.exchange_cuda.launches
-    ck, lk, acc_k = exchange_ops.exchange_steps(work, cache, ln, bonds, u_sel, u_acc)
+    ck, lk, counts_k = exchange_ops.exchange_steps(work, cache, ln, bonds, u_sel, u_acc)
     cp, lp, acc_p = exchange_ops.exchange_plain(work, cache, ln, bonds, u_sel, u_acc)
     assert exchange_ops.exchange_cuda.launches == launches + 1
+    acc_k = counts_k[0].sum()
     same = (ck.spins == cp.spins).all(dim=1)
     assert float(same.double().mean()) >= 1.0 - 1e-2
     torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=1e-5)
@@ -161,9 +164,10 @@ def test_exchange_kernel_matches_plain_on_philox_stream(cuda, per_flavor_rings, 
     cache, ln = engine.full_forward(work, ham.init_spins(g, k))
     draws = ExchangeDraws(philox_key(g), n_sweeps * n)
     launches = exchange_ops.exchange_cuda.launches
-    ck, lk, acc_k = exchange_ops.exchange_steps(work, cache, ln, bonds, draws)
+    ck, lk, counts_k = exchange_ops.exchange_steps(work, cache, ln, bonds, draws)
     cp, lp, acc_p = exchange_ops.exchange_plain(work, cache, ln, bonds, draws)
     assert exchange_ops.exchange_cuda.launches == launches + 1
+    acc_k = counts_k[0].sum()
     same = _agreeing(ck, cp, 1e-2)
     torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=1e-5)
     torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=1e-4)
@@ -232,12 +236,12 @@ def test_exchange_kernel_keeps_words_past_its_registers(cuda):
     cache, ln = engine.full_forward(work, torch.where(torch.rand((k, n), generator=g, device=cuda) < 0.5, -1.0, 1.0))
     u_sel, u_acc = torch.rand((n, k), generator=g, device=cuda), torch.rand((n, k), generator=g, device=cuda)
     for args in ((ExchangeDraws(philox_key(g), 2 * n),), (u_sel, u_acc)):
-        ck, lk, acc = exchange_ops.exchange_cuda(work, cache, bonds, *args)
+        ck, lk, counts = exchange_ops.exchange_cuda(work, cache, bonds, *args)
         cp, lp, _ = exchange_ops.exchange_plain(work, cache, ln, bonds, *args)
         same = (ck.spins == cp.spins).all(dim=1)
         assert float(same.double().mean()) >= 1.0 - 3e-2
         torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
-        assert bool(((ck.spins > 0).sum(1) == (cache.spins > 0).sum(1)).all()) and float(acc) > 0
+        assert bool(((ck.spins > 0).sum(1) == (cache.spins > 0).sum(1)).all()) and float(counts[0].sum()) > 0
 
 
 @pytest.mark.gpu
@@ -539,12 +543,12 @@ def test_has_c_kernels_match_plain_on_card(cuda, h):
     bonds = torch.as_tensor(ham.bonds, device=cuda)
     hcache, hln = engine.full_forward(work, ham.init_spins(g, k))
     u_sel, u_acc = torch.rand((2 * n, k), generator=g, device=cuda), torch.rand((2 * n, k), generator=g, device=cuda)
-    xk, xlk, acc = exchange_ops.exchange_steps(work, hcache, hln, bonds, u_sel, u_acc)
+    xk, xlk, counts = exchange_ops.exchange_steps(work, hcache, hln, bonds, u_sel, u_acc)
     xp, xlp, _ = exchange_ops.exchange_plain(work, hcache, hln, bonds, u_sel, u_acc)
     same = _agreeing(xk, xp, 2e-2)
     torch.testing.assert_close(xk.y[same], xp.y[same], rtol=0, atol=2e-5)
     torch.testing.assert_close(xlk[same], xlp[same], rtol=0, atol=2e-4)
-    assert 0 < float(acc) < 2 * n * k
+    assert 0 < float(counts[0].sum()) < 2 * n * k and not counts[1].any()
 
 
 @pytest.mark.gpu
@@ -772,3 +776,118 @@ def test_vmc_solvers_and_modes_run_through_the_kernels_on_card(cuda, change):
     assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain0
     if "cg_max_iters" in change:  # CG capped at 2 iterations, unconverged: auto falls back to MINRES-QLP
         assert vmc.n_qlp_fallbacks > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True])
+@pytest.mark.parametrize("n_beta", [4, 8])
+@pytest.mark.parametrize("h", [16, 80, 384])
+def test_tempered_exchange_kernel_matches_plain_on_card(cuda, h, n_beta, has_c):
+    """The exchange kernel's tempered instance (one launch: sweeps of N
+    proposals at the rows' betas, each followed by its two swap phases)
+    against the plain tempered exchange, at H = 16, 80 (W or the rotation's
+    table in shared memory) and 384 (through L1): two sweeps on the Philox
+    stream and one on caller uniforms, the same decisions but for near-ties
+    (and near-cut walkers), y and ln psi where they agree, the per-row
+    counts, every replica in its sector, y consistent with the spins."""
+    n, k = 32, 384
+    work, _, _, g = _scaled_ffnn(cuda, n, h, 8, 90 + h) if has_c else _scaled_rbm(cuda, n, h, 8, 90 + h)
+    ham = HubbardChain(n_sites=n, n_up=3, n_down=4)
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    cache, ln = engine.full_forward(work, ham.init_spins(g, k))
+    n_unit = ham.n_unit_steps
+    draws = ExchangeDraws(philox_key(g), 2 * n_unit)
+    uniforms = (torch.rand((n_unit, k), generator=g, device=cuda), torch.rand((n_unit, k), generator=g, device=cuda))
+    swaps = torch.rand((1, 2, k), generator=g, device=cuda)
+    for args, sw, n_sweeps in (((draws, None), None, 2), (uniforms, swaps, 1)):
+        kw = {"n_beta": n_beta, "n_unit": n_unit, "swap_uniforms": sw}
+        fn = exchange_ops.exchange_cuda
+        launches = (fn.launches, fn.launches_tempered, fn.launches_tempered_c)
+        ck, lk, rows_k = exchange_ops.exchange_steps(work, cache, ln, bonds, *args, **kw)
+        assert (fn.launches, fn.launches_tempered, fn.launches_tempered_c) == (
+            launches[0] + 1, launches[1] + 1, launches[2] + int(has_c))
+        cp, lp, rows_p = exchange_ops.tempered_exchange_plain(work, cache, ln, bonds, *args, **kw)
+        same = _agreeing(ck, cp, 2e-2)
+        torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=2e-5)
+        torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
+        if bool((ck.spins == cp.spins).all()):
+            assert torch.equal(rows_k, rows_p)
+        assert 0 < float(rows_k[1].sum()) < n_sweeps * (k // n_beta) * (n_beta - 1)
+        up, dn = _sector_counts(ck.spins, n // 2)
+        assert bool((up == 3).all()) and bool((dn == 4).all())
+        fresh, _ = engine.full_forward(work, ck.spins)
+        torch.testing.assert_close(ck.y, fresh.y, rtol=0, atol=2e-5)
+    assert exchange_ops.stages_w(n, h, bonds.shape[0], has_c, n_beta) == (h < 384)
+
+
+@pytest.mark.gpu
+def test_tempered_exchange_sweeps_make_one_launch_per_call_on_card(cuda):
+    """kawasaki.tempered_exchange_sweeps on the card: one launch of the
+    tempered instance for all the sweeps of a call on one key, the plain
+    tempered exchange's decisions on the same stream, the proposals counted;
+    a ladder above the kernel's 16 replicas is refused before any launch."""
+    l, k, n_sweeps, n_beta = 8, 256, 7, 4
+    ham = HubbardChain(n_sites=2 * l, n_up=3, n_down=3)
+    work, _, _, g = _scaled_rbm(cuda, 2 * l, 32, 8, 78, scale=10.0)
+    bonds = torch.as_tensor(ham.bonds, dtype=torch.int32, device=cuda)
+    state = init_state(work, ham.init_spins(g, k), make_generator(79, cuda))
+    key = philox_key(make_generator(79, cuda))  # the key the call draws
+    launches, plain = exchange_ops.exchange_cuda.launches_tempered, exchange_ops.exchange_plain.calls
+    got = kawasaki.tempered_exchange_sweeps(work, state, bonds, n_sweeps, ham.n_unit_steps, n_beta)
+    assert exchange_ops.exchange_cuda.launches_tempered == launches + 1 and exchange_ops.exchange_plain.calls == plain
+    assert float(got.n_proposed) == n_sweeps * ham.n_unit_steps * k
+    cp, lp, acc_p = exchange_ops.tempered_exchange_plain(
+        work, state.cache, state.lnpsi, bonds, ExchangeDraws(key, n_sweeps * ham.n_unit_steps), None, n_beta,
+        ham.n_unit_steps)
+    same = (got.cache.spins == cp.spins).all(dim=1)
+    assert float(same.double().mean()) >= 1.0 - 2e-2
+    torch.testing.assert_close(got.lnpsi[same], lp[same], rtol=0, atol=1e-4)
+    assert abs(float(got.n_accepted) - float(acc_p[0].sum())) <= 2e-2 * n_sweeps * ham.n_unit_steps * k
+    with pytest.raises(ValueError, match="ladder"):
+        kawasaki.tempered_exchange_sweeps(work, init_state(work, ham.init_spins(g, 32 * 8), g), bonds, 1,
+                                          ham.n_unit_steps, 32)
+    assert exchange_ops.exchange_cuda.launches_tempered == launches + 1
+
+
+@pytest.mark.gpu
+def test_collapsed_hubbard_run_escalates_on_card(cuda):
+    """A collapsed Hubbard run on the card (the SR step stubbed to report
+    rsd 0) escalates to tempered exchange with n_beta = 4 and finishes its
+    steps through the tempered instance, one launch per step, every replica
+    in its sector, finite energies."""
+    l, k = 4, 256
+    vmc = VMC(RBM(n_inputs=2 * l, n_hiddens=16, dtype=torch.float32), HubbardChain(n_sites=2 * l, n_up=2, n_down=1),
+              VMCConfig(n_walkers=k, seed=1, collapse_patience=2, collapse_requil_sweeps=0), device=cuda)
+    assert vmc._can_escalate()
+    vmc.step = lambda params, state, step_idx: (
+        params, state, SRStats(energy=torch.tensor(-1.0 + 0j), rsd=torch.tensor(0.0), cg_iters=0, lam=1.0))
+    params, state = vmc.init()
+    launches, plain = exchange_ops.exchange_cuda.launches_tempered, exchange_ops.exchange_plain.calls
+    _, state, history, _ = vmc.run(params, state, 5)
+    assert vmc.n_remediations == 1 and [h["step"] for h in history] == [0, 1, 2, 3, 4]
+    assert exchange_ops.exchange_cuda.launches_tempered == launches + 3  # the three tempered steps
+    assert exchange_ops.exchange_plain.calls == plain
+    up, dn = _sector_counts(state.cache.spins, l)
+    assert bool((up == 2).all()) and bool((dn == 1).all())
+    assert all(np.isfinite(h["energy"]) for h in history)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("body", ["sweep", "energy"])
+def test_chain_kernel_matches_plain_on_card(cuda, body):
+    """The chain-rate probe's kernel against its plain chain on bench.py's
+    inputs (2^18 elements, 32 bodies): max|kernel - plain| over both
+    outputs within 1e-5 of their largest |value|, away from the energy
+    body's branch cut (whose share stays under 1e-2); one launch counted."""
+    x, y = chain_ops.probe_inputs(1 << 18, cuda)
+    launches = chain_ops.chain_cuda.launches
+    kx, ky = chain_ops.chain_cuda(body, x, y)
+    assert chain_ops.chain_cuda.launches == launches + 1
+    px, py = chain_ops.chain_plain(body, x, y)
+    far = ~chain_ops.chain_near_cut(body, x, y)
+    got, want = torch.stack([kx, ky]), torch.stack([px, py])
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want)[:, far].abs().max() / want.abs().max()) <= 1e-5
+    assert float(far.double().mean()) >= 1.0 - 1e-2
+    assert chain_ops.chain_rate(body, n_elems=1 << 18, device=cuda) > 0.0
+

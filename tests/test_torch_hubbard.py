@@ -372,8 +372,10 @@ def test_vmc_chooses_the_exchange_sampler(monkeypatch):
     assert VMC(machine, LITFIChain(n_sites=2 * l), VMCConfig(n_walkers=k, use_fused_sweeps=True), device="cpu")._can_escalate()
     with pytest.raises(ValueError, match="particle conservation"):
         VMC(machine, ham, VMCConfig(block_moves_per_sweep=1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        VMC(machine, ham, VMCConfig(n_beta=2), device="cpu")
+    with pytest.raises(ValueError, match="use_fused_sweeps"):
+        VMC(machine, ham, VMCConfig(n_walkers=k, n_beta=2, use_fused_sweeps=True), device="cpu")
+    tempered = VMC(machine, ham, VMCConfig(n_walkers=k, n_beta=2), device="cpu")  # tempered exchange
+    assert not tempered._can_escalate()
 
     # a collapsed ensemble is reseeded with sector states
     monkeypatch.setattr("neural_network_quantum_state_tpu_torch.vmc._COLLAPSE_RSD", float("inf"))

@@ -157,7 +157,7 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     for p in build.CSRC_DIR.iterdir():
         (csrc / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", csrc)
-    assert set(build.KERNELS) == {"sweep", "energy", "exchange", "sweep_energy"}
+    assert set(build.KERNELS) == {"sweep", "energy", "exchange", "sweep_energy", "chain_rate"}
     before = {name: build._target(name) for name in build.KERNELS}
     assert before == {name: build._target(name) for name in build.KERNELS}
     (csrc / "rbm.cuh").write_text((csrc / "rbm.cuh").read_text() + "\n// edited\n")

@@ -13,7 +13,9 @@ from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LI
 from neural_network_quantum_state_tpu_torch.models import RBM, RBMTrSymm
 from neural_network_quantum_state_tpu_torch.optim import SRStats
 from neural_network_quantum_state_tpu_torch.ops import energy, engine
+from neural_network_quantum_state_tpu_torch.ops import exchange as exchange_ops
 from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
+from neural_network_quantum_state_tpu_torch.sampler import kawasaki
 
 
 def _final_energy(history, tail=15):
@@ -49,22 +51,25 @@ def test_litfi_chain_converges_to_exact(dtype):
 @pytest.mark.parametrize(
     "change",
     [
-        {"n_beta": 4, "hamiltonian": HubbardChain(n_sites=4, n_up=1, n_down=1)},
+        {"n_beta": 32, "hamiltonian": HubbardChain(n_sites=4, n_up=1, n_down=1), "dtype": torch.float32,
+         "device": "cuda", "error": ValueError},
         {"mesh": object()},
         {"device": "cuda"},
     ],
     ids=["n_beta", "mesh", "float64_on_card"],
 )
 def test_unported_options_raise(change):
-    """Options not ported raise: tempered exchange (n_beta > 1 with an
-    exchange Hamiltonian; flip Hamiltonians are ported,
-    test_tempered_vmc_runs_on_the_beta1_replicas), meshes, and a float64
-    machine on the card (only float32 sweep kernels exist)."""
-    machine = RBM(n_inputs=4, n_hiddens=4, dtype=torch.float64)
+    """What the port does not take raises: a tempered-exchange ladder above
+    the kernels' 16 replicas on the card (ValueError; tempered exchange
+    itself is ported, tests/test_torch_tempered_exchange.py), meshes, and a
+    float64 machine on the card (only float32 sweep kernels exist): the
+    last two NotImplementedError."""
+    change = dict(change)
+    machine = RBM(n_inputs=4, n_hiddens=4, dtype=change.pop("dtype", torch.float64))
     ham = change.pop("hamiltonian", TFIChain(n_sites=4))
     mesh = change.pop("mesh", None)
     device = change.pop("device", "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(change.pop("error", NotImplementedError)):
         VMC(machine, ham, dataclasses.replace(VMCConfig(), **change), mesh=mesh, device=device)
 
 
@@ -137,20 +142,24 @@ def test_config_checks_and_large_v_default():
     assert small.config.solve_dtype is None
 
 
+def _collapsed_step(params, state, step_idx):
+    """An SR step stub whose rsd is pinned at zero: a collapsed ensemble."""
+    return params, state, SRStats(energy=torch.tensor(-1.0 + 0j), rsd=torch.tensor(0.0), cg_iters=0, lam=1.0)
+
+
 def test_collapse_reseeds_or_refuses_escalation(capsys):
     """rsd pinned at zero (walker collapse) reseeds half of the walkers when
     no tempering ladder is asked for, and escalates to tempering with the
-    remaining iterations when one is; the escalation of an exchange
-    Hamiltonian to tempered exchange, not ported, raises instead of being
-    skipped."""
+    remaining iterations when one is; an exchange Hamiltonian (the Hubbard
+    chain, default use_fused_sweeps=False) escalates to tempered exchange
+    as in the JAX package and finishes its steps, every replica in its
+    particle sector (it raised before tempered exchange was ported)."""
     n, k = 8, 64
     machine = RBMTrSymm(n_inputs=n, alpha=1, dtype=torch.float64)
     ham = LITFIChain(n_sites=n, h=-0.5, j=1.0, alpha=2.0)  # Neel start
     cfg = VMCConfig(n_walkers=k, seed=1, collapse_patience=2, collapse_requil_sweeps=0)
 
-    def collapsed_step(params, state, step_idx):
-        return params, state, SRStats(energy=torch.tensor(-1.0 + 0j), rsd=torch.tensor(0.0), cg_iters=0, lam=1.0)
-
+    collapsed_step = _collapsed_step
     vmc = VMC(machine, ham, dataclasses.replace(cfg, collapse_escalate_nbeta=1), device="cpu")
     vmc.step = collapsed_step
     params, state = vmc.init()
@@ -177,8 +186,46 @@ def test_collapse_reseeds_or_refuses_escalation(capsys):
     assert hub._can_escalate()
     hub.step = collapsed_step
     params, state = hub.init()
-    with pytest.raises(NotImplementedError, match="tempered exchange"):
-        hub.run(params, state, 4)
+    calls = exchange_ops.exchange_plain.calls
+    _, state, history, _ = hub.run(params, state, 4)
+    assert "escalating to parallel tempering (n_beta=4)" in capsys.readouterr().out
+    assert hub.n_remediations == 1 and [h["step"] for h in history] == [0, 1, 2, 3]
+    assert exchange_ops.exchange_plain.calls == calls + 2  # the two tempered exchange steps, one sweep each
+    s = state.cache.spins
+    assert s.shape == (k, 4) and ((s[:, :2] > 0).sum(1) == 1).all() and ((s[:, 2:] > 0).sum(1) == 1).all()
+    assert all(np.isfinite(h["energy"]) for h in history)
+
+
+def test_collapsed_hubbard_run_tunes_its_ladder(capsys, monkeypatch):
+    """collapse_escalate_nbeta=0 with an exchange Hamiltonian measures the
+    ladder with kawasaki.tune_n_beta_exchange on the collapsed ensemble (the
+    sector-keeping probe), escalates to the n_beta it picks and finishes the
+    run in the sectors, as the JAX package's VMC."""
+    k = 64
+    hub = VMC(RBM(n_inputs=4, n_hiddens=4, dtype=torch.float64), HubbardChain(n_sites=4, n_up=1, n_down=1),
+              VMCConfig(n_walkers=k, seed=1, collapse_patience=2, collapse_requil_sweeps=0, collapse_escalate_nbeta=0),
+              device="cpu")
+    assert hub._can_escalate()
+    hub.step = _collapsed_step
+    picked = []
+    tune = kawasaki.tune_n_beta_exchange
+
+    def spy(*args, **kwargs):
+        nb, diags = tune(*args, **kwargs)
+        picked.append(nb)
+        return nb, diags
+
+    monkeypatch.setattr(kawasaki, "tune_n_beta_exchange", spy)
+    params, state = hub.init()
+    _, state, history, _ = hub.run(params, state, 5)
+    out = capsys.readouterr().out
+    assert len(picked) == 1 and k % picked[0] == 0
+    assert f"escalating to parallel tempering (n_beta={picked[0]}, auto-tuned from swap acceptance)" in out
+    assert "#   n_beta=2: swap/pair = " in out
+    assert hub.n_remediations == 1 and [h["step"] for h in history] == [0, 1, 2, 3, 4]
+    s = state.cache.spins
+    assert ((s[:, :2] > 0).sum(1) == 1).all() and ((s[:, 2:] > 0).sum(1) == 1).all()
+    assert all(np.isfinite(h["energy"]) for h in history)
 
 
 @pytest.fixture(scope="module")
