@@ -6,9 +6,10 @@
 Phases, each printed with its seconds:
 1. a CUDA device must be present (else exit 1); print its name and power limit;
 2. build the CUDA kernels with nvcc (one process per source, in parallel);
-   print each instance's registers and spill bytes, and the SASS
-   instructions per element of the sweep's, the energy and the exchange
-   kernel's hot loops;
+   print each instance's registers and spill bytes (the energy kernel's two
+   float64 instances, which serve every width, must not spill), and the
+   SASS instructions per element of the sweep's, the energy (float32 and
+   float64) and the exchange kernel's hot loops;
 3. at full width hold each kernel against its plain PyTorch version on the
    same inputs and time both with CUDA events: the sweep and energy kernels
    at the LITFI flagship's N=64, H=256, K=8192 (the sweep at n_beta = 1 and
@@ -32,8 +33,11 @@ Phases, each printed with its seconds:
    in one launch (a sampler call's mode) at full width, n_beta = 1 and 8,
    with and without c; the sweep kernel on the 8x8 square-checkerboard and
    the 9x9 three-colour schedules; the energy kernel's float64 instance
-   against its plain float64 version at full width and H = 16, 80 and 384,
-   with and without c, to a relative 1e-12; the exchange kernel's tempered
+   against its plain float64 version at full width, at H = 16, 80, 200,
+   256, 384 and 512 and on the stress inputs of
+   utils/f64_stress.py (N = 16 and 72), with and without c (the
+   walkers near the branch cut, at float64's tolerance, counted apart), to
+   a relative 1e-12; the exchange kernel's tempered
    instance (tempered exchange: n_beta > 1, its swap phases in the kernel)
    against the plain tempered exchange at the Hubbard flagship's shape, at
    n_beta = 4 and 8, with and without c (FFNN(64, 64)), on its Philox stream
@@ -186,6 +190,17 @@ MULTI_SWEEPS = 5  # the sweep kernel's one-launch comparison (a sampler call's m
 # sum, and the H100 SXM's float64 rate outside the tensor cores (NVIDIA data
 # sheet), over which its operations are bounded.
 F64_ENERGY_RTOL, PEAK_F64_FLOPS = 1e-12, 34e12
+# Its widths (every R = ceil(H/32) class: partial tiles of 32 units at 16,
+# 80 and 200, the flagship's 256, 384, the widest 512) and its stress inputs
+# (utils/f64_stress.py) at N = 16 and 72 (one pass of 64 sites
+# and two), K = 300 (a partial block); with c at most 1% of those walkers
+# near the branch cut (its float64 tolerance), counted apart.
+F64_WIDTHS, F64_STRESS_N, F64_STRESS_K, F64_STRESS_NEAR_MAX = (16, 80, 200, 256, 384, 512), (16, 72), 300, 1e-2
+# Its RBM form's own floors per (walker, site, hidden unit): 14 double
+# operations (the complex multiply-add c + u G, 8, and the product's complex
+# multiply, 6), and 16 bytes of shared memory read (G; the lanes on distinct
+# sites) at the H100 SXM's 128 bytes per clock per SM on 132 SMs at 1.98 GHz.
+F64_FORM_OPS, F64_FORM_SMEM_BYTES, PEAK_SMEM_BYTES_S = 14, 16, 132 * 128 * 1.98e9
 SOLVER_CHECK_RTOL = 1e-8  # the on-card solver cross-check (phase 9)
 # its CG and MINRES-QLP tolerances: 1e-10, held to the bar at the first
 # step's lambda and at the floor to what its residual allows there (cond(A)
@@ -349,6 +364,13 @@ SASS_FP = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FRND", "MUFU")
 # per walker, U = 8 units per lane, n_beta = 1 (T = false); its proposal loop
 # with W in shared memory.
 SASS_EXCHANGE_G, SASS_EXCHANGE_U = 8, 8
+# The energy kernel's float64 instances (one per family, every R): their unit
+# loop, 8 hidden units (kRenorm in csrc/energy.cu) of each of a lane's 2
+# sites, one 16-byte shared-memory load of the table an element;
+# double-precision opcodes.
+SASS_F64 = (("Lb0E", "energy float64 RBM"), ("Lb1E", "energy float64 has_c"))
+SASS_F64_ELEMENTS = 16
+SASS_FP64 = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX")
 
 
 def _loops(ins):
@@ -362,12 +384,17 @@ def _loops(ins):
     return out
 
 
+def _opcodes(body) -> list[str]:
+    return [re.sub(r"^@!?U?P\w+\s+", "", o).split()[0].split(".")[0] for o in body]
+
+
 def _per_element(label, body, per) -> str:
-    ops = [re.sub(r"^@!?U?P\w+\s+", "", o).split()[0].split(".")[0] for o in body]
+    ops = _opcodes(body)
     fp, mufu, ldl = sum(o in SASS_FP for o in ops), ops.count("MUFU"), ops.count("LDL")
+    fp64 = sum(o in SASS_FP64 for o in ops)
     return (f"{label}: loop of {len(body)} instructions for {per} elements: "
             f"{len(body) / per:.1f} per element, {fp / per:.1f} floating-point/MUFU "
-            f"(MUFU {mufu / per:.2f}, LDL {ldl / per:.2f})")
+            f"(MUFU {mufu / per:.2f}, LDL {ldl / per:.2f})" + (f", double {fp64 / per:.1f}" if fp64 else ""))
 
 
 def _sass_per_element(text: str) -> list[str]:
@@ -381,7 +408,12 @@ def _sass_per_element(text: str) -> list[str]:
     smallest loop with the hidden sum's log2 G butterfly shuffles, the two
     draw shuffles and 2U shared-memory loads of W) over the U units of a
     lane (LDS.64 of w, or LDS.128 of the rotation's table where a build
-    has it). Cold paths inside the loop count too (a library sincosf's slow
+    has it). The energy kernel's float64 instances: the smallest loop without
+    a barrier and with at least 16 DFMA and 16 LDS.128 (the table's loads),
+    over its 8 units x 2 sites (the library's log and atan2 with c count as
+    far as they are inlined; a loop of theirs, which loads no table, is
+    not taken for the unit loop). Cold
+    paths inside the loop count too (a library sincosf's slow
     reduction, the Philox refill, the words past the registers), so this
     bounds the issued instructions per element from above."""
     funcs = {}
@@ -413,6 +445,17 @@ def _sass_per_element(text: str) -> list[str]:
             lines.append(f"{label}: no proposal loop found")
             continue
         lines.append(_per_element(f"{label} (G={g}, U={u}, W in shared memory)", min(loops, key=len), u))
+    for flag, label in SASS_F64:
+        names = [n for n in funcs if re.search(rf"offdiag_kernel_f64I{flag}E", n)]
+        if not names:
+            continue
+        loops = [body for body in _loops(funcs[names[0]])
+                 if _opcodes(body).count("DFMA") >= SASS_F64_ELEMENTS and not any("BAR" in o for o in body)
+                 and sum("LDS.128" in o for o in body) >= SASS_F64_ELEMENTS]
+        if not loops:
+            lines.append(f"{label}: no unit loop found")
+            continue
+        lines.append(_per_element(label, min(loops, key=len), SASS_F64_ELEMENTS))
     return lines
 
 
@@ -514,7 +557,9 @@ def main() -> int:
     from neural_network_quantum_state_tpu_torch.ops.chain_rate import (
         BODIES, CHAIN_LEN, N_ELEMS, chain_cuda, chain_near_cut, chain_plain, probe_inputs,
     )
-    from neural_network_quantum_state_tpu_torch.ops.energy import offdiag_near_cut, offdiag_sum_cuda, offdiag_sum_plain
+    from neural_network_quantum_state_tpu_torch.ops.energy import (
+        offdiag_near_cut, offdiag_sum_cuda, offdiag_sum_plain,
+    )
     from neural_network_quantum_state_tpu_torch.ops.exchange import (
         exchange_cuda, exchange_plain, kernel_lanes, stages_w, tempered_exchange_plain,
     )
@@ -528,6 +573,7 @@ def main() -> int:
     from neural_network_quantum_state_tpu_torch.optim.sr import (
         LAMBDA_MIN, build_s_matrix, force_vector, lambda_schedule, sr_cg_solve, sr_dense_solve, sr_minsr_solve,
     )
+    from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_STRESS, f64_stress_inputs
 
     wrappers = {"sweep": sweep_cuda, "energy": offdiag_sum_cuda, "exchange": exchange_cuda,
                 "sweep_energy": sweeps_offdiag_cuda, "chain_rate": chain_cuda}
@@ -574,6 +620,12 @@ def main() -> int:
         print(f"built {b.name}: {b.seconds:.1f} s -> {b.path.name}; registers per instance "
               f"(R = ceil(H/32), c: with c, t: tempered): {_ptxas_summary(ptxas[b.name])}")
     _require(set(built) == set(build.KERNELS), f"built {sorted(built)}, expected {sorted(build.KERNELS)}")
+    # the energy kernel's float64 instances: one per family serves every 1 <= H <= 512
+    f64_regs = {key: v for key, v in ptxas["energy"].items() if key.endswith("d")}
+    print(f"energy float64 instances (d; cd: with c), every R = 1..16: registers {f64_regs}")
+    _require(set(f64_regs) == {"d", "cd"} or not built["energy"].seconds,
+             f"energy float64 instances {sorted(f64_regs)}, expected d and cd")
+    _require(not any("B" in v for v in f64_regs.values()), f"energy float64 instances spill: {f64_regs}")
     for line in _sass_report([built[name].path for name in ("sweep", "energy", "exchange")]):
         print(f"SASS per element: {line}")
 
@@ -876,21 +928,39 @@ def main() -> int:
         w64 = engine.Work(*(None if t is None else t.to(torch.complex128) for t in w_))
         return (w64, *engine.full_forward(w64, c_.spins.double()))
 
-    f64_cases = {"": widened(work, cache), " with c": widened(fwork, fcache)}
-    f64_err = {}
-    for label, (w64, c64, l64) in f64_cases.items():
+    def f64_vs_plain(label, w64, c64, l64, near_max):
+        """(relative error over the walkers away from the branch cut (all
+        of them without c), its absolute error, the near-cut share)."""
         got, want = offdiag_sum_cuda(w64, c64), offdiag_sum_plain(w64, c64, l64)
-        f64_err[label] = (_rel(got, want), float((got - want).abs().max()))
-    for wh in WIDTHS:
+        near = (offdiag_near_cut(w64, c64) if w64.c is not None
+                else torch.zeros(got.shape[0], dtype=torch.bool, device=dev))
+        far = ~near
+        abs_ = float((got - want)[far].abs().max())
+        rel, share = abs_ / float(want[far].abs().max()), float(near.double().mean())
+        print(f"energy float64{label}: max|kernel-plain| / max|plain| {rel:.3e} (tol {F64_ENERGY_RTOL:.0e})"
+              + (f" on the walkers away from the cut; near the cut {int(near.sum())}/{near.shape[0]} (max share "
+                 f"{near_max:.0e}); over all walkers {_rel(got, want):.3e}" if w64.c is not None else ""))
+        if not (math.isfinite(rel) and rel <= F64_ENERGY_RTOL and share <= near_max):
+            failures.append(f"energy float64{label}: relative error {rel:.3e}, near-cut share {share:.2e}")
+        return rel, abs_, share
+
+    f64_cases = {"": widened(work, cache), " with c": widened(fwork, fcache)}
+    f64_err = {label: f64_vs_plain(label, *args, SWEEP_MISMATCH_MAX) for label, args in f64_cases.items()}
+    for wh in F64_WIDTHS:
         for label, wm in (("", RBM(n_inputs=WIDTH_N, n_hiddens=wh)),
                           (" with c", FFNN(n_inputs=WIDTH_N, n_hiddens=wh, dtype=torch.float32))):
             wwork = ffnn_work(wm) if label else wm.make_work({k: PARAM_SCALE * v for k, v in wm.init_params(g).items()})
-            w64, c64, l64 = widened(wwork, engine.full_forward(wwork, random_spins(g, WIDTH_K, WIDTH_N))[0])
-            f64_err[f" H={wh}{label}"] = (_rel(offdiag_sum_cuda(w64, c64), offdiag_sum_plain(w64, c64, l64)), None)
-    for label, (rel, _) in f64_err.items():
-        print(f"energy float64{label}: max|kernel-plain| / max|plain| {rel:.3e} (tol {F64_ENERGY_RTOL:.0e})")
-        if not rel <= F64_ENERGY_RTOL:
-            failures.append(f"energy float64{label}: relative error {rel:.3e}")
+            f64_err[f" H={wh}{label}"] = f64_vs_plain(
+                f" H={wh}{label}", *widened(wwork, engine.full_forward(wwork, random_spins(g, WIDTH_K, WIDTH_N))[0]),
+                WIDTH_MISMATCH_MAX)
+    for case in F64_STRESS:
+        for sn in F64_STRESS_N:
+            for label in ("", " with c"):
+                w_, b_, a_, c_, s_ = f64_stress_inputs(case, bool(label), seed=sn, n=sn, k=F64_STRESS_K)
+                w64 = engine.Work(*(None if x is None else torch.as_tensor(x, device=dev) for x in (w_, b_, a_, c_)))
+                f64_err[f" {case}, N={sn}{label}"] = f64_vs_plain(
+                    f" {case}, N={sn}{label}", w64, *engine.full_forward(w64, torch.as_tensor(s_, device=dev)),
+                    F64_STRESS_NEAR_MAX)
 
     # the hot-math chain-rate probe against its plain chain at bench.py's size
     cx, cy = probe_inputs(N_ELEMS, dev)
@@ -978,6 +1048,10 @@ def main() -> int:
     tempered_ms = {name: _time_ms(torch, fn, 20) for name, fn in tempered_calls.items()}
     uniform_ms = {name: _time_ms(torch, fn, 20) for name, fn in uniform_calls.items()}
     sweep_multi_ms = {name: _time_ms(torch, fn, 10) for name, fn in multi_calls.items()}
+    # the float64 instance's table, which its wrapper builds on every call (as a
+    # float64 energy step does: it widens the weights anew each step)
+    f64_table_ms = {name: _time_ms(torch, lambda w=f64_cases[label][0]: engine.kernel_table_f64(w), 20)
+                    for name, label in (("energy_f64", ""), ("energy_f64_c", " with c"))}
     for name, (w_ms, p_ms) in timing.items():
         print(f"{name}: wrapper {w_ms:.4f} ms, plain {p_ms:.3f} ms per call (CUDA events; a sweep or exchange call is one sweep)")
     for body, name in zip(BODIES, ("chain_rate", "chain_rate_energy")):
@@ -988,6 +1062,8 @@ def main() -> int:
         print(f"{name} on caller uniforms: wrapper {w_ms:.4f} ms per call")
     for name, w_ms in sweep_multi_ms.items():
         print(f"{name} {MULTI_SWEEPS} sweeps in one launch: wrapper {w_ms:.4f} ms per call")
+    for name, t_ms in f64_table_ms.items():
+        print(f"{name}: its table (engine.kernel_table_f64) {t_ms:.4f} ms per call, in the wrapper's time")
     _require(not failures, "; ".join(failures))
     c64, f32b, i32b = 8, 4, 4
     # the state in and out, the weights, the counts; the sweep reads a 16-byte
@@ -1029,6 +1105,9 @@ def main() -> int:
         return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
     energy_f64_bound, energy_f64_c_bound = f64_bound(ENERGY_OPS), f64_bound(ENERGY_OPS_C)
+    # the float64 RBM instance's own form: fewer operations than the bound counts
+    energy_f64_form_floor = {"operations": 1e3 * K * N * h * F64_FORM_OPS / PEAK_F64_FLOPS,
+                             "shared_memory": 1e3 * K * N * h * F64_FORM_SMEM_BYTES / PEAK_SMEM_BYTES_S}
     # the exchange: the state in and out, the weights, the bonds and their
     # incidence table, the counts, and the 16-byte key (the training paths'
     # mode) or the two (n_unit, K) uniform blocks
@@ -1380,7 +1459,8 @@ def main() -> int:
         # the float64 instance is in energy's library, the tempered one in exchange's
         lib = {"energy_f64": "energy", "exchange_tempered": "exchange", "chain_rate_energy": "chain_rate"}.get(base, base)
         f64, tempered = base == "energy_f64", tempered or base == "exchange_tempered"
-        r = {"chain_rate": 0, "chain_rate_energy": 1}.get(base, r_of.get(lib, (h + 31) // 32))  # the probe: its body
+        # the probe: its body; the float64 instances: one for every R
+        r = "" if f64 else {"chain_rate": 0, "chain_rate_energy": 1}.get(base, r_of.get(lib, (h + 31) // 32))
         c = name.endswith("_c")
         key = (f"{r}" + ("c" if c else "") + ("t" if tempered and "t" in TEMPLATE_BOOLS[lib] else "")
                + ("m" if multi and c and "m" in TEMPLATE_BOOLS[lib] else "") + ("d" if f64 else ""))
@@ -1536,16 +1616,19 @@ def main() -> int:
         return {"launches": sum(p.get(name, 0) for p in path_launches.values()),
                 "max_abs_err": err[1], "rel_err": err[0], "tolerance": F64_ENERGY_RTOL,
                 "ms": device_ms[name] if device_ms[name] is not None else timing[name][0],
-                "kernel_ms": device_ms[name], "wrapper_ms": timing[name][0], "plain_ms": timing[name][1],
-                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None, "registers": instance(name)[1]}
+                "kernel_ms": device_ms[name], "wrapper_ms": timing[name][0], "table_ms": f64_table_ms[name],
+                "plain_ms": timing[name][1], "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+                "registers": instance(name)[1]}
 
     # the energy kernel's float64 instance (energy_dtype=float64), where the
     # JAX package runs XLA (hamiltonians/ising.py::_offdiag_sum in float64)
     kernels.append({
         "name": "energy_f64", "route": "cuda", "source": "neural_network_quantum_state_tpu_torch/csrc/energy.cu",
         "replaces": replaces["energy"], "instance_of": "energy",
-        **f64_entry("energy_f64", f64_err[""], energy_f64_bound),
+        **f64_entry("energy_f64", f64_err[""], energy_f64_bound), "form_floor_ms": energy_f64_form_floor,
         "widths_rel_err": {k.strip(): v[0] for k, v in f64_err.items() if "H=" in k},
+        "stress_rel_err": {k.strip(): v[0] for k, v in f64_err.items() if "N=" in k},
+        "near_cut_share": {k.strip(): v[2] for k, v in f64_err.items() if "with c" in k},
         "has_c": f64_entry("energy_f64_c", f64_err[" with c"], energy_f64_c_bound),
     })
 

@@ -6,9 +6,11 @@ goes to the kernel in ``csrc/energy.cu``: its float32 instances (one for the
 RBM family, c = 1, and one for the FFNN family's complex output weights),
 or for float64 tensors (``energy_dtype=torch.float64``) its float64
 instance, which the JAX package sends to XLA (its Pallas kernel is float32
-only); any other dtype raises. The kernel reads the weights through the
-table ``engine.kernel_table``. A CPU tensor goes to ``offdiag_sum_plain``,
-the chunked PyTorch computation, in any dtype.
+only); any other dtype raises. The float32 instances read the weights
+through the table ``engine.kernel_table``, the float64 instance through
+``engine.kernel_table_f64`` (e^{4 s w} and the per-site sums of w). A CPU
+tensor goes to ``offdiag_sum_plain``, the chunked PyTorch computation, in
+any dtype.
 
 Replaces ``neural_network_quantum_state_tpu/ops/pallas_energy.py``.
 """
@@ -60,7 +62,7 @@ def offdiag_near_cut(work: Work, cache: Cache) -> torch.Tensor:
 
 
 # The kernel's instances by the spins' dtype: (C symbol, complex dtype).
-INSTANCES = {torch.float32: ("nqs_offdiag_f32", torch.complex64), torch.float64: ("nqs_offdiag_f64", torch.complex128)}
+INSTANCES = {torch.float32: ("nqs_offdiag_f32", torch.complex64), torch.float64: ("nqs_offdiag_f64_tiled", torch.complex128)}
 
 
 def _kernel(symbol: str):
@@ -87,10 +89,14 @@ def offdiag_sum_cuda(work: Work, cache: Cache) -> torch.Tensor:
         "spins": (cache.spins, cache.spins.dtype, (k, n)),
         "y": (cache.y, cdt, (k, h)),
     })
-    table = engine.kernel_table(work.w)
+    if cache.spins.dtype == torch.float32:
+        ptrs = (engine.kernel_table(work.w).data_ptr(), *weights[1:])
+    else:  # its own table, and a shifted by the per-site sums of w
+        table, a_site = engine.kernel_table_f64(work)
+        ptrs = (table.data_ptr(), a_site.data_ptr(), weights[2])
     out = torch.empty(k, dtype=cdt, device=dev)
     rc = _kernel(symbol)(
-        table.data_ptr(), *weights[1:], cache.spins.data_ptr(), cache.y.data_ptr(), out.data_ptr(), k, n, h,
+        *ptrs, cache.spins.data_ptr(), cache.y.data_ptr(), out.data_ptr(), k, n, h,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(rc, f"energy kernel ({symbol})")

@@ -66,9 +66,9 @@ _table_memo: list = [None]
 
 def kernel_table(w: torch.Tensor) -> torch.Tensor:
     """(N, H, 4) real (Re w, Im w, cos 2 Im w, sin 2 Im w) of complex w, in
-    w's real dtype: the weights as the energy kernel, the megakernel and the
-    sweep's instances with c read them, one 16-byte load per (site, hidden
-    unit) in float32 (two of 16 bytes in the energy kernel's float64 instance).
+    w's real dtype: the weights as the energy kernel's float32 instances, the
+    megakernel and the sweep's instances with c read them, one 16-byte load
+    per (site, hidden unit) (the float64 instance reads ``kernel_table_f64``).
     The kernels take a flipped unit's cos/sin(Im y - 2 s Im w) by angle
     addition from cos/sin(2 Im w), as the JAX energy kernel's XLA caller
     tabulates them (``pallas_energy.py``'s c2w/s2w).
@@ -84,6 +84,46 @@ def kernel_table(w: torch.Tensor) -> torch.Tensor:
     table = torch.stack((w.real, w.imag, torch.cos(two), torch.sin(two)), dim=-1)
     _table_memo[0] = (w, w._version, table)
     return table
+
+
+# The float64 energy instance's tiles: sites of a pass, hidden units of a tile
+# (csrc/energy.cu, namespace f64).
+F64_TILE_SITES, F64_TILE_UNITS = 64, 32
+
+
+def kernel_table_f64(work: Work) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the energy kernel's float64 instance reads of `work` (complex128):
+    a flat float64 table and the per-site term a'.
+
+    The table holds e^{4 s w_ij} for s = +1 and -1 in tiles of
+    ``F64_TILE_SITES`` sites by ``F64_TILE_UNITS`` hidden units, ordered
+    [site pass][unit tile][s][unit][site] as (re, im) pairs, w zero-padded to
+    whole tiles; with output weights c, Im w follows in the same tiles
+    ([site pass][unit tile][unit][site]). a'_i = a_i + sum_j w_ij for the RBM
+    family (c None), a_i + sum_j c_j Re w_ij with c (a zero without a
+    visible bias): the per-site factors e^{-2 s w_ij} of the kernel's
+    ratios, summed. Built on every call (the float64 path widens the
+    weights anew each step, so nothing would reuse it) and apart from
+    ``kernel_table``'s memo, which float64 energy calls leave as it is.
+    """
+    w = work.w
+    n, h = w.shape
+    n_pass, n_tile = -(-n // F64_TILE_SITES), -(-h // F64_TILE_UNITS)
+    wp = torch.zeros(n_pass * F64_TILE_SITES, n_tile * F64_TILE_UNITS, dtype=w.dtype, device=w.device)
+    wp[:n, :h] = w
+
+    def tiles(x: torch.Tensor) -> torch.Tensor:  # (sites, units) -> (pass, tile, unit, site)
+        return x.reshape(n_pass, F64_TILE_SITES, n_tile, F64_TILE_UNITS).permute(0, 2, 3, 1)
+
+    g = torch.stack((tiles(torch.exp(4.0 * wp)), tiles(torch.exp(-4.0 * wp))), dim=2)
+    parts = [torch.view_as_real(g).reshape(-1)]
+    a = work.a if work.a is not None else torch.zeros(n, dtype=w.dtype, device=w.device)
+    if work.c is None:
+        a_site = a + w.sum(1)
+    else:
+        parts.append(tiles(wp.imag).reshape(-1))
+        a_site = a + w.real.to(w.dtype) @ work.c
+    return torch.cat(parts), a_site.contiguous()
 
 
 class Cache(NamedTuple):

@@ -24,6 +24,9 @@ import torch
 
 LN2 = 0.6931471805599453
 BRANCH_CUT_TOL = 1e-4  # |Arg cosh y| this close to pi counts as on the cut
+# ... in float64, where a kernel and the plain version take the phase to
+# ~1e-15 of its terms, so that only phases this close to pi may part
+BRANCH_CUT_TOL_F64 = 1e-10
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:
@@ -70,11 +73,13 @@ def logcosh(z: torch.Tensor) -> torch.Tensor:
 
 def near_branch_cut(y: torch.Tensor) -> torch.Tensor:
     """Whether any hidden unit (last axis) of y has |Arg cosh y| within
-    ``BRANCH_CUT_TOL`` of pi, reducing that axis. The phase is the principal value, so ln cosh
-    jumps by 2 pi i across the negative real axis, and ln psi by 2 pi i c_j
-    with complex output weights: two float32 evaluations of one such unit
-    may land on opposite sides."""
-    return (logcosh_ri(y.real, y.imag)[1].abs() > math.pi - BRANCH_CUT_TOL).any(-1)
+    ``BRANCH_CUT_TOL`` of pi (``BRANCH_CUT_TOL_F64`` for complex128 y),
+    reducing that axis. The phase is the principal value, so ln cosh jumps by
+    2 pi i across the negative real axis, and ln psi by 2 pi i c_j with
+    complex output weights: two evaluations of one such unit may land on
+    opposite sides."""
+    tol = BRANCH_CUT_TOL_F64 if y.dtype == torch.complex128 else BRANCH_CUT_TOL
+    return (logcosh_ri(y.real, y.imag)[1].abs() > math.pi - tol).any(-1)
 
 
 def tanh_ri(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """A kernel of this tree against other sources of it, on one NVIDIA GPU.
 
-    python3 scripts/kernel_ab.py KERNEL LABEL=CSRC_DIR [LABEL=CSRC_DIR ...]
+    python3 scripts/kernel_ab.py KERNEL [--no-gate] LABEL=CSRC_DIR [LABEL=CSRC_DIR ...]
 
-KERNEL is ``sweep`` or ``exchange``. Builds ``csrc/KERNEL.cu`` of the
+KERNEL is ``sweep``, ``exchange`` or ``energy``. Builds ``csrc/KERNEL.cu`` of the
 package ("change") and of each given source directory (for example an
 earlier commit's ``neural_network_quantum_state_tpu_torch/csrc``, unpacked
 with ``git archive``), one ``nvcc`` process per build, all started together,
@@ -19,12 +19,25 @@ instance with output weights c:
 - ``exchange``: ``ops.exchange.exchange_cuda`` at the Hubbard flagship's
   (L=32: N=64, H=64, K=4096, B=64; ``RBM(64, 64)``, ``FFNN(64, 64)``), one
   and five sweeps of 64 proposals in one launch at n_beta = 1 and at
-  n_beta = 4 (the tempered instance with its swap phases).
+  n_beta = 4 (the tempered instance with its swap phases);
+- ``energy``: ``ops.energy.offdiag_sum_cuda`` on the LITFI flagship's inputs
+  (as ``sweep``, weights scaled alike), the float32 instances and the
+  float64 ones (the same inputs in complex128).
 
-Each build is first held against the plain version on the same stream (the
-share of walkers with other decisions, or near the log-cosh's branch cut
-with c, at most 1e-3; y within 1e-5 on the others), and whether its output
-equals the "change" build's bit for bit is printed. Then each is timed by
+A case whose C function a build does not export (the float64 energy
+instances before their tiled design, ``nqs_offdiag_f64``, read another
+table) is reported as absent from that build and not run on it.
+
+Each build is first held against the plain version on the same stream
+(sweep, exchange: the share of walkers with other decisions, or near the
+log-cosh's branch cut with c, at most 1e-3; y within 1e-5 on the others;
+energy: max|kernel - plain| / max|plain| at most 1e-5 in float32, over the
+walkers away from the cut with c, and 1e-12 in float64 over all), and
+whether its output equals the "change" build's bit for bit (float64
+energy: its relative difference) is printed; with ``--no-gate`` a build
+that disagrees is reported and timed all the same (an ablation, whose
+builds have parts of the kernel taken out, ``energy_f64_ablation.py``).
+Then each is timed by
 ``torch.profiler`` (the kernel's device time, mean of 20 launches) in
 rounds that alternate the order: the builds, the builds reversed, the
 builds, the builds reversed. Prints the registers and spill bytes of the
@@ -40,24 +53,38 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 SCALE, REPS = 10.0, 20  # weights scaled as chip_smoke.py's comparisons scale them; launches per timing
 MISMATCH_MAX, Y_ATOL = 1e-3, 1e-5
+ENERGY_RTOL, F64_ENERGY_RTOL = 1e-5, 1e-12  # the energy kernel's bars (chip_smoke.py)
 
 
-def parse_registers(log: str, entry: str, flags: str) -> dict[str, str]:
-    """{instance: registers(+spill bytes)} from ``ptxas -v``: an instance is
-    its template integers joined by "x", then the letters of ``flags`` whose
-    template bools are set (sweep: c, t, m; exchange: c, t)."""
+class Spec(NamedTuple):
+    entries: dict  # {kernel name: (template flags, suffix)}, for the registers
+    shown: tuple  # the instances (their template integers) whose registers are printed
+    cases: dict  # {case: (kernel call, plain call)}
+    check: Callable  # (case, kernel output, plain output) -> (ok, text)
+    same: Callable  # (case, output, the change build's output) -> text
+
+
+def parse_registers(log: str, entries: dict[str, tuple[str, str]]) -> dict[str, str]:
+    """{instance: registers(+spill bytes)} from ``ptxas -v`` for each kernel
+    name of ``entries`` ({name: (flags, suffix)}): an instance is its template
+    integers joined by "x", the letters of ``flags`` whose template bools are
+    set (sweep: c, t, m; exchange: c, t; energy: c), then the suffix (the
+    energy kernel's float64 instances: d)."""
     regs, key, spill = {}, None, 0
     for line in log.splitlines():
-        m = re.search(rf"{entry}I((?:Li\d+E)+)((?:Lb\dE)*)E", line)
-        if "Compiling entry function" in line and m:
+        found = [(name, m) for name in entries if (m := re.search(rf"{name}I((?:Li\d+E)*)((?:Lb\dE)*)E", line))]
+        if "Compiling entry function" in line and found:
+            name, m = found[0]
+            flags, suffix = entries[name]
             ints = re.findall(r"Li(\d+)E", m.group(1))
             bools = re.findall(r"Lb(\d)E", m.group(2))
-            key, spill = "x".join(ints) + "".join(f for f, v in zip(flags, bools) if v == "1"), 0
+            key, spill = "x".join(ints) + "".join(f for f, v in zip(flags, bools) if v == "1") + suffix, 0
         elif key is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif key is not None and "registers" in line:
@@ -66,7 +93,7 @@ def parse_registers(log: str, entry: str, flags: str) -> dict[str, str]:
     return regs
 
 
-def build_all(build, kernel: str, sources: dict[str, Path], entry: str, flags: str):
+def build_all(build, kernel: str, sources: dict[str, Path], entries: dict[str, tuple[str, str]]):
     """{label: (library, {instance: registers})}, every build started at once."""
     out_dir = build.BUILD_DIR / f"{kernel}_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -80,41 +107,70 @@ def build_all(build, kernel: str, sources: dict[str, Path], entry: str, flags: s
         log, _ = proc.communicate(timeout=build.NVCC_TIMEOUT_S)
         if proc.returncode != 0:
             raise SystemExit(f"kernel_ab: nvcc failed for {label}:\n{log}")
-        built[label] = (lib, parse_registers(log, entry, flags))
+        built[label] = (lib, parse_registers(log, entries))
     return built
 
 
-def sweep_spec(torch, g):
-    """(entry, flags, instances to print, {case: (kernel call, plain call)})."""
-    from neural_network_quantum_state_tpu_torch.hamiltonians import LITFIChain
-    from neural_network_quantum_state_tpu_torch.models import FFNN, RBMTrSymm
-    from neural_network_quantum_state_tpu_torch.ops import engine
-    from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
-    from neural_network_quantum_state_tpu_torch.ops.rng import PhiloxDraws, philox_key, random_spins
+def _check_states(torch, near_branch_cut):
+    """Sweep and exchange: (ok, text) of a kernel's states against the plain
+    version's, and whether two outputs are equal to the bit."""
+    def check(case, out, want):
+        (ck, _, _), (cp, _, _) = out, want
+        differ = (ck.spins != cp.spins).any(dim=1)
+        if case.startswith("c,"):
+            differ |= near_branch_cut(ck.y) | near_branch_cut(cp.y)
+        share, dy = float(differ.double().mean()), float((ck.y[~differ] - cp.y[~differ]).abs().max())
+        return (share <= MISMATCH_MAX and dy <= Y_ATOL,
+                f"other decisions than the plain version {share:.2e} (max {MISMATCH_MAX:.0e}), "
+                f"max|dy| {dy:.2e} (tol {Y_ATOL:.0e})")
 
-    n, alpha, k = 64, 4, 8192
+    def same(case, out, ref):
+        def flat(o):
+            return (o[0].spins, o[0].y, o[0].sa, o[1], torch.as_tensor(o[2]))
+        return f"bitwise equal to change: {all(torch.equal(a, b) for a, b in zip(flat(out), flat(ref)))}"
+
+    return check, same
+
+
+def _flagship_works(torch, g):
+    """The LITFI flagship's RBMTrSymm(64, alpha=4) and FFNN(64, 256), weights
+    scaled as chip_smoke.py's comparisons scale them (the FFNN's imaginary
+    planes alone)."""
+    from neural_network_quantum_state_tpu_torch.models import FFNN, RBMTrSymm
+
+    n, alpha = 64, 4
     rbm, ffnn = RBMTrSymm(n_inputs=n, alpha=alpha, dtype=torch.float32), FFNN(n_inputs=n, n_hiddens=n * alpha,
                                                                               dtype=torch.float32)
-    works = {"rbm": rbm.make_work({k_: SCALE * v for k_, v in rbm.init_params(g).items()}),
-             "c": ffnn.make_work({k_: torch.complex(v.real, SCALE * v.imag) for k_, v in ffnn.init_params(g).items()})}
+    return {"rbm": rbm.make_work({k_: SCALE * v for k_, v in rbm.init_params(g).items()}),
+            "c": ffnn.make_work({k_: torch.complex(v.real, SCALE * v.imag) for k_, v in ffnn.init_params(g).items()})}
+
+
+def sweep_spec(torch, g):
+    from neural_network_quantum_state_tpu_torch.hamiltonians import LITFIChain
+    from neural_network_quantum_state_tpu_torch.ops import engine
+    from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
+    from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
+    from neural_network_quantum_state_tpu_torch.ops.rng import PhiloxDraws, philox_key, random_spins
+
+    n, k = 64, 8192
     sched = torch.as_tensor(LITFIChain(n_sites=n).schedule())
     cases = {}
-    for kind, work in works.items():
+    for kind, work in _flagship_works(torch, g).items():
         cache, ln = engine.full_forward(work, random_spins(g, k, n))
         for sweeps, nb in ((1, 1), (5, 1), (1, 8)):
             draws = PhiloxDraws(philox_key(g), sweeps * n)
             cases[f"{kind}, {sweeps} sweeps, n_beta={nb}"] = (
                 lambda w=work, c=cache, d=draws, b=nb: sweep_ops.sweep_cuda(w, c, sched, d, b),
                 lambda w=work, c=cache, l_=ln, d=draws, b=nb: sweep_ops.sweep_plain(w, c, l_, sched, d, b))
-    return "sweep_kernel", "ctm", ("8",), cases
+    return Spec({"sweep_kernel": ("ctm", "")}, ("8",), cases, *_check_states(torch, near_branch_cut))
 
 
 def exchange_spec(torch, g):
-    """(entry, flags, instances to print, {case: (kernel call, plain call)})."""
     from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain
     from neural_network_quantum_state_tpu_torch.models import FFNN, RBM
     from neural_network_quantum_state_tpu_torch.ops import engine
     from neural_network_quantum_state_tpu_torch.ops import exchange as exchange_ops
+    from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
     from neural_network_quantum_state_tpu_torch.ops.rng import ExchangeDraws, philox_key
 
     n, h, k = 64, 64, 4096
@@ -135,35 +191,70 @@ def exchange_spec(torch, g):
                 lambda w=work, c=cache, l_=ln, d=draws, b=nb: exchange_ops.tempered_exchange_plain(
                     w, c, l_, bonds, d, None, b, n_unit))
     # G x U of the flagship (8 x 8) and of the widest instances (32 x 16)
-    return "exchange_kernel", "ct", ("8x8", "32x16"), cases
+    return Spec({"exchange_kernel": ("ct", "")}, ("8x8", "32x16"), cases, *_check_states(torch, near_branch_cut))
 
 
-SPECS = {"sweep": sweep_spec, "exchange": exchange_spec}
+def energy_spec(torch, g):
+    from neural_network_quantum_state_tpu_torch.ops import energy, engine
+    from neural_network_quantum_state_tpu_torch.ops.rng import random_spins
+
+    n, k = 64, 8192
+    cases, near = {}, {}
+    for kind, work in _flagship_works(torch, g).items():
+        cache, ln = engine.full_forward(work, random_spins(g, k, n))
+        w64 = engine.Work(*(None if t is None else t.to(torch.complex128) for t in work))
+        c64, l64 = engine.full_forward(w64, cache.spins.double())
+        cases[f"{kind} f32"] = (lambda w=work, c=cache: energy.offdiag_sum_cuda(w, c),
+                                lambda w=work, c=cache, l_=ln: energy.offdiag_sum_plain(w, c, l_))
+        cases[f"{kind} f64"] = (lambda w=w64, c=c64: energy.offdiag_sum_cuda(w, c),
+                                lambda w=w64, c=c64, l_=l64: energy.offdiag_sum_plain(w, c, l_))
+        near[f"{kind} f32"] = (energy.offdiag_near_cut(work, cache) if work.c is not None
+                               else torch.zeros(k, dtype=torch.bool, device=g.device))
+
+    def check(case, out, want):
+        tol = F64_ENERGY_RTOL if case.endswith("f64") else ENERGY_RTOL
+        far = ~near.get(case, torch.zeros(k, dtype=torch.bool, device=g.device))
+        rel = float((out - want)[far].abs().max() / want[far].abs().max())
+        return rel <= tol, f"max|kernel-plain| / max|plain| {rel:.3e} (tol {tol:.0e}) over {int(far.sum())} walkers"
+
+    def same(case, out, ref):
+        if case.endswith("f64"):
+            return f"relative difference to change {float((out - ref).abs().max() / ref.abs().max()):.3e}"
+        return f"bitwise equal to change: {torch.equal(out, ref)}"
+
+    # the flagship's R = 8 float32 instances; the float64 ones (one per family)
+    return Spec({"offdiag_kernel": ("c", ""), "offdiag_kernel_f64": ("c", "d")}, ("8", ""), cases, check, same)
 
 
-def main() -> int:
+SPECS = {"sweep": sweep_spec, "exchange": exchange_spec, "energy": energy_spec}
+
+
+def main(argv: list[str] | None = None) -> int:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if len(sys.argv) < 2 or sys.argv[1] not in SPECS:
-        print(f"usage: kernel_ab.py {{{','.join(SPECS)}}} LABEL=CSRC_DIR ...", file=sys.stderr)
+    argv = sys.argv[1:] if argv is None else argv
+    gate = "--no-gate" not in argv
+    argv = [a for a in argv if a != "--no-gate"]
+    if not argv or argv[0] not in SPECS:
+        print(f"usage: kernel_ab.py {{{','.join(SPECS)}}} [--no-gate] LABEL=CSRC_DIR ...", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     from neural_network_quantum_state_tpu_torch.ops import build
-    from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
     from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
 
-    kernel = sys.argv[1]
+    kernel = argv[0]
     sources = {"change": build.CSRC_DIR}
-    for arg in sys.argv[2:]:
+    for arg in argv[1:]:
         label, _, path = arg.partition("=")
         sources[label] = Path(path)
     g = make_generator(7, torch.device("cuda"))
-    entry, flags, shown, cases = SPECS[kernel](torch, g)
-    built = build_all(build, kernel, sources, entry, flags)
+    spec = SPECS[kernel](torch, g)
+    built = build_all(build, kernel, sources, spec.entries)
+    timed = next(iter(spec.entries))  # a substring of every instance's name
 
     def device_ms(fn) -> float:
         fn()
@@ -172,35 +263,36 @@ def main() -> int:
             for _ in range(REPS):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and entry in e.key]
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and timed in e.key]
         return sum(e.self_device_time_total for e in evs) / 1e3 / sum(e.count for e in evs)
 
-    reference = {}
+    reference, absent = {}, set()
     for label, (lib, regs) in built.items():
         build.load(kernel, lib)
-        for case, (run, plain) in cases.items():
-            ck, lk, acc_k = run()
-            cp, _, _ = plain()
-            differ = (ck.spins != cp.spins).any(dim=1)
-            if case.startswith("c,"):
-                differ |= near_branch_cut(ck.y) | near_branch_cut(cp.y)
-            share, dy = float(differ.double().mean()), float((ck.y[~differ] - cp.y[~differ]).abs().max())
-            out = (ck.spins, ck.y, ck.sa, lk, torch.as_tensor(acc_k))
-            want = reference.setdefault(case, out)
-            same = all(torch.equal(a, b) for a, b in zip(out, want))
-            print(f"{label} ({case}): other decisions than the plain version {share:.2e} (max {MISMATCH_MAX:.0e}), "
-                  f"max|dy| {dy:.2e} (tol {Y_ATOL:.0e}); bitwise equal to change: {same}")
-            if not (share <= MISMATCH_MAX and dy <= Y_ATOL):
+        for case, (run, plain) in spec.cases.items():
+            try:
+                out = run()
+            except AttributeError as err:  # ctypes: the build exports no such function
+                print(f"{label} ({case}): absent from this build ({err})")
+                absent.add((label, case))
+                continue
+            ok, text = spec.check(case, out, plain())
+            print(f"{label} ({case}): {text}; {spec.same(case, out, reference.setdefault(case, out))}")
+            if not ok and gate:
                 raise SystemExit(f"kernel_ab: {label} ({case}) disagrees with the plain version")
-        regs = ", ".join(f"{k} {v}" for k, v in sorted(regs.items()) if re.match(rf"({'|'.join(shown)})[a-z]*$", k))
-        print(f"{label}: registers (+spill bytes) of the {'/'.join(shown)} instances: {regs}", flush=True)
+        regs = ", ".join(f"{k} {v}" for k, v in sorted(regs.items())
+                         if re.match(rf"({'|'.join(spec.shown)})[a-z]*$", k))
+        print(f"{label}: registers (+spill bytes) of the {'/'.join(s or 'any R' for s in spec.shown)} instances: "
+              f"{regs}", flush=True)
 
     times: dict[str, list[float]] = {}
     order = list(built)
     for labels in (order, order[::-1], order, order[::-1]):
         for label in labels:
             build.load(kernel, built[label][0])
-            for case, (run, _) in cases.items():
+            for case, (run, _) in spec.cases.items():
+                if (label, case) in absent:
+                    continue
                 ms = device_ms(run)
                 times.setdefault(f"{label} {case}", []).append(ms)
                 print(f"{label} ({case}): kernel {ms:.4f} ms", flush=True)

@@ -24,6 +24,7 @@ from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
 from neural_network_quantum_state_tpu_torch.ops.rng import ExchangeDraws, PhiloxDraws, make_generator, philox_key
 from neural_network_quantum_state_tpu_torch.optim import SRStats
 from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard, init_state, kawasaki, metropolis, tempering
+from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_STRESS, f64_stress_inputs
 
 
 @pytest.fixture
@@ -712,11 +713,13 @@ def _widened(work, cache):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("has_c", [False, True])
-@pytest.mark.parametrize("h", [16, 80, 384])
+@pytest.mark.parametrize("h", [16, 80, 200, 256, 384, 512])
 def test_float64_energy_instance_matches_plain(cuda, h, has_c):
     """The energy kernel's float64 instance against the plain float64 sum:
-    1e-12 relative; it counts in launches_f64 (with c also in
-    launches_f64_c), not in launches."""
+    1e-12 relative over every walker, at widths from part of one tile of
+    32 units to 16 tiles (partial last tiles at 16, 80 and 200, the
+    flagship's 256, the widest 512); it counts in launches_f64 (with c also
+    in launches_f64_c), not in launches."""
     n, k = 16, 512
     maker = _scaled_ffnn if has_c else _scaled_rbm
     work, cache, ln = maker(cuda, n, h, k, 100 + h)[:3]
@@ -728,6 +731,26 @@ def test_float64_energy_instance_matches_plain(cuda, h, has_c):
     want = energy.offdiag_sum_plain(w64, c64, l64)
     assert got.dtype == torch.complex128
     assert float((got - want).abs().max() / want.abs().max()) < 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "with_c"])
+@pytest.mark.parametrize("case", F64_STRESS)
+@pytest.mark.parametrize("n", [16, 72])
+def test_float64_energy_instance_on_stress_inputs(cuda, case, has_c, n):
+    """The float64 instance on utils/f64_stress.py's inputs (large |Re w|, a
+    product that leaves the double range without its running exponent, units
+    near a zero of cosh), one pass of sites and two, against the plain
+    float64 sum: 1e-12 relative; with c over the walkers away from the
+    branch cut (offdiag_near_cut), at most 1% of them counted apart."""
+    w, b, a, c, spins = f64_stress_inputs(case, has_c, seed=11, n=n, k=300)
+    work = Work(*(None if x is None else torch.as_tensor(x, device=cuda) for x in (w, b, a, c)))
+    cache, ln = engine.full_forward(work, torch.as_tensor(spins, device=cuda))
+    got, want = energy.offdiag_sum_cuda(work, cache), energy.offdiag_sum_plain(work, cache, ln)
+    far = ~energy.offdiag_near_cut(work, cache) if has_c else torch.ones_like(got, dtype=torch.bool)
+    assert float(far.double().mean()) >= 0.99
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want)[far].abs().max() / want[far].abs().max()) < 1e-12
 
 
 @pytest.mark.gpu
