@@ -5,9 +5,12 @@
 
 Phases, each printed with its seconds:
 1. a CUDA device must be present (else exit 1); print its name and power limit;
-2. build the CUDA kernels with nvcc (one process per source, in parallel);
+2. build the CUDA kernels with nvcc (one process per source, in parallel:
+   the exchange kernel's untempered and tempered instances are two
+   sources, the sweep's and the exchange's float64 instances two more);
    print each instance's registers and spill bytes (the energy kernel's two
-   float64 instances, which serve every width, must not spill), and the
+   float64 instances, which serve every width, must not spill; the sweep's
+   and the exchange's float64 instances are four each, every width), and the
    SASS instructions per element of the sweep's, the energy (float32 and
    float64) and the exchange kernel's hot loops;
 3. at full width hold each kernel against its plain PyTorch version on the
@@ -47,6 +50,15 @@ Phases, each printed with its seconds:
    (2^22 elements, 32 bodies a chain), against its plain version to a
    relative 1e-5 of the largest |value| (the elements whose energy-body
    chain takes a phase near the branch cut left out, their share bounded);
+   the sweep's float64 instances against the plain float64 sweep (the
+   flagship widened to complex128, its Philox stream and float64 caller
+   uniforms, n_beta = 1 and 8, 5 sweeps in one launch, with and without c;
+   H = 16, 80, 384, 512; the stress inputs of utils/f64_stress.py at N = 16
+   and 72) and the exchange's float64 instances against the plain float64
+   (tempered) exchange at the Hubbard flagship's shape (n_beta = 1, 4 and 8,
+   the three modes, with and without c, every sector kept; H = 16, 80,
+   384): decisions as the float32 gates, near-cut walkers counted with
+   them, y to 1e-12 of its largest |value| and ln psi to 1e-10 on the others;
 4. drive the LITFI flagship through the user's entry points (VMC.init,
    warm_up, run) and check that it ran through the sweep and energy
    kernels, never through a plain version, with finite energies: one sweep
@@ -102,16 +114,33 @@ Phases, each printed with its seconds:
    at bench.py's sizes: its five lines, every number finite, the N=16 TFI
    error below bench.py's bar of 1e-4, every kernel it runs counted (the
    sweep, energy, exchange and chain-rate kernels), no plain version;
+15b. the train driver (``drivers.train.main``, as ``python -m
+   neural_network_quantum_state_tpu_torch.drivers.train`` runs it): the
+   LITFI flagship (-model=LICH -ansatz=rbmtrsymm -L=64 -nf=4 -alpha=2.5
+   -theta=2 -ns=8192) warm-started with -ifprefix from a copy of
+   runs/RBMTrSymmLICH-L64NF4A2.5T2V1, 100 warm-up sweeps and 20 steps
+   auto-saved every 10, then -resume for 5 more (steps 20..24, lambda at
+   step 20 = 100 * 0.9^21); the same model with -dtype=float64 -ns=4096
+   (100 + 10, the float64 sweep and energy instances); the L=32 trap
+   Hubbard chain in float64 (-ns=4096, 100 + 5, the float64 exchange
+   instance, every walker of the saved state in its sector); both float64
+   models again with -nbeta=4 (50 + 3: the float64 sweep's and exchange's
+   tempered instances, every replica in its sector); each run's
+   files (text checkpoint, .state.npz, .metrics.jsonl) under the build
+   directory, its launches (one per sampler call of the right instance,
+   the float64 energy instance once per float64 step), no plain version,
+   finite energies; its step ms, init + warm-up seconds and peak memory;
 16. the device time of each kernel and instance on phase 3's inputs
    (torch.profiler; the sweep and exchange in the main paths' Philox mode,
    and also on caller uniforms), beside the instance's registers and spill
    bytes from the build, the exchange's and the sweep's 5-sweep launches,
-   the energy kernel's float64 instance, the exchange's tempered instance
-   and the chain-rate probe;
+   the energy kernel's float64 instance, the exchange's tempered instance,
+   the sweep's and the exchange's float64 instances and the chain-rate
+   probe;
 17. profile 5 more LITFI SR steps, 18. 5 more Hubbard SR steps, 19. 5 more
    FFNN flagship SR steps, 20. 3 more Hubbard minSR steps, 21. 3 more 2D
    dense SR steps, 22. 5 more tempered Hubbard SR steps.
-The profiler runs only after the timed phases 4 to 15, so that it cannot
+The profiler runs only after the timed phases 4 to 15b, so that it cannot
 disturb their times.
 
 Then one JSON line with the kernels' numbers, the card's name and power
@@ -132,6 +161,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -201,6 +231,22 @@ F64_WIDTHS, F64_STRESS_N, F64_STRESS_K, F64_STRESS_NEAR_MAX = (16, 80, 200, 256,
 # multiply, 6), and 16 bytes of shared memory read (G; the lanes on distinct
 # sites) at the H100 SXM's 128 bytes per clock per SM on 132 SMs at 1.98 GHz.
 F64_FORM_OPS, F64_FORM_SMEM_BYTES, PEAK_SMEM_BYTES_S = 14, 16, 132 * 128 * 1.98e9
+# The sweep and exchange kernels' float64 instances (csrc/sweep_f64.cu,
+# csrc/exchange_f64.cu) against their plain float64 versions: y to a
+# relative F64_Y_RTOL of its largest |value| and ln psi to F64_LNPSI_ATOL on
+# the walkers with the same decisions (the decision gates are the float32
+# instances'); their widths (every one of them serves all H) and the stress
+# inputs of utils/f64_stress.py (sweep), N = 16 and 72, K = 300.
+F64_Y_RTOL, F64_LNPSI_ATOL = 1e-12, 1e-10
+F64_SWEEP_WIDTHS, F64_EXCHANGE_WIDTHS = (16, 80, 384, 512), (16, 80, 384)
+# The train driver's runs (phase 15b): the LITFI flagship warm-started from
+# the recorded run, its resume, the same model in float64 at the N=64
+# anchor's walker count, and the Hubbard trap chain in float64.
+DRIVER_RUN = "runs/RBMTrSymmLICH-L64NF4A2.5T2V1"
+DRIVER_WARM, DRIVER_STEPS, DRIVER_NREC, DRIVER_RESUME_STEPS = 100, 20, 10, 5
+DRIVER_F64_K, DRIVER_F64_WARM, DRIVER_F64_STEPS = 4096, 100, 10
+DRIVER_HUB_WARM, DRIVER_HUB_STEPS = 100, 5
+DRIVER_TEMPERED_WARM, DRIVER_TEMPERED_STEPS = 50, 3  # both float64 models at n_beta = 4
 SOLVER_CHECK_RTOL = 1e-8  # the on-card solver cross-check (phase 9)
 # its CG and MINRES-QLP tolerances: 1e-10, held to the bar at the first
 # step's lambda and at the floor to what its residual allows there (cond(A)
@@ -218,7 +264,9 @@ NEW_PROFILE_STEPS = 3  # the profiles of the Hubbard minSR and 2D paths
 # "exchange_tempered")
 KERNEL_NAMES = {"sweep": "sweep_kernel", "energy": "offdiag_kernel", "exchange": "exchange_kernel",
                 "sweep_energy": "sweep_energy_kernel", "energy_f64": "offdiag_kernel_f64",
-                "exchange_tempered": "exchange_kernel", "chain_rate": "chain_kernel", "chain_rate_energy": "chain_kernel"}
+                "exchange_tempered": "exchange_kernel", "chain_rate": "chain_kernel", "chain_rate_energy": "chain_kernel",
+                "sweep_f64": "sweep_kernel_f64", "exchange_f64": "exchange_kernel_f64",
+                "exchange_f64_tempered": "exchange_kernel_f64"}
 # The hot-math chain-rate probe: bench.py's 2^22 elements and 32 bodies a
 # chain; its bar against the plain chain (max|kernel - plain| over both
 # outputs relative to their largest |value|), and the share of elements
@@ -288,8 +336,8 @@ def _device_ms(torch, fn, reps: int, kernel: str) -> float | None:
     return sum(ev.self_device_time_total for ev in evs) / 1e3 / count if count else None
 
 
-def _bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+def _bound_ms(ops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -326,7 +374,8 @@ def _profile_steps(torch, vmc, params, state, step0: int, n_steps: int = 5) -> N
 # the template parameters of each kernel after R: C (output weights c), T
 # (the sweep's tempered instance, n_beta > 1) and M (the sweep's launch of
 # more than one sweep with c), as the instances are named
-TEMPLATE_BOOLS = {"sweep": "ctm", "energy": "c", "exchange": "ct", "sweep_energy": "t", "chain_rate": ""}
+TEMPLATE_BOOLS = {"sweep": "ctm", "energy": "c", "exchange": "ct", "exchange_tempered": "ct", "sweep_energy": "t",
+                  "chain_rate": "", "sweep_f64": "ct", "exchange_f64": "ct"}
 
 
 def _ptxas_table(name: str, lines) -> dict:
@@ -537,6 +586,7 @@ def main() -> int:
     backstop.start()
 
     _enter("1 device", t0)
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -584,6 +634,7 @@ def main() -> int:
             fn.launches = 0
         offdiag_sum_cuda.launches_f64 = offdiag_sum_cuda.launches_f64_c = 0
         exchange_cuda.launches_tempered = exchange_cuda.launches_tempered_c = 0
+        sweep_cuda.launches_f64 = exchange_cuda.launches_f64 = exchange_cuda.launches_f64_tempered = 0
         for fn in plains:
             fn.calls = 0
 
@@ -591,20 +642,26 @@ def main() -> int:
         """The launches of each kernel ("energy_f64": the energy kernel's
         float64 instances, "energy_f64_c": those of them with c;
         "exchange_tempered": the exchange kernel's tempered instance, counted
-        in "exchange" too, "exchange_tempered_c": those of them with c) and
-        the calls of all plain versions (the plain tempered exchange calls
-        the plain exchange)."""
+        in "exchange" too, "exchange_tempered_c": those of them with c;
+        "sweep_f64", "exchange_f64": the float64 instances of the sweep and
+        the exchange, "exchange_f64_tempered": the tempered ones of the
+        latter, counted in "exchange_f64" too) and the calls of all plain
+        versions (the plain tempered exchange calls the plain exchange)."""
         counts = {name: fn.launches for name, fn in wrappers.items()}
         counts["energy_f64"] = offdiag_sum_cuda.launches_f64
         counts["energy_f64_c"] = offdiag_sum_cuda.launches_f64_c
         counts["exchange_tempered"] = exchange_cuda.launches_tempered
         counts["exchange_tempered_c"] = exchange_cuda.launches_tempered_c
+        counts["sweep_f64"] = sweep_cuda.launches_f64
+        counts["exchange_f64"] = exchange_cuda.launches_f64
+        counts["exchange_f64_tempered"] = exchange_cuda.launches_f64_tempered
         return counts, sum(fn.calls for fn in plains)
 
     def expect(**want):
         """The launch counts of a path: the given ones, 0 for every other kernel."""
         return {name: want.get(name, 0)
-                for name in (*wrappers, "energy_f64", "energy_f64_c", "exchange_tempered", "exchange_tempered_c")}
+                for name in (*wrappers, "energy_f64", "energy_f64_c", "exchange_tempered", "exchange_tempered_c",
+                             "sweep_f64", "exchange_f64", "exchange_f64_tempered")}
 
     hub_v = tuple(float(x) for x in [HUB_TRAP * (i - (HUB_L - 1) / 2.0) ** 2 for i in range(HUB_L)] * 2)
     hubbard = HubbardChain(n_sites=2 * HUB_L, u=4.0, t=1.0, n_up=HUB_PARTICLES, n_down=HUB_PARTICLES, pbc=True, v=hub_v)
@@ -626,6 +683,11 @@ def main() -> int:
     _require(set(f64_regs) == {"d", "cd"} or not built["energy"].seconds,
              f"energy float64 instances {sorted(f64_regs)}, expected d and cd")
     _require(not any("B" in v for v in f64_regs.values()), f"energy float64 instances spill: {f64_regs}")
+    # the sweep's and the exchange's float64 instances: one per (c, tempered), every H
+    for name in ("sweep_f64", "exchange_f64"):
+        print(f"{name} instances (d; c: with c, t: tempered), every H: registers {ptxas[name]}")
+        _require(set(ptxas[name]) == {"d", "cd", "td", "ctd"} or not built[name].seconds,
+                 f"{name} instances {sorted(ptxas[name])}, expected d, cd, td and ctd")
     for line in _sass_report([built[name].path for name in ("sweep", "energy", "exchange")]):
         print(f"SASS per element: {line}")
 
@@ -712,19 +774,21 @@ def main() -> int:
     staged_seen = set()  # (with c, W from shared memory) of each exchange comparison
     staged_seen_t = set()  # the same for the tempered instance
 
-    def exchange_vs_plain(label, w_, c_, ln_, bonds_, uniforms, mismatch_max, cut, n_beta=1, swaps=None):
+    def exchange_vs_plain(label, w_, c_, ln_, bonds_, uniforms, mismatch_max, cut, n_beta=1, swaps=None,
+                          tols=(EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL)):
         """Kernel vs plain exchange rounds on the same uniforms (an
         ExchangeDraws, or the (u_sel, u_acc) pair; for n_beta > 1 the
         tempered instance against the plain tempered exchange, in sweeps of
         N proposals, with the (n_sweeps, 2, K) swap uniforms beside the
         pair); the sectors kept, per flavor half, in every walker row (the
         walkers start with the same particle numbers, so a row holds them
-        whichever replica's configuration it ends with). Returns (share,
-        ln_err, acceptance)."""
+        whichever replica's configuration it ends with); `tols` the y and
+        ln psi tolerances. Returns (share, ln_err, acceptance)."""
         args = (uniforms,) if isinstance(uniforms, ExchangeDraws) else uniforms
         k_, n_ = c_.spins.shape
-        seen = staged_seen if n_beta == 1 else staged_seen_t
-        seen.add((w_.c is not None, stages_w(n_, w_.w.shape[1], bonds_.shape[0], w_.c is not None, n_beta)))
+        if c_.spins.dtype == torch.float32:  # the float32 instances' two W branches
+            seen = staged_seen if n_beta == 1 else staged_seen_t
+            seen.add((w_.c is not None, stages_w(n_, w_.w.shape[1], bonds_.shape[0], w_.c is not None, n_beta)))
         if n_beta > 1:
             kw = {"n_beta": n_beta, "n_unit": n_, "swap_uniforms": swaps}
             ck, lk, rows_k = exchange_cuda(w_, c_, bonds_, *args, **kw)
@@ -734,8 +798,7 @@ def main() -> int:
             ck, lk, rows_k = exchange_cuda(w_, c_, bonds_, *args)
             cp, lp, acc_p = exchange_plain(w_, c_, ln_, bonds_, *args)
         acc_k = rows_k[0].sum()
-        share_, ln_err_, _ = _compare(label, ck, lk, cp, lp, mismatch_max, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL,
-                                      failures, cut=cut)
+        share_, ln_err_, _ = _compare(label, ck, lk, cp, lp, mismatch_max, *tols, failures, cut=cut)
         n_steps = args[0].n_steps if isinstance(uniforms, ExchangeDraws) else args[0].shape[0]
         half = n_ // 2
         kept = all(bool(((ck.spins[:, sl] > 0).sum(1) == (c_.spins[:, sl] > 0).sum(1)).all())
@@ -962,6 +1025,82 @@ def main() -> int:
                     f" {case}, N={sn}{label}", w64, *engine.full_forward(w64, torch.as_tensor(s_, device=dev)),
                     F64_STRESS_NEAR_MAX)
 
+    # the sweep's and the exchange's float64 instances (csrc/sweep_f64.cu,
+    # csrc/exchange_f64.cu) against their plain float64 versions on the same
+    # uniforms: the Philox stream (its float32 numbers, widened) and float64
+    # caller uniforms; n_beta = 1 and the ladders; with and without c (the
+    # walkers near the branch cut, at float64's tolerance, with the other
+    # decisions); y to F64_Y_RTOL of its largest |value|, ln psi to
+    # F64_LNPSI_ATOL on the others
+    def f64_tols(c_):
+        return F64_Y_RTOL * float(c_.y.abs().max()), F64_LNPSI_ATOL
+
+    def sweep64_vs_plain(label, w64, c64, l64, sched_, draws, nb, mismatch_max):
+        args = (draws, nb) if isinstance(draws, PhiloxDraws) else (draws[0], nb, draws[1] if nb > 1 else None)
+        ck, lk, acc_k = sweep_cuda(w64, c64, sched_, *args)
+        cp, lp, _ = sweep_plain(w64, c64, l64, sched_, *args)
+        out = _compare(f"sweep float64{label}", ck, lk, cp, lp, mismatch_max, *f64_tols(cp), failures,
+                       cut=w64.c is not None)
+        n_rounds = draws.n_rounds if isinstance(draws, PhiloxDraws) else draws[0].shape[0]
+        acc = float(acc_k) / (n_rounds * c64.spins.shape[0])
+        if not 0.0 < acc < 1.0:
+            failures.append(f"sweep float64{label}: acceptance {acc}")
+        return out[:2]
+
+    f64_u, f64_us = uniform_block(g, (N, K), torch.float64), uniform_block(g, (1, 2, K), torch.float64)
+    sweep64 = {}
+    for clab in ("", " with c"):
+        for nb in (1, CHECK_NBETA):
+            modes = [("philox", PhiloxDraws(philox_key(g), N)), ("uniforms", (f64_u, f64_us))]
+            if nb == 1:  # a sampler call's mode: several sweeps in one launch
+                modes.append(("multi", PhiloxDraws(philox_key(g), MULTI_SWEEPS * N)))
+            for mode, draws in modes:
+                sweep64[(clab, nb, mode)] = sweep64_vs_plain(f"{clab} n_beta={nb} {mode}", *f64_cases[clab], sched,
+                                                             draws, nb, SWEEP_MISMATCH_MAX)
+    for wh in F64_SWEEP_WIDTHS:
+        wsched = torch.as_tensor(LITFIChain(n_sites=WIDTH_N).schedule())
+        for clab, wm in (("", RBM(n_inputs=WIDTH_N, n_hiddens=wh)),
+                         (" with c", FFNN(n_inputs=WIDTH_N, n_hiddens=wh, dtype=torch.float32))):
+            wwork = ffnn_work(wm) if clab else wm.make_work({k: PARAM_SCALE * v for k, v in wm.init_params(g).items()})
+            w64c = widened(wwork, engine.full_forward(wwork, random_spins(g, WIDTH_K, WIDTH_N))[0])
+            for nb in (1, CHECK_NBETA):
+                sweep64[(f" H={wh}{clab}", nb, "philox")] = sweep64_vs_plain(
+                    f" H={wh}{clab} n_beta={nb} philox", *w64c, wsched, PhiloxDraws(philox_key(g), 2 * WIDTH_N), nb,
+                    WIDTH_MISMATCH_MAX)
+    for case in F64_STRESS:
+        for sn in F64_STRESS_N:
+            for clab in ("", " with c"):
+                w_, b_, a_, c_, s_ = f64_stress_inputs(case, bool(clab), seed=sn, n=sn, k=F64_STRESS_K)
+                w64 = engine.Work(*(None if x is None else torch.as_tensor(x, device=dev) for x in (w_, b_, a_, c_)))
+                sweep64[(f" {case}, N={sn}{clab}", 1, "philox")] = sweep64_vs_plain(
+                    f" {case}, N={sn}{clab} philox", w64, *engine.full_forward(w64, torch.as_tensor(s_, device=dev)),
+                    torch.arange(sn, dtype=torch.int32, device=dev), PhiloxDraws(philox_key(g), sn), 1,
+                    F64_STRESS_NEAR_MAX)
+    # the exchange at the Hubbard flagship's shapes, widened, and at H = 16, 80, 384
+    h64_cases = {"": widened(hwork, hcache), " with c": widened(hfwork, hfcache)}
+    x64_sel, x64_acc = uniform_block(g, (n_unit, HUB_K), torch.float64), uniform_block(g, (n_unit, HUB_K), torch.float64)
+    x64_swap = uniform_block(g, (1, 2, HUB_K), torch.float64)
+    exchange64 = {}
+    for clab, (w64, c64, l64) in h64_cases.items():
+        for nb in (1, TEMPERED_NBETA, CHECK_NBETA):
+            for mode, unif, sw in (("philox", exchange_draws, None), ("uniforms", (x64_sel, x64_acc), x64_swap),
+                                   ("multi", multi_draws, None)):
+                exchange64[(clab, nb, mode)] = exchange_vs_plain(
+                    f"exchange float64{clab} n_beta={nb} {mode}", w64, c64, l64, bonds, unif, EXCHANGE_MISMATCH_MAX,
+                    bool(clab), nb, sw if nb > 1 else None, f64_tols(c64))[:2]
+    for wh in F64_EXCHANGE_WIDTHS:
+        wham = HubbardChain(n_sites=WIDTH_N, n_up=4, n_down=4)
+        wb = torch.as_tensor(wham.bonds, device=dev)
+        for clab, wm in (("", RBM(n_inputs=WIDTH_N, n_hiddens=wh)),
+                         (" with c", FFNN(n_inputs=WIDTH_N, n_hiddens=wh, dtype=torch.float32))):
+            wwork = ffnn_work(wm) if clab else wm.make_work({k: PARAM_SCALE * v for k, v in wm.init_params(g).items()})
+            w64c = widened(wwork, engine.full_forward(wwork, wham.init_spins(g, WIDTH_K))[0])
+            for nb in (1, TEMPERED_NBETA):
+                exchange64[(f" H={wh}{clab}", nb, "philox")] = exchange_vs_plain(
+                    f"H={wh} exchange float64{clab} n_beta={nb} philox", *w64c, wb,
+                    ExchangeDraws(philox_key(g), 2 * WIDTH_N), WIDTH_MISMATCH_MAX, bool(clab), nb, None,
+                    f64_tols(w64c[1]))[:2]
+
     # the hot-math chain-rate probe against its plain chain at bench.py's size
     cx, cy = probe_inputs(N_ELEMS, dev)
     chain_err = {}
@@ -1019,6 +1158,23 @@ def main() -> int:
         "energy_f64": (lambda: offdiag_sum_cuda(*f64_cases[""][:2]), lambda: offdiag_sum_plain(*f64_cases[""])),
         "energy_f64_c": (lambda: offdiag_sum_cuda(*f64_cases[" with c"][:2]),
                          lambda: offdiag_sum_plain(*f64_cases[" with c"])),
+        # the sweep's and the exchange's float64 instances on the widened inputs
+        "sweep_f64": (lambda: sweep_cuda(*f64_cases[""][:2], sched, philox_draws),
+                      lambda: sweep_plain(*f64_cases[""], sched, philox_draws)),
+        "sweep_f64_c": (lambda: sweep_cuda(*f64_cases[" with c"][:2], sched, philox_draws),
+                        lambda: sweep_plain(*f64_cases[" with c"], sched, philox_draws)),
+        "exchange_f64": (lambda: exchange_cuda(*h64_cases[""][:2], bonds, exchange_draws),
+                         lambda: exchange_plain(*h64_cases[""], bonds, exchange_draws)),
+        "exchange_f64_c": (lambda: exchange_cuda(*h64_cases[" with c"][:2], bonds, exchange_draws),
+                           lambda: exchange_plain(*h64_cases[" with c"], bonds, exchange_draws)),
+        "exchange_f64_tempered": (
+            lambda: exchange_cuda(*h64_cases[""][:2], bonds, exchange_draws, n_beta=TEMPERED_NBETA, n_unit=n_unit),
+            lambda: tempered_exchange_plain(*h64_cases[""], bonds, exchange_draws, None, TEMPERED_NBETA, n_unit)),
+        "exchange_f64_tempered_c": (
+            lambda: exchange_cuda(*h64_cases[" with c"][:2], bonds, exchange_draws, n_beta=TEMPERED_NBETA,
+                                  n_unit=n_unit),
+            lambda: tempered_exchange_plain(*h64_cases[" with c"], bonds, exchange_draws, None, TEMPERED_NBETA,
+                                            n_unit)),
     }
     multi_calls = {  # the sweep as a sampler call runs it: MULTI_SWEEPS sweeps in one launch
         "sweep": lambda: sweep_cuda(work, cache, sched, multi_draws_sweep),
@@ -1043,6 +1199,8 @@ def main() -> int:
                                                    n_unit=n_unit),
         "exchange_tempered_c": lambda: exchange_cuda(hfwork, hfcache, bonds, exchange_draws, n_beta=CHECK_NBETA,
                                                      n_unit=n_unit),
+        "sweep_f64": lambda: sweep_cuda(*f64_cases[""][:2], sched, tempered_philox, CHECK_NBETA),
+        "sweep_f64_c": lambda: sweep_cuda(*f64_cases[" with c"][:2], sched, tempered_philox, CHECK_NBETA),
     }
     timing = {name: (_time_ms(torch, fn, 20), _time_ms(torch, plain, 2)) for name, (fn, plain) in calls.items()}
     tempered_ms = {name: _time_ms(torch, fn, 20) for name, fn in tempered_calls.items()}
@@ -1449,16 +1607,121 @@ def main() -> int:
              f"bench: launches {bench_launches}, plain calls {bench_plain}")
     path_launches["bench"] = bench_launches
 
+    _enter("15b train driver", t0)
+    # the train driver as a user runs it (python -m ...drivers.train): the
+    # LITFI flagship warm-started from the recorded run, auto-saved every
+    # DRIVER_NREC steps, then resumed; the same model in float64 at the N=64
+    # anchor's walker count; the Hubbard trap chain in float64. Each run's
+    # files go to the port's gitignored build directory.
+    from neural_network_quantum_state_tpu_torch.drivers import train as train_driver
+
+    run_root = build.BUILD_DIR / "train_driver"
+    vmc_warm_up = VMC.warm_up
+    shutil.rmtree(run_root, ignore_errors=True)
+    _require(os.path.exists(DRIVER_RUN), f"{DRIVER_RUN} (the warm start) is missing from the checkout")
+    flagship_argv = ["-model=LICH", "-ansatz=rbmtrsymm", "-L=64", "-nf=4", "-alpha=2.5", "-theta=2"]
+
+    def drive_cli(label, sub, argv, want_steps, want):
+        """One train.main run with the counts set to 0 just before; checks
+        its steps, launches (``want``), plain calls and energies; prints its
+        step ms, init + warm-up seconds and peak memory. Returns (result,
+        metrics records of this run)."""
+        path = run_root / sub
+        path.mkdir(parents=True, exist_ok=True)
+        if "-ifprefix=start" in argv:
+            shutil.copyfile(DRIVER_RUN, path / "start")
+        reset_counts()
+        mem_base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        warmed = []  # when the driver's warm-up ended on the device (none on a resume)
+
+        def warm_up(self, *args, **kwargs):
+            out = vmc_warm_up(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            warmed.append(time.perf_counter())
+            return out
+
+        VMC.warm_up = warm_up
+        t_run = time.perf_counter()
+        try:
+            res = train_driver.main(argv + [f"-path={path}"])[0]
+            torch.cuda.synchronize()
+        finally:
+            VMC.warm_up = vmc_warm_up
+        wall = time.perf_counter() - t_run
+        launches, plain_calls = read_counts()
+        recs = [json.loads(line) for line in open(res["prefix"] + ".metrics.jsonl")][-len(res["history"]):]
+        ts = [r["t"] for r in recs]
+        steps = [hh["step"] for hh in res["history"]]
+        energies = [hh["energy"] for hh in res["history"]]
+        step_ms = [1e3 * (b_ - a_) for a_, b_ in zip(ts, ts[1:])]
+        init = (f"init + warm-up {warmed[0] - t_run:.3f} s" if warmed else
+                f"init + checkpoint load (no warm-up) {wall - ts[-1]:.3f} s, the final save included")
+        print(f"train driver {label}: steps {steps[0]}..{steps[-1]}; step ms first {1e3 * ts[0]:.2f}, mean of the "
+              f"rest {sum(step_ms) / max(1, len(step_ms)):.2f}; {init}; wall {wall:.3f} s; peak memory above the "
+              f"{mem_base / 2**20:.1f} MiB held before {(torch.cuda.max_memory_allocated() - mem_base) / 2**20:.1f} MiB; "
+              f"last energies {energies[-3:]}")
+        print(f"train driver {label}: launches {launches}; plain-version calls: {plain_calls}")
+        _require(steps == list(want_steps), f"train driver {label}: steps {steps}")
+        _require(all(math.isfinite(e) for e in energies), f"train driver {label}: energies {energies}")
+        _require(plain_calls == 0, f"train driver {label}: the path called a plain version {plain_calls} times")
+        _require(launches == want, f"train driver {label}: launches {launches}, expected {want}")
+        text = {"RBM": "Dw.dat", "FFNN": "Dw1.dat"}.get(type(res["machine"]).__name__, "")  # the text checkpoint
+        for suffix in (text, ".state.npz", ".metrics.jsonl"):
+            _require(os.path.exists(res["prefix"] + suffix), f"train driver {label}: {res['prefix']}{suffix} missing")
+        path_launches[f"train driver {label}"] = launches
+        return res, recs
+
+    res, _ = drive_cli("LITFI float32", "f32", flagship_argv + [
+        f"-ns={K}", f"-nwarm={DRIVER_WARM}", f"-niter={DRIVER_STEPS}", f"-nrec={DRIVER_NREC}", "-ifprefix=start"],
+        range(DRIVER_STEPS), expect(sweep=1 + DRIVER_STEPS, energy=DRIVER_STEPS))
+    _require(os.path.basename(res["prefix"]) == os.path.basename(DRIVER_RUN), f"train driver: prefix {res['prefix']}")
+    _, recs = drive_cli("LITFI float32 resumed", "f32", flagship_argv + [
+        f"-ns={K}", f"-niter={DRIVER_RESUME_STEPS}", f"-resume={os.path.basename(DRIVER_RUN)}"],
+        range(DRIVER_STEPS, DRIVER_STEPS + DRIVER_RESUME_STEPS),
+        expect(sweep=DRIVER_RESUME_STEPS, energy=DRIVER_RESUME_STEPS))
+    lam_resumed = recs[0]["lam"]
+    print(f"train driver: lambda at step {DRIVER_STEPS} after the resume {lam_resumed} "
+          f"(100 * 0.9^{DRIVER_STEPS + 1} = {100.0 * 0.9 ** (DRIVER_STEPS + 1)})")
+    _require(abs(lam_resumed - 100.0 * 0.9 ** (DRIVER_STEPS + 1)) < 1e-3, f"train driver: lambda {lam_resumed}")
+    drive_cli("LITFI float64", "f64", flagship_argv + [
+        "-dtype=float64", f"-ns={DRIVER_F64_K}", f"-nwarm={DRIVER_F64_WARM}", f"-niter={DRIVER_F64_STEPS}",
+        "-ifprefix=start"], range(DRIVER_F64_STEPS),
+        expect(sweep_f64=1 + DRIVER_F64_STEPS, energy_f64=DRIVER_F64_STEPS))
+    res, _ = drive_cli("Hubbard float64", "hubbard", [
+        "-model=hubbard", "-ansatz=rbm", f"-L={HUB_L}", f"-nf={HUB_H}", f"-npar={HUB_PARTICLES},{HUB_PARTICLES}",
+        f"-trap={HUB_TRAP}", f"-ns={HUB_K}", "-dtype=float64", f"-nwarm={DRIVER_HUB_WARM}",
+        f"-niter={DRIVER_HUB_STEPS}"], range(DRIVER_HUB_STEPS), expect(exchange_f64=1 + DRIVER_HUB_STEPS))
+    with np.load(res["prefix"] + ".state.npz") as saved:
+        _require(sector_ok(torch.as_tensor(saved["__spins__"])), "train driver Hubbard float64: a walker left its sector")
+    # the same two float64 models tempered (-nbeta=4): the ladder in the
+    # float64 sweep's and exchange's tempered instances
+    drive_cli("LITFI float64 tempered", "f64_tempered", flagship_argv + [
+        "-dtype=float64", f"-ns={DRIVER_F64_K}", f"-nwarm={DRIVER_TEMPERED_WARM}", f"-niter={DRIVER_TEMPERED_STEPS}",
+        f"-nbeta={TEMPERED_NBETA}"], range(DRIVER_TEMPERED_STEPS),
+        expect(sweep_f64=1 + DRIVER_TEMPERED_STEPS, energy_f64=DRIVER_TEMPERED_STEPS))
+    res, _ = drive_cli("Hubbard float64 tempered", "hubbard_tempered", [
+        "-model=hubbard", "-ansatz=rbm", f"-L={HUB_L}", f"-nf={HUB_H}", f"-npar={HUB_PARTICLES},{HUB_PARTICLES}",
+        f"-trap={HUB_TRAP}", f"-ns={HUB_K}", "-dtype=float64", f"-nwarm={DRIVER_TEMPERED_WARM}",
+        f"-niter={DRIVER_TEMPERED_STEPS}", f"-nbeta={TEMPERED_NBETA}"], range(DRIVER_TEMPERED_STEPS),
+        expect(exchange_f64=1 + DRIVER_TEMPERED_STEPS, exchange_f64_tempered=1 + DRIVER_TEMPERED_STEPS))
+    with np.load(res["prefix"] + ".state.npz") as saved:
+        _require(sector_ok(torch.as_tensor(saved["__spins__"])),
+                 "train driver Hubbard float64 tempered: a replica left its sector")
+
     _enter("16 kernel device times", t0)
     # the instance each timed call runs: R = ceil(H/32) (exchange: G x U), then c and t
     hub_g = kernel_lanes(HUB_H)
-    r_of = {"exchange": f"{hub_g}x{-(-HUB_H // hub_g)}"}
+    r_of = {lib: f"{hub_g}x{-(-HUB_H // hub_g)}" for lib in ("exchange", "exchange_tempered")}
 
     def instance(name, tempered=False, multi=False):
         base = name.removesuffix("_c")
-        # the float64 instance is in energy's library, the tempered one in exchange's
-        lib = {"energy_f64": "energy", "exchange_tempered": "exchange", "chain_rate_energy": "chain_rate"}.get(base, base)
-        f64, tempered = base == "energy_f64", tempered or base == "exchange_tempered"
+        # the energy kernel's float64 instance is in energy's library, the
+        # exchange's float64 tempered one in exchange_f64's
+        lib = {"energy_f64": "energy", "exchange_f64_tempered": "exchange_f64",
+               "chain_rate_energy": "chain_rate"}.get(base, base)
+        f64 = base in ("energy_f64", "sweep_f64", "exchange_f64", "exchange_f64_tempered")
+        tempered = tempered or base in ("exchange_tempered", "exchange_f64_tempered")
         # the probe: its body; the float64 instances: one for every R
         r = "" if f64 else {"chain_rate": 0, "chain_rate_energy": 1}.get(base, r_of.get(lib, (h + 31) // 32))
         c = name.endswith("_c")
@@ -1674,7 +1937,8 @@ def main() -> int:
         }
 
     kernels.append({
-        "name": "exchange_tempered", "route": "cuda", "source": "neural_network_quantum_state_tpu_torch/csrc/exchange.cu",
+        "name": "exchange_tempered", "route": "cuda",
+        "source": "neural_network_quantum_state_tpu_torch/csrc/exchange_tempered.cu",
         "replaces": replaces["exchange"], "instance_of": "exchange",
         # launches: the tempered instance's, over every path (counted in exchange's too)
         "launches": sum(p.get("exchange_tempered", 0) for p in path_launches.values()),
@@ -1682,6 +1946,91 @@ def main() -> int:
         # launches: the tempered instance with c alone, over every path
         "has_c": {"launches": sum(p.get("exchange_tempered_c", 0) for p in path_launches.values()),
                   **tempered_entry(" with c", exchange_c_ops, FFNN_HUB_H)},
+    })
+
+    # the sweep's and the exchange's float64 instances, where the JAX package
+    # runs XLA (sampler/metropolis.py::_sweep_scan, sampler/kawasaki.py::
+    # _exchange_scan): the float32 instances' operations at the float64 rate,
+    # their bytes in float64 (complex128 y, sa, w, a, c; float64 spins)
+    f64_sweep_bytes = 2 * K * h * c128 + 2 * K * N * f64b + 2 * K * c128 + N * h * c128 + N * c128 + 2 * K * i32b + 16
+    sweep_f64_bounds = {"": _bound_ms(K * N * h * SWEEP_OPS, f64_sweep_bytes, PEAK_F64_FLOPS),
+                        "_c": _bound_ms(K * N * h * SWEEP_OPS_C, f64_sweep_bytes + h * c128, PEAK_F64_FLOPS)}
+    sweep_f64_t_bounds = {"": _bound_ms(K * N * h * SWEEP_OPS + swap_ops, f64_sweep_bytes, PEAK_F64_FLOPS),
+                          "_c": _bound_ms(K * N * h * SWEEP_OPS_C + swap_ops, f64_sweep_bytes + h * c128,
+                                          PEAK_F64_FLOPS)}
+
+    def exchange_f64_bytes(hh, has_c, tempered):
+        return (2 * HUB_K * hh * c128 + 2 * HUB_K * hn * f64b + 2 * HUB_K * c128 + hn * hh * c128 + hn * c128
+                + 2 * n_bonds * i32b + (hn + 1 + 2 * n_bonds) * i32b + HUB_K * i32b + 16
+                + (hh * c128 if has_c else 0) + (HUB_K * i32b if tempered else 0))
+
+    exchange_f64_bounds = {
+        "": _bound_ms(exchange_ops, exchange_f64_bytes(HUB_H, False, False), PEAK_F64_FLOPS),
+        "_c": _bound_ms(exchange_c_ops, exchange_f64_bytes(FFNN_HUB_H, True, False), PEAK_F64_FLOPS),
+        "_tempered": _bound_ms(exchange_ops + swap_x_ops, exchange_f64_bytes(HUB_H, False, True), PEAK_F64_FLOPS),
+        "_tempered_c": _bound_ms(exchange_c_ops + swap_x_ops, exchange_f64_bytes(FFNN_HUB_H, True, True),
+                                 PEAK_F64_FLOPS),
+    }
+
+    def f64_state_entry(name, err, bound, extra=None):
+        """A float64 sweep or exchange instance's numbers: its errors (the
+        headline mode), device, wrapper and plain times, bound, registers."""
+        return {"max_abs_err": err[1], "mismatch_share": err[0], "tolerance": F64_LNPSI_ATOL, "y_rtol": F64_Y_RTOL,
+                "ms": device_ms[name] if device_ms[name] is not None else timing[name][0],
+                "kernel_ms": device_ms[name], "wrapper_ms": timing[name][0], "plain_ms": timing[name][1],
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None, "registers": instance(name)[1],
+                **(extra or {})}
+
+    def sweep64_entry(clab, c):
+        return f64_state_entry(f"sweep_f64{c}", sweep64[(clab, 1, "philox")], sweep_f64_bounds[c], {
+            f"nbeta{CHECK_NBETA}": {"max_abs_err": sweep64[(clab, CHECK_NBETA, "philox")][1],
+                                    "mismatch_share": sweep64[(clab, CHECK_NBETA, "philox")][0],
+                                    "kernel_ms": tempered_device_ms[f"sweep_f64{c}"],
+                                    "wrapper_ms": tempered_ms[f"sweep_f64{c}"],
+                                    "bound_ms": sweep_f64_t_bounds[c][0],
+                                    "registers": instance(f"sweep_f64{c}", tempered=True)[1]},
+            "uniforms": {"max_abs_err": sweep64[(clab, 1, "uniforms")][1],
+                         "mismatch_share": sweep64[(clab, 1, "uniforms")][0],
+                         f"nbeta{CHECK_NBETA}_max_abs_err": sweep64[(clab, CHECK_NBETA, "uniforms")][1]},
+            "multi_sweep": {"sweeps": MULTI_SWEEPS, "max_abs_err": sweep64[(clab, 1, "multi")][1],
+                            "mismatch_share": sweep64[(clab, 1, "multi")][0]},
+            "widths_max_abs_err": {k[0].strip() + f" n_beta={k[1]}": v[1] for k, v in sweep64.items()
+                                   if "H=" in k[0] and k[0].endswith(" with c") == bool(clab)},
+            "stress_max_abs_err": {k[0].strip(): v[1] for k, v in sweep64.items()
+                                   if "N=" in k[0] and k[0].endswith(" with c") == bool(clab)},
+        })
+
+    kernels.append({
+        "name": "sweep_f64", "route": "cuda", "source": "neural_network_quantum_state_tpu_torch/csrc/sweep_f64.cu",
+        "replaces": replaces["sweep"], "instance_of": "sweep",
+        "launches": sum(p.get("sweep_f64", 0) for p in path_launches.values()),
+        **sweep64_entry("", ""), "has_c": sweep64_entry(" with c", "_c"),
+    })
+
+    def exchange64_entry(clab, c, tempered):
+        nb = TEMPERED_NBETA if tempered else 1
+        name = f"exchange_f64{'_tempered' if tempered else ''}{c}"
+        bound = exchange_f64_bounds[("_tempered" if tempered else "") + c]
+        return f64_state_entry(name, exchange64[(clab, nb, "philox")], bound, {
+            "n_beta": nb,
+            "uniforms": {"max_abs_err": exchange64[(clab, nb, "uniforms")][1],
+                         "mismatch_share": exchange64[(clab, nb, "uniforms")][0]},
+            "multi_sweep": {"sweeps": EXCHANGE_MULTI_SWEEPS, "max_abs_err": exchange64[(clab, nb, "multi")][1],
+                            "mismatch_share": exchange64[(clab, nb, "multi")][0]},
+            **({f"nbeta{CHECK_NBETA}_max_abs_err": exchange64[(clab, CHECK_NBETA, "philox")][1],
+                f"nbeta{CHECK_NBETA}_mismatch_share": exchange64[(clab, CHECK_NBETA, "philox")][0]} if tempered else {}),
+            "widths_max_abs_err": {k[0].strip() + f" n_beta={k[1]}": v[1] for k, v in exchange64.items()
+                                   if "H=" in k[0] and k[1] == nb and k[0].endswith(" with c") == bool(clab)},
+        })
+
+    kernels.append({
+        "name": "exchange_f64", "route": "cuda", "source": "neural_network_quantum_state_tpu_torch/csrc/exchange_f64.cu",
+        "replaces": replaces["exchange"], "instance_of": "exchange",
+        # launches: every float64 instance's, over every path (the tempered ones also below)
+        "launches": sum(p.get("exchange_f64", 0) for p in path_launches.values()),
+        **exchange64_entry("", "", False), "has_c": exchange64_entry(" with c", "_c", False),
+        "tempered": {"launches": sum(p.get("exchange_f64_tempered", 0) for p in path_launches.values()),
+                     **exchange64_entry("", "", True), "has_c": exchange64_entry(" with c", "_c", True)},
     })
 
     # the chain-rate probe: 2^22 elements in and out (x, y) once, CHAIN_LEN

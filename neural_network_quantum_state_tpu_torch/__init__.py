@@ -3,9 +3,31 @@
 Same module layout and names as the JAX package. Plain tensor code is
 PyTorch; the TPU kernels on the ported path are CUDA kernels for Hopper
 (``csrc/``), each with a plain PyTorch version that runs on the CPU. Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``.
+points run on ``cuda`` unless the caller passes ``device="cpu"``. The
+subpackages are exported as the JAX package exports its own (those ported:
+not yet ``measurements`` or ``parallel``), and ``drivers``, the CLI.
 """
 
 from neural_network_quantum_state_tpu_torch.vmc import VMC, VMCConfig
 
-__all__ = ["VMC", "VMCConfig"]
+from neural_network_quantum_state_tpu_torch import (  # noqa: E402  (after VMC: the drivers reach nqs.VMC)
+    drivers,
+    hamiltonians,
+    models,
+    ops,
+    optim,
+    sampler,
+    utils,
+)
+
+__all__ = [
+    "VMC",
+    "VMCConfig",
+    "drivers",
+    "hamiltonians",
+    "models",
+    "ops",
+    "optim",
+    "sampler",
+    "utils",
+]

@@ -9,8 +9,10 @@ are two (n_steps, K) tensors drawn by the caller, or a ``rng.ExchangeDraws``
 (a key): the kernel then draws them on the chip and the plain version makes
 the same numbers. A CUDA tensor goes to the kernel in ``csrc/exchange.cu``
 (float32; an instance for the RBM family, c = 1, and one for the FFNN
-family's complex output weights), which runs every round in one launch; a
-CPU tensor goes to ``exchange_plain``, the same computation in PyTorch.
+family's complex output weights; the tempered ones in
+``csrc/exchange_tempered.cu``) or its float64 instances in
+``csrc/exchange_f64.cu``, which run every round in one launch; a CPU tensor
+goes to ``exchange_plain``, the same computation in PyTorch.
 Both take the same uniforms, so they make the same decisions.
 
 With n_beta > 1 (tempered exchange, parallel tempering for the Hubbard
@@ -188,11 +190,29 @@ def kernel_incidence(bonds: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.T
     return table
 
 
-def _library():
-    lib = build.library("exchange")
-    fn = lib.nqs_exchange_f32
+# The kernel's sources by (dtype, tempered): the library and its C launch function.
+SOURCES = {
+    (torch.float32, False): ("exchange", "nqs_exchange_f32"),
+    (torch.float32, True): ("exchange_tempered", "nqs_exchange_f32"),
+    (torch.float64, False): ("exchange_f64", "nqs_exchange_f64"),
+    (torch.float64, True): ("exchange_f64", "nqs_exchange_f64"),
+}
+
+
+def _launcher(dtype: torch.dtype, tempered: bool):
+    """The C launch function of the instances for ``dtype`` (float32 or
+    float64) and n_beta > 1 (``tempered``); all share one interface
+    (``csrc/exchange.cuh`` NQS_EXCHANGE_PARAMS)."""
+    name, symbol = SOURCES[dtype, tempered]
+    fn = getattr(build.library(name), symbol)
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _library():
+    """The float32 n_beta = 1 library, which answers the layout queries."""
+    lib = build.library("exchange")
     lib.nqs_exchange_lanes.argtypes = [ctypes.c_int]
     lib.nqs_exchange_stages_w.argtypes = [ctypes.c_int] * 5
     return lib
@@ -216,7 +236,11 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=No
                   n_unit: int | None = None, swap_uniforms: torch.Tensor | None = None):
     """Launch the exchange kernel once for every round; returns (cache, lnpsi,
     counts), counts the (2, K) float64 per-row counts of
-    ``tempered_exchange_plain``.
+    ``tempered_exchange_plain``. Float32 walkers run ``csrc/exchange.cu``
+    (n_beta = 1) or ``csrc/exchange_tempered.cu`` (counted in ``launches``,
+    the tempered ones also in ``launches_tempered``), float64 walkers
+    ``csrc/exchange_f64.cu`` (caller uniforms in float64 too; counted in
+    ``launches_f64``, the tempered ones also in ``launches_f64_tempered``).
 
     `bonds` is a contiguous (B, 2) int32 tensor on the walkers' device with
     1 <= B <= N and entries in [0, N) (the kernel traps on an entry out of
@@ -230,8 +254,10 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=No
     k, n = cache.spins.shape
     h = work.w.shape[1]
     dev = cache.spins.device
-    if cache.spins.dtype != torch.float32:
-        raise NotImplementedError(f"exchange kernel: only float32 is ported, got {cache.spins.dtype}")
+    rdt = cache.spins.dtype
+    if rdt not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"exchange kernel: float32 and float64 are ported, got {rdt}")
+    cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
     b = bonds.shape[0]
     if not 1 <= b <= n:
         raise ValueError(f"exchange kernel: bond count {b} not in [1, N={n}]")
@@ -243,21 +269,21 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=No
         raise ValueError("exchange kernel: no proposal rounds")
     n_sweeps = check_ladder("exchange kernel", k, n_steps, n_steps if n_unit is None else n_unit, n_beta,
                             swap_uniforms, philox)
-    tensors, weights = engine.kernel_weights(work)
+    tensors, weights = engine.kernel_weights(work, cdt)
     tensors |= {
         "bonds": (bonds, torch.int32, (b, 2)),
-        "spins": (cache.spins, torch.float32, (k, n)),
-        "y": (cache.y, torch.complex64, (k, h)),
-        "sa": (cache.sa, torch.complex64, (k,)),
+        "spins": (cache.spins, rdt, (k, n)),
+        "y": (cache.y, cdt, (k, h)),
+        "sa": (cache.sa, cdt, (k,)),
     }
     if philox:
         tensors["key"] = (u_sel.key, torch.int64, (2,))
         uniforms = (None, None, None, u_sel.key.data_ptr())
     else:
-        tensors["u_sel"] = (u_sel, torch.float32, (n_steps, k))
-        tensors["u_acc"] = (u_acc, torch.float32, (n_steps, k))
+        tensors["u_sel"] = (u_sel, rdt, (n_steps, k))
+        tensors["u_acc"] = (u_acc, rdt, (n_steps, k))
         if n_beta > 1:
-            tensors["swap_uniforms"] = (swap_uniforms, torch.float32, (n_sweeps, 2, k))
+            tensors["swap_uniforms"] = (swap_uniforms, rdt, (n_sweeps, 2, k))
         uniforms = (u_sel.data_ptr(), u_acc.data_ptr(), swap_uniforms.data_ptr() if n_beta > 1 else None, None)
     build.check_inputs("exchange", dev, h, tensors)
     ptr, idx = kernel_incidence(bonds, n)
@@ -265,16 +291,20 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=No
     y = torch.empty_like(cache.y)
     sa = torch.empty_like(cache.sa)
     counts = torch.zeros((2, k), dtype=torch.int32, device=dev)  # row 1 written by the tempered instance only
-    rc = _library().nqs_exchange_f32(
+    rc = _launcher(rdt, n_beta > 1)(
         *weights, bonds.data_ptr(), ptr.data_ptr(), idx.data_ptr(), cache.spins.data_ptr(), cache.y.data_ptr(),
         cache.sa.data_ptr(), *uniforms, spins.data_ptr(), y.data_ptr(), sa.data_ptr(), counts[0].data_ptr(),
         counts[1].data_ptr() if n_beta > 1 else None, k, n, h, b, n_steps, n_steps // n_sweeps, n_beta,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(rc, "exchange kernel")
-    exchange_cuda.launches += 1
-    exchange_cuda.launches_tempered += int(n_beta > 1)
-    exchange_cuda.launches_tempered_c += int(n_beta > 1 and work.c is not None)
+    if rdt == torch.float32:
+        exchange_cuda.launches += 1
+        exchange_cuda.launches_tempered += int(n_beta > 1)
+        exchange_cuda.launches_tempered_c += int(n_beta > 1 and work.c is not None)
+    else:
+        exchange_cuda.launches_f64 += 1
+        exchange_cuda.launches_f64_tempered += int(n_beta > 1)
     cache = Cache(spins=spins, y=y, sa=sa)
     return cache, engine.cache_log_psi(work, cache), counts.to(torch.float64)
 
@@ -282,6 +312,8 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=No
 exchange_cuda.launches = 0
 exchange_cuda.launches_tempered = 0  # those of them of the tempered instance (n_beta > 1)
 exchange_cuda.launches_tempered_c = 0  # those of the tempered instance with c
+exchange_cuda.launches_f64 = 0  # the float64 instances' launches
+exchange_cuda.launches_f64_tempered = 0  # those of them with n_beta > 1
 
 
 def exchange_steps(work: Work, cache: Cache, lnpsi: torch.Tensor, bonds: torch.Tensor, u_sel, u_acc=None,

@@ -9,8 +9,9 @@ holds beta_r = (n_beta - r) / n_beta, ``replica_betas``), n_steps is a
 whole number of sweeps of n_sites rounds, and each sweep is followed by the
 even-pair and then the odd-pair swap phase (``swap_phase``) on the caller's
 (n_sweeps, 2, K) swap uniforms. A CUDA tensor goes to the kernel in
-``csrc/sweep.cu`` (float32); a CPU tensor goes to
-``sweep_plain``, the same computation in PyTorch. The uniforms are either
+``csrc/sweep.cu`` (float32) or its float64 instances in
+``csrc/sweep_f64.cu``; a CPU tensor goes to ``sweep_plain``, the same
+computation in PyTorch. The uniforms are either
 tensors drawn by the caller or a ``rng.PhiloxDraws`` (a key): the kernel
 then draws them on the chip and the plain version makes the same
 numbers with ``rng.philox_uniforms``. Either way both take the same uniforms,
@@ -164,12 +165,17 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
     """Check the inputs, allocate the outputs and launch ``kernel`` (the
     sweep kernel, or the fused sweep + energy kernel with its extra table and
     output pointers); returns (cache, stats (2, K) int32). ``uniforms`` is
-    the (n_steps, K) flip block or a ``PhiloxDraws``."""
+    the (n_steps, K) flip block or a ``PhiloxDraws``. The sweep takes float32
+    and float64 walkers (``csrc/sweep_f64.cu``; caller uniforms in float64
+    too), the megakernel float32 only, as the JAX package's."""
     k, n = cache.spins.shape
     h = work.w.shape[1]
     dev = cache.spins.device
-    if cache.spins.dtype != torch.float32:
-        raise NotImplementedError(f"{kernel} kernel: only float32 is ported, got {cache.spins.dtype}")
+    f64 = kernel == "sweep" and cache.spins.dtype == torch.float64
+    if cache.spins.dtype != torch.float32 and not f64:
+        ported = "float32 and float64 are" if kernel == "sweep" else "only float32 is"
+        raise NotImplementedError(f"{kernel} kernel: {ported} ported, got {cache.spins.dtype}")
+    rdt, cdt = (torch.float64, torch.complex128) if f64 else (torch.float32, torch.complex64)
     if n_beta > MAX_NBETA:
         raise ValueError(f"{kernel} kernel: n_beta={n_beta} above the in-kernel ladder's limit of {MAX_NBETA}")
     sched = torch.as_tensor(schedule, dtype=torch.int32, device=dev)
@@ -178,19 +184,19 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
         raise ValueError(f"{kernel} kernel: {n_steps} proposal rounds, not in [1, {MAX_ROUNDS}]")
     philox = isinstance(uniforms, PhiloxDraws)
     n_sweeps = check_ladder(kernel, k, n_steps, sched.shape[0], n_beta, swap_uniforms, philox)
-    tensors, weights = engine.kernel_weights(work)
+    tensors, weights = engine.kernel_weights(work, cdt)
     tensors |= {
-        "spins": (cache.spins, torch.float32, (k, n)),
-        "y": (cache.y, torch.complex64, (k, h)),
-        "sa": (cache.sa, torch.complex64, (k,)),
+        "spins": (cache.spins, rdt, (k, n)),
+        "y": (cache.y, cdt, (k, h)),
+        "sa": (cache.sa, cdt, (k,)),
     }
     if philox:
         tensors["key"] = (uniforms.key, torch.int64, (2,))
         u_ptr, swap_ptr, key_ptr = None, None, uniforms.key.data_ptr()
     else:
-        tensors["uniforms"] = (uniforms, torch.float32, (n_steps, k))
+        tensors["uniforms"] = (uniforms, rdt, (n_steps, k))
         if n_beta > 1:
-            tensors["swap_uniforms"] = (swap_uniforms, torch.float32, (n_sweeps, 2, k))
+            tensors["swap_uniforms"] = (swap_uniforms, rdt, (n_sweeps, 2, k))
         u_ptr, key_ptr = uniforms.data_ptr(), None
         swap_ptr = swap_uniforms.data_ptr() if n_beta > 1 else None
     build.check_inputs(kernel, dev, h, tensors)
@@ -200,7 +206,9 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
     stats = torch.empty((2, k), dtype=torch.int32, device=dev)
     symbol = {"sweep": "nqs_sweep_f32", "sweep_energy": "nqs_sweep_offdiag_f32"}[kernel]
     pointers = list(weights)
-    if kernel == "sweep":  # its instances with c read the energy kernel's table (rbm.cuh sweep_walker)
+    if f64:  # its own source; y in shared memory, no table
+        kernel, symbol = "sweep_f64", "nqs_sweep_f64"
+    elif kernel == "sweep":  # its instances with c read the energy kernel's table (rbm.cuh sweep_walker)
         table = engine.kernel_table(work.w) if work.c is not None else None
         pointers.append(None if table is None else table.data_ptr())
     rc = _kernel(kernel, symbol, 12 + len(pointers) + len(extra))(
@@ -216,20 +224,27 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
 
 def sweep_cuda(work: Work, cache: Cache, schedule, uniforms, n_beta: int = 1,
                swap_uniforms: torch.Tensor | None = None, rows: bool = False):
-    """Launch the sweep kernel; returns (cache, lnpsi, n_accepted), or with
+    """Launch the sweep kernel's instance for the walkers' dtype: float32
+    (counted in ``launches``) or float64 (``csrc/sweep_f64.cu``, counted in
+    ``launches_f64``); returns (cache, lnpsi, n_accepted), or with
     ``rows=True`` the (2, K) per-row counts of ``sweep_plain``.
 
     The complex ln psi of the final states is recomputed from the final
     cache with the plain log-cosh, as every later consumer mixes it with
     ln psi values computed by that log-cosh.
     """
+    f64 = cache.spins.dtype == torch.float64
     cache, stats = launch_sweeps("sweep", work, cache, schedule, uniforms, n_beta, swap_uniforms)
-    sweep_cuda.launches += 1
+    if f64:
+        sweep_cuda.launches_f64 += 1
+    else:
+        sweep_cuda.launches += 1
     lnpsi = engine.cache_log_psi(work, cache)
     return cache, lnpsi, stats.to(torch.float64) if rows else stats[0].sum(dtype=torch.float64)
 
 
 sweep_cuda.launches = 0
+sweep_cuda.launches_f64 = 0
 
 
 def metropolis_sweeps(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniforms,

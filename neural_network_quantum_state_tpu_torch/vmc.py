@@ -17,9 +17,9 @@ the same way for n_beta > 1;
 samplers. On the card each sampler call (a warm-up, a step's sweeps) is
 one launch of the sweep or the exchange kernel, and the spin chains'
 off-diagonal local energy one launch of the energy kernel (its float32
-instance, or its float64 one for ``energy_dtype=torch.float64``); a
-float64 machine on the card raises. On the CPU all of them run as plain
-PyTorch. A run whose walkers collapse escalates to tempering (tempered
+instance, or its float64 one for ``energy_dtype=torch.float64`` and for a
+float64 machine, whose sweeps and exchange run their float64 instances
+too). On the CPU all of them run as plain PyTorch. A run whose walkers collapse escalates to tempering (tempered
 exchange for an exchange Hamiltonian), or reseeds, as in the JAX package.
 
 The solvers are the JAX package's: matrix-free CG (``cg``), the dense
@@ -184,8 +184,6 @@ class VMC:
         if config.use_fused_sweeps and machine.dtype != torch.float32:
             raise ValueError("use_fused_sweeps requires a float32 machine")
         device = torch.device(device)
-        if device.type != "cpu" and machine.dtype != torch.float32:
-            raise NotImplementedError(f"{machine.dtype} on {device}: only float32 kernels are ported (use device='cpu')")
         if device.type != "cpu" and config.n_beta > MAX_NBETA:
             raise ValueError(f"n_beta={config.n_beta} on {device}: the kernels' ladder takes at most {MAX_NBETA}")
         if (wants_large_v_mixed_precision(machine, config.solver)

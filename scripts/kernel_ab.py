@@ -4,7 +4,10 @@
     python3 scripts/kernel_ab.py KERNEL [--no-gate] LABEL=CSRC_DIR [LABEL=CSRC_DIR ...]
 
 KERNEL is ``sweep``, ``exchange`` or ``energy``. Builds ``csrc/KERNEL.cu`` of the
-package ("change") and of each given source directory (for example an
+package ("change") and of each given source directory (the exchange kernel:
+``exchange.cu`` and ``exchange_tempered.cu``, its tempered instances, or,
+where a directory has no ``exchange_tempered.cu``, its ``exchange.cu`` for
+both, as before the two were split) (for example an
 earlier commit's ``neural_network_quantum_state_tpu_torch/csrc``, unpacked
 with ``git archive``), one ``nvcc`` process per build, all started together,
 into the port's gitignored build directory. The builds must share the
@@ -68,6 +71,7 @@ class Spec(NamedTuple):
     cases: dict  # {case: (kernel call, plain call)}
     check: Callable  # (case, kernel output, plain output) -> (ok, text)
     same: Callable  # (case, output, the change build's output) -> text
+    libraries: tuple = ()  # the package's libraries of the kernel (default: KERNEL alone)
 
 
 def parse_registers(log: str, entries: dict[str, tuple[str, str]]) -> dict[str, str]:
@@ -93,21 +97,36 @@ def parse_registers(log: str, entries: dict[str, tuple[str, str]]) -> dict[str, 
     return regs
 
 
-def build_all(build, kernel: str, sources: dict[str, Path], entries: dict[str, tuple[str, str]]):
-    """{label: (library, {instance: registers})}, every build started at once."""
+def build_all(build, kernel: str, libraries: tuple, sources: dict[str, Path], entries: dict[str, tuple[str, str]]):
+    """{label: ({library: path}, {instance: registers})}, every build started
+    at once: each of `libraries` from its own source where the directory
+    has one, else from ``KERNEL.cu`` (built once, serving them all)."""
     out_dir = build.BUILD_DIR / f"{kernel}_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, src in sources.items():
-        lib = out_dir / f"{kernel}_{label}.so"
-        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src / f"{kernel}.cu")]
-        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    built = {}
-    for label, (proc, lib) in procs.items():
+        for name in libraries:
+            source = src / f"{name}.cu" if (src / f"{name}.cu").exists() else src / f"{kernel}.cu"
+            lib = out_dir / f"{source.stem}_{label}.so"
+            if (label, lib) not in procs:
+                cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(source)]
+                procs[label, lib] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs = {}
+    for (label, lib), proc in procs.items():
         log, _ = proc.communicate(timeout=build.NVCC_TIMEOUT_S)
         if proc.returncode != 0:
-            raise SystemExit(f"kernel_ab: nvcc failed for {label}:\n{log}")
-        built[label] = (lib, parse_registers(log, entries))
+            raise SystemExit(f"kernel_ab: nvcc failed for {label} ({lib.name}):\n{log}")
+        logs[label, lib] = log
+    built = {}
+    for label, src in sources.items():
+        libs = {}
+        for name in libraries:
+            source = src / f"{name}.cu" if (src / f"{name}.cu").exists() else src / f"{kernel}.cu"
+            libs[name] = out_dir / f"{source.stem}_{label}.so"
+        regs = {}
+        for lib in set(libs.values()):
+            regs |= parse_registers(logs[label, lib], entries)
+        built[label] = (libs, regs)
     return built
 
 
@@ -191,7 +210,8 @@ def exchange_spec(torch, g):
                 lambda w=work, c=cache, l_=ln, d=draws, b=nb: exchange_ops.tempered_exchange_plain(
                     w, c, l_, bonds, d, None, b, n_unit))
     # G x U of the flagship (8 x 8) and of the widest instances (32 x 16)
-    return Spec({"exchange_kernel": ("ct", "")}, ("8x8", "32x16"), cases, *_check_states(torch, near_branch_cut))
+    return Spec({"exchange_kernel": ("ct", "")}, ("8x8", "32x16"), cases, *_check_states(torch, near_branch_cut),
+                libraries=("exchange", "exchange_tempered"))
 
 
 def energy_spec(torch, g):
@@ -253,7 +273,7 @@ def main(argv: list[str] | None = None) -> int:
         sources[label] = Path(path)
     g = make_generator(7, torch.device("cuda"))
     spec = SPECS[kernel](torch, g)
-    built = build_all(build, kernel, sources, spec.entries)
+    built = build_all(build, kernel, spec.libraries or (kernel,), sources, spec.entries)
     timed = next(iter(spec.entries))  # a substring of every instance's name
 
     def device_ms(fn) -> float:
@@ -266,9 +286,13 @@ def main(argv: list[str] | None = None) -> int:
         evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and timed in e.key]
         return sum(e.self_device_time_total for e in evs) / 1e3 / sum(e.count for e in evs)
 
+    def load(libs):
+        for name, lib in libs.items():
+            build.load(name, lib)
+
     reference, absent = {}, set()
-    for label, (lib, regs) in built.items():
-        build.load(kernel, lib)
+    for label, (libs, regs) in built.items():
+        load(libs)
         for case, (run, plain) in spec.cases.items():
             try:
                 out = run()
@@ -289,7 +313,7 @@ def main(argv: list[str] | None = None) -> int:
     order = list(built)
     for labels in (order, order[::-1], order, order[::-1]):
         for label in labels:
-            build.load(kernel, built[label][0])
+            load(built[label][0])
             for case, (run, _) in spec.cases.items():
                 if (label, case) in absent:
                     continue

@@ -294,17 +294,22 @@ def test_hubbard_vmc_runs_through_the_exchange_kernel_on_card(cuda):
 
 
 def test_off_cpu_tensors_never_run_the_plain_exchange():
-    """A tensor off the CPU goes to the kernel or raises: float64 is not
-    ported (NotImplementedError); float32 reaches the kernel's checks, which
-    refuse more bonds than sites and want a CUDA device (here the tensors
-    are on the meta device). CPU tensors given to the kernel raise too."""
+    """A tensor off the CPU goes to the kernel or raises: float32 and
+    float64 reach the kernel's checks, which refuse more bonds than sites
+    and want a CUDA device (here the tensors are on the meta device); a
+    dtype with no instance (float16 spins) is not ported
+    (NotImplementedError). CPU tensors given to the kernel raise too."""
     l, k = 4, 16
     ham = HubbardChain(n_sites=2 * l, n_up=2, n_down=2)
-    calls, launches = exchange_ops.exchange_plain.calls, exchange_ops.exchange_cuda.launches
-    for dtype, err in ((torch.float64, NotImplementedError), (torch.float32, ValueError)):
+    calls = exchange_ops.exchange_plain.calls
+    launches = (exchange_ops.exchange_cuda.launches, exchange_ops.exchange_cuda.launches_f64)
+    for dtype, half, err in ((torch.float32, True, NotImplementedError), (torch.float64, False, ValueError),
+                             (torch.float32, False, ValueError)):
         tm = RBM(n_inputs=2 * l, n_hiddens=32, dtype=dtype)
         work = tm.make_work(tm.init_params(make_generator(0, "cpu")))
         cache, ln = engine.full_forward(work, ham.init_spins(make_generator(1, "cpu"), k, dtype))
+        if half:
+            cache = cache._replace(spins=cache.spins.half())
         u = torch.rand((2 * l, k), dtype=dtype)
         meta = lambda t: None if t is None else t.to("meta")  # noqa: E731
         with pytest.raises(err):
@@ -316,32 +321,36 @@ def test_off_cpu_tensors_never_run_the_plain_exchange():
         exchange_ops.exchange_steps(Work(*map(meta, work)), Cache(*map(meta, cache)), meta(ln), meta(too_many), meta(u), meta(u))
     with pytest.raises(ValueError, match="CUDA"):
         exchange_ops.exchange_cuda(work, cache, torch.as_tensor(ham.bonds), u, u)
-    assert exchange_ops.exchange_plain.calls == calls and exchange_ops.exchange_cuda.launches == launches
+    assert exchange_ops.exchange_plain.calls == calls
+    assert (exchange_ops.exchange_cuda.launches, exchange_ops.exchange_cuda.launches_f64) == launches
 
 
 @pytest.mark.gpu
 def test_exchange_kernel_refuses_what_it_does_not_take(cuda):
-    """On the card: float64 is not ported, a hidden count above the
-    kernels' 512 and more bonds than sites raise before any launch; so do
-    output weights c of the wrong shape or dtype (in every kernel's input
-    checks), and any c in the megakernel (the RBM family only, as JAX)."""
+    """On the card: a dtype with no instance (float16 spins), a hidden
+    count above the kernels' 512 (in float32 and float64) and more bonds
+    than sites raise before any launch; so do output weights c of the wrong
+    shape or dtype (in every kernel's input checks), and any c in the
+    megakernel (the RBM family only, as JAX)."""
     l, k = 4, 64
     ham = HubbardChain(n_sites=2 * l, n_up=2, n_down=2)
     bonds = torch.as_tensor(ham.bonds, device=cuda)
-    launches = exchange_ops.exchange_cuda.launches
+    launches = (exchange_ops.exchange_cuda.launches, exchange_ops.exchange_cuda.launches_f64)
     for dtype, h, b, err in (
-        (torch.float64, 32, bonds, NotImplementedError),
+        (torch.float16, 32, bonds, NotImplementedError),
+        (torch.float64, 513, bonds, ValueError),
         (torch.float32, 513, bonds, ValueError),
         (torch.float32, 32, torch.cat([bonds, bonds]), ValueError),
     ):
-        tm = RBM(n_inputs=2 * l, n_hiddens=h, dtype=dtype)
+        tm = RBM(n_inputs=2 * l, n_hiddens=h, dtype=torch.float32 if dtype == torch.float16 else dtype)
         g = make_generator(0, cuda)
         work = tm.make_work(tm.init_params(g))
-        cache, ln = engine.full_forward(work, ham.init_spins(g, k, dtype))
-        u = torch.rand((2 * l, k), generator=g, device=cuda, dtype=dtype)
+        cache, ln = engine.full_forward(work, ham.init_spins(g, k, tm.dtype))
+        cache = cache._replace(spins=cache.spins.to(dtype))
+        u = torch.rand((2 * l, k), generator=g, device=cuda, dtype=tm.dtype)
         with pytest.raises(err):
             exchange_ops.exchange_steps(work, cache, ln, b, u, u)
-    assert exchange_ops.exchange_cuda.launches == launches
+    assert (exchange_ops.exchange_cuda.launches, exchange_ops.exchange_cuda.launches_f64) == launches
 
     fm = FFNN(n_inputs=2 * l, n_hiddens=32, dtype=torch.float32)
     fwork = fm.make_work(fm.init_params(g))
@@ -914,3 +923,158 @@ def test_chain_kernel_matches_plain_on_card(cuda, body):
     assert float(far.double().mean()) >= 1.0 - 1e-2
     assert chain_ops.chain_rate(body, n_elems=1 << 18, device=cuda) > 0.0
 
+
+
+def _f64_states_agree(ck, lk, cp, lp, max_share):
+    """Float64 kernel vs plain states: the share of walkers with other
+    decisions, or near the branch cut with c (float64's tolerance), at most
+    max_share; on the others y within 1e-12 of its largest |value| and
+    ln psi within 1e-10."""
+    differ = (ck.spins != cp.spins).any(1) | near_branch_cut(ck.y) | near_branch_cut(cp.y)
+    same = ~differ
+    assert float(differ.double().mean()) <= max_share
+    assert float((ck.y[same] - cp.y[same]).abs().max()) <= 1e-12 * float(cp.y.abs().max())
+    assert float((lk[same] - lp[same]).abs().max()) <= 1e-10
+
+
+def _f64_machine(cuda, n, h, k, has_c, seed):
+    """RBM(n, h) scaled so that |y| ~ 0.5, or FFNN(n, h) with its imaginary
+    planes scaled alike, in float64, with random spins on the card."""
+    g = make_generator(seed, cuda)
+    if has_c:
+        m = FFNN(n_inputs=n, n_hiddens=h, dtype=torch.float64)
+        params = {name: torch.complex(v.real, 10.0 * v.imag) for name, v in m.init_params(g).items()}
+    else:
+        m = RBM(n_inputs=n, n_hiddens=h, dtype=torch.float64)
+        params = {name: 10.0 * v for name, v in m.init_params(g).items()}
+    work = m.make_work(params)
+    cache, ln = engine.full_forward(work, torch.where(torch.rand((k, n), generator=g, device=cuda) < 0.5, -1.0, 1.0)
+                                    .double())
+    return work, cache, ln, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_beta", [1, 8])
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+@pytest.mark.parametrize("h", [16, 80, 256, 512])
+def test_float64_sweep_instance_matches_plain(cuda, h, has_c, n_beta):
+    """The sweep kernel's float64 instances (csrc/sweep_f64.cu) against the
+    plain float64 sweep: two sweeps on the Philox stream and one on float64
+    caller uniforms, one launch each (counted in launches_f64, never in
+    the float32 count), every H on one instance."""
+    n, k = 32, 512
+    work, cache, ln, g = _f64_machine(cuda, n, h, k, has_c, 3 + h)
+    sched = torch.as_tensor(chain_checkerboard(n), device=cuda)
+    u = torch.rand((n, k), generator=g, device=cuda, dtype=torch.float64)
+    us = torch.rand((1, 2, k), generator=g, device=cuda, dtype=torch.float64) if n_beta > 1 else None
+    for args in ((PhiloxDraws(philox_key(g), 2 * n), n_beta), (u, n_beta, us)):
+        launches = (sweep_ops.sweep_cuda.launches, sweep_ops.sweep_cuda.launches_f64)
+        ck, lk, acc = sweep_ops.sweep_cuda(work, cache, sched, *args)
+        assert (sweep_ops.sweep_cuda.launches, sweep_ops.sweep_cuda.launches_f64) == (launches[0], launches[1] + 1)
+        cp, lp, _ = sweep_ops.sweep_plain(work, cache, ln, sched, *args)
+        _f64_states_agree(ck, lk, cp, lp, 1e-2)
+        assert ck.y.dtype == torch.complex128 and float(acc) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+@pytest.mark.parametrize("case", F64_STRESS)
+def test_float64_sweep_instance_on_stress_inputs(cuda, case, has_c):
+    """The float64 sweep on utils/f64_stress.py's inputs (large |Re w|, a
+    site whose unscaled product of cosh ratios leaves the double range,
+    units near a zero of cosh; H up to 512): the sums of logs stay finite
+    and the decisions are the plain version's."""
+    w, b, a, c, spins = f64_stress_inputs(case, has_c, seed=5, n=16, k=300)
+    work = Work(*(None if x is None else torch.as_tensor(x, device=cuda) for x in (w, b, a, c)))
+    cache, ln = engine.full_forward(work, torch.as_tensor(spins, device=cuda))
+    draws = PhiloxDraws(philox_key(make_generator(9, cuda)), 2 * 16)
+    sched = torch.arange(16, dtype=torch.int32, device=cuda)
+    ck, lk, _ = sweep_ops.sweep_cuda(work, cache, sched, draws)
+    cp, lp, _ = sweep_ops.sweep_plain(work, cache, ln, sched, draws)
+    assert bool(torch.isfinite(ck.y).all())
+    _f64_states_agree(ck, lk, cp, lp, 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_beta", [1, 4])
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+@pytest.mark.parametrize("h", [16, 64, 80, 384])
+def test_float64_exchange_instance_matches_plain(cuda, h, has_c, n_beta):
+    """The exchange kernel's float64 instances (csrc/exchange_f64.cu)
+    against the plain float64 (tempered) exchange at L=32 (N=64 = B): two
+    sweeps on the Philox stream and one on float64 caller uniforms, one
+    launch each (counted in launches_f64, the tempered ones in
+    launches_f64_tempered), every walker row in its sector."""
+    l, k = 32, 512
+    work, _, _, g = _f64_machine(cuda, 2 * l, h, k, has_c, 7 + h)
+    ham = HubbardChain(n_sites=2 * l, n_up=5, n_down=5)
+    cache, ln = engine.full_forward(work, ham.init_spins(g, k, torch.float64))
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    u_sel, u_acc = (torch.rand((2 * l, k), generator=g, device=cuda, dtype=torch.float64) for _ in range(2))
+    swaps = torch.rand((1, 2, k), generator=g, device=cuda, dtype=torch.float64) if n_beta > 1 else None
+    for args in ((ExchangeDraws(philox_key(g), 4 * l), None, n_beta, 2 * l), (u_sel, u_acc, n_beta, 2 * l, swaps)):
+        before = (exchange_ops.exchange_cuda.launches, exchange_ops.exchange_cuda.launches_f64,
+                  exchange_ops.exchange_cuda.launches_f64_tempered)
+        ck, lk, _ = exchange_ops.exchange_cuda(work, cache, bonds, *args)
+        assert (exchange_ops.exchange_cuda.launches, exchange_ops.exchange_cuda.launches_f64,
+                exchange_ops.exchange_cuda.launches_f64_tempered) == (before[0], before[1] + 1, before[2] + (n_beta > 1))
+        cp, lp, _ = exchange_ops.tempered_exchange_plain(work, cache, ln, bonds, *args)
+        _f64_states_agree(ck, lk, cp, lp, 1e-2)
+        up, dn = _sector_counts(ck.spins, l)
+        assert bool((up == 5).all()) and bool((dn == 5).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["litfi", "litfi_tempered", "hubbard", "hubbard_tempered"])
+def test_float64_machine_runs_on_card(cuda, kind):
+    """A float64 machine through VMC on the card: each sampler call is one
+    launch of the sweep's or the exchange's float64 instance (tempered too),
+    each spin-chain step one launch of the energy kernel's float64 instance,
+    no float32 kernel and no plain version; finite energies."""
+    nb = 4 if kind.endswith("tempered") else 1
+    if kind.startswith("litfi"):
+        machine, ham = RBMTrSymm(n_inputs=16, alpha=2, dtype=torch.float64), LITFIChain(n_sites=16)
+    else:
+        machine, ham = RBM(n_inputs=16, n_hiddens=16, dtype=torch.float64), HubbardChain(n_sites=16, n_up=3, n_down=3)
+    vmc = VMC(machine, ham, VMCConfig(n_walkers=256, n_beta=nb, seed=2), device=cuda)
+    counts = lambda: (sweep_ops.sweep_cuda.launches, sweep_ops.sweep_cuda.launches_f64,  # noqa: E731
+                      exchange_ops.exchange_cuda.launches, exchange_ops.exchange_cuda.launches_f64,
+                      exchange_ops.exchange_cuda.launches_f64_tempered, energy.offdiag_sum_cuda.launches,
+                      energy.offdiag_sum_cuda.launches_f64,
+                      sweep_ops.sweep_plain.calls + exchange_ops.exchange_plain.calls + energy.offdiag_sum_plain.calls)
+    before = counts()
+    params, state = vmc.init()
+    state = vmc.warm_up(params, state, 20)
+    _, state, history, _ = vmc.run(params, state, 4)
+    got = tuple(a - b for a, b in zip(counts(), before))
+    if kind.startswith("litfi"):
+        assert got == (0, 5, 0, 0, 0, 0, 4, 0)
+    else:
+        assert got == (0, 0, 0, 5, 5 if nb > 1 else 0, 0, 0, 0)
+        up, dn = _sector_counts(state.cache.spins, 8)
+        assert bool((up == 3).all()) and bool((dn == 3).all())
+    assert state.cache.y.dtype == torch.complex128
+    assert all(np.isfinite(h["energy"]) for h in history)
+
+
+@pytest.mark.gpu
+def test_train_driver_resumes_on_card(cuda, tmp_path):
+    """The train driver on the card (its default device): a float64 run
+    writes its text checkpoint, state and metrics, and -resume continues the
+    step count and the lambda schedule through the float64 kernels."""
+    from neural_network_quantum_state_tpu_torch.drivers import train
+
+    common = ["-model=LICH", "-ansatz=rbmtrsymm", "-L=16", "-nf=2", "-alpha=2.5", "-theta=2", "-ns=256",
+              "-dtype=float64", f"-path={tmp_path}", "-nrec=5"]
+    f64_before = sweep_ops.sweep_cuda.launches_f64
+    res = train.main(common + ["-niter=10", "-nwarm=20"])[0]
+    assert sweep_ops.sweep_cuda.launches_f64 == f64_before + 1 + 10
+    for suffix in ("", ".state.npz", ".metrics.jsonl"):
+        assert (tmp_path / (res["prefix"].split("/")[-1] + suffix)).exists()
+    res2 = train.main(common + ["-niter=3", f"-resume={res['prefix'].split('/')[-1]}"])[0]
+    assert [h["step"] for h in res2["history"]] == [10, 11, 12]
+    import json
+
+    lam = {r["step"]: r["lam"] for r in map(json.loads, open(res["prefix"] + ".metrics.jsonl"))}
+    assert abs(lam[10] - 100.0 * 0.9**11) < 1e-9
+    assert all(np.isfinite(h["energy"]) for h in res2["history"])

@@ -157,18 +157,24 @@ def test_sweeps_draw_one_block_of_uniforms_per_sweep():
 
 
 def test_off_cpu_tensors_never_run_the_plain_sweep():
-    """A tensor off the CPU goes to the kernel or raises: float64 is not
-    ported (NotImplementedError); float32 reaches the kernel's input checks,
-    which want a CUDA device (here the tensors are on the meta device)."""
+    """A tensor off the CPU goes to the kernel or raises: float32 and
+    float64 reach the kernel's input checks, which want a CUDA device (here
+    the tensors are on the meta device); a dtype with no instance (float16
+    spins) is not ported (NotImplementedError)."""
     n, k = 8, 16
     sched = torch.as_tensor(chain_checkerboard(n))
-    calls, launches = sweep_ops.sweep_plain.calls, sweep_ops.sweep_cuda.launches
-    for dtype, err in ((torch.float64, NotImplementedError), (torch.float32, ValueError)):
+    calls = sweep_ops.sweep_plain.calls
+    launches = (sweep_ops.sweep_cuda.launches, sweep_ops.sweep_cuda.launches_f64)
+    for dtype, half, err in ((torch.float64, False, ValueError), (torch.float32, False, ValueError),
+                             (torch.float32, True, NotImplementedError)):
         tm = RBMTrSymm(n_inputs=n, alpha=4, dtype=dtype)
         work = tm.make_work(tm.init_params(make_generator(0, "cpu")))
         cache, ln = engine.full_forward(work, torch.ones((k, n), dtype=dtype))
+        if half:
+            cache = cache._replace(spins=cache.spins.half())
         meta_work = Work(*(None if t is None else t.to("meta") for t in work))
         meta_cache = Cache(*(t.to("meta") for t in cache))
         with pytest.raises(err):
             sweep_ops.metropolis_sweeps(meta_work, meta_cache, ln.to("meta"), sched, torch.rand((n, k), dtype=dtype).to("meta"))
-    assert sweep_ops.sweep_plain.calls == calls and sweep_ops.sweep_cuda.launches == launches
+    assert sweep_ops.sweep_plain.calls == calls
+    assert (sweep_ops.sweep_cuda.launches, sweep_ops.sweep_cuda.launches_f64) == launches

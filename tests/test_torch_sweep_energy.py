@@ -157,7 +157,8 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     for p in build.CSRC_DIR.iterdir():
         (csrc / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", csrc)
-    assert set(build.KERNELS) == {"sweep", "energy", "exchange", "sweep_energy", "chain_rate"}
+    assert set(build.KERNELS) == {"sweep", "energy", "exchange", "exchange_tempered", "sweep_energy", "chain_rate",
+                                  "sweep_f64", "exchange_f64"}
     before = {name: build._target(name) for name in build.KERNELS}
     assert before == {name: build._target(name) for name in build.KERNELS}
     (csrc / "rbm.cuh").write_text((csrc / "rbm.cuh").read_text() + "\n// edited\n")

@@ -54,16 +54,18 @@ def test_litfi_chain_converges_to_exact(dtype):
         {"n_beta": 32, "hamiltonian": HubbardChain(n_sites=4, n_up=1, n_down=1), "dtype": torch.float32,
          "device": "cuda", "error": ValueError},
         {"mesh": object()},
-        {"device": "cuda"},
+        {"device": "cuda", "use_fused_sweeps": True, "error": ValueError},
     ],
     ids=["n_beta", "mesh", "float64_on_card"],
 )
 def test_unported_options_raise(change):
     """What the port does not take raises: a tempered-exchange ladder above
     the kernels' 16 replicas on the card (ValueError; tempered exchange
-    itself is ported, tests/test_torch_tempered_exchange.py), meshes, and a
-    float64 machine on the card (only float32 sweep kernels exist): the
-    last two NotImplementedError."""
+    itself is ported, tests/test_torch_tempered_exchange.py), meshes
+    (NotImplementedError), and the fused sweeps for a float64 machine on
+    the card (ValueError: the megakernel is float32 only, as the JAX
+    package asserts; a float64 machine itself runs the sweep and exchange
+    kernels' float64 instances)."""
     change = dict(change)
     machine = RBM(n_inputs=4, n_hiddens=4, dtype=change.pop("dtype", torch.float64))
     ham = change.pop("hamiltonian", TFIChain(n_sites=4))
@@ -134,8 +136,8 @@ def test_config_checks_and_large_v_default():
         VMC(RBM(n_inputs=16, n_hiddens=4, dtype=torch.float64), ham, VMCConfig(use_fused_sweeps=True), device="cpu")
     with pytest.raises(ValueError, match="dense solver"):
         VMC(RBM(n_inputs=16, n_hiddens=4), ham, VMCConfig(n_accumulations=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        VMC(RBM(n_inputs=16, n_hiddens=4, dtype=torch.float64), ham, VMCConfig(), device="cuda")
+    # a float64 machine off the CPU is taken (the kernels' float64 instances)
+    assert VMC(RBM(n_inputs=16, n_hiddens=4, dtype=torch.float64), ham, VMCConfig(), device="meta").device.type == "meta"
     big = VMC(RBM(n_inputs=16, n_hiddens=32), ham, VMCConfig(), device="cpu")  # V = 560
     assert big.config.solve_dtype == torch.float64
     small = VMC(RBM(n_inputs=16, n_hiddens=4), ham, VMCConfig(), device="cpu")
