@@ -130,6 +130,30 @@ Phases, each printed with its seconds:
    directory, its launches (one per sampler call of the right instance,
    the float64 energy instance once per float64 step), no plain version,
    finite energies; its step ms, init + warm-up seconds and peak memory;
+15c. the measure driver (``drivers.measure.main``, as ``python -m
+   neural_network_quantum_state_tpu_torch.drivers.measure`` runs it), each
+   run on a copy of a recorded checkpoint under the build directory: (a)
+   the Binder production run at full width and depth (-what=stag -L=64
+   -ns=8192 -nbeta=8 -niter=300 -nms=3 -nwarm=500 on
+   runs/RBMTrSymmLICH-L64NF4A2.5T0.95V9: 1 + 300 launches of the sweep's
+   n_beta = 8 instance, 0 <= m1^2 <= m2 <= 1, m4 <= m2, the campaign's
+   `binder=` grep); (b) the L=32 Hubbard trap (runs/RBMHB-L32U4V2) at the
+   recorded depth (5000 + 300 x 3): the energy within 1e-3 of the recorded
+   -0.1185681, the density summing to 10 within 1e-4 and within 0.05 of
+   the recorded profile at every site, OPDM(16,16) and OPDM(16,17) within
+   0.01 of the recorded row (1 + 301, 1 + 300, 1 + 16 x 300 exchange
+   launches), then -nbeta=4 at a cut depth through the tempered instance,
+   every replica in its sector; (c) the deep-ordered Renyi increment run
+   (runs/RBMTrSymmLICH-L64NF4A2.5T1.57V9, -l=32 -z2q=1 -init=neel, depth
+   cut): S2 within 2e-3 of ln 2, no kernel (plain PyTorch glued sweeps);
+   (d) energy (the energy kernel), renyi, fidelity, overlap, smag,
+   corrratio, zz, xx, neel and a float64 smag (the sweep's float64
+   instance) on the flagship checkpoint at full width, small depth; (e)
+   RBMTrSymm(16, alpha=4) against exact enumeration of its 2^16 states on
+   the card (smag m2, zz, xx, renyi and renyi_inc at l = 8, fidelity) at
+   n_beta = 1 and 4. Each run: launches per kernel instance (one per
+   sampler call), no plain version, finite values, wall s, iterations/s
+   and peak memory;
 16. the device time of each kernel and instance on phase 3's inputs
    (torch.profiler; the sweep and exchange in the main paths' Philox mode,
    and also on caller uniforms), beside the instance's registers and spill
@@ -139,8 +163,9 @@ Phases, each printed with its seconds:
    probe;
 17. profile 5 more LITFI SR steps, 18. 5 more Hubbard SR steps, 19. 5 more
    FFNN flagship SR steps, 20. 3 more Hubbard minSR steps, 21. 3 more 2D
-   dense SR steps, 22. 5 more tempered Hubbard SR steps.
-The profiler runs only after the timed phases 4 to 15b, so that it cannot
+   dense SR steps, 22. 5 more tempered Hubbard SR steps, 22b. 5 more
+   estimator iterations of the Binder run and of the Hubbard energy run.
+The profiler runs only after the timed phases 4 to 15c, so that it cannot
 disturb their times.
 
 Then one JSON line with the kernels' numbers, the card's name and power
@@ -247,6 +272,32 @@ DRIVER_WARM, DRIVER_STEPS, DRIVER_NREC, DRIVER_RESUME_STEPS = 100, 20, 10, 5
 DRIVER_F64_K, DRIVER_F64_WARM, DRIVER_F64_STEPS = 4096, 100, 10
 DRIVER_HUB_WARM, DRIVER_HUB_STEPS = 100, 5
 DRIVER_TEMPERED_WARM, DRIVER_TEMPERED_STEPS = 50, 3  # both float64 models at n_beta = 4
+# The measure driver's runs (phase 15c), each on a copy of a recorded
+# checkpoint under the build directory (the driver writes its files next to
+# -prefix, and runs/ holds the anchors): (a) the Binder production run
+# (scripts/binder_final_measure.sh:27-29) at full depth; (b) the L=32
+# Hubbard trap at full depth (logs/hubbard_trap_{energy,density,opdm}_eq.log),
+# held to the recorded energy (the seeds read -0.1185681 and -0.11902, the
+# unequilibrated run +0.232), density and OPDM files, then tempered
+# (-nbeta=4) at a cut depth; (c) the deep-ordered Renyi run
+# (logs/renyi_z2q_N64_T157.log: S2 = ln 2 by the ansatz's symmetry), its
+# depth cut from 400 + 500; (d) the other modes at full width, small depth.
+MEAS_BINDER_RUN, MEAS_HUB_RUN = "runs/RBMTrSymmLICH-L64NF4A2.5T0.95V9", "runs/RBMHB-L32U4V2"
+MEAS_HUB_ENERGY, MEAS_HUB_ENERGY_TOL = -0.1185681, 1e-3
+MEAS_SUM_N, MEAS_SUM_TOL, MEAS_DENSITY_TOL, MEAS_OPDM_TOL = 10.0, 1e-4, 0.05, 0.01
+MEAS_TEMPERED_WARM, MEAS_TEMPERED_ITERS = 500, 50
+MEAS_RENYI_RUN, MEAS_RENYI_TOL = "runs/RBMTrSymmLICH-L64NF4A2.5T1.57V9", 2e-3
+MEAS_RENYI_WARM, MEAS_RENYI_ITERS = 40, 60
+MEAS_FLAGSHIP, MEAS_FLAGSHIP2 = "runs/RBMTrSymmLICH-L64NF4A2.5T2V1", "runs/RBMTrSymmLICH-L64NF4A2.5T2V2"
+MEAS_SMALL_WARM, MEAS_SMALL_ITERS, MEAS_XX_ITERS, MEAS_F64_K = 100, 20, 2, 4096
+MEAS_PROFILE_ITERS = 5  # the profiled estimator iterations of (a) and (b) (phase 22b)
+# (e): RBMTrSymm(16, alpha=4), its init parameters times 4, against exact
+# enumeration on the card at n_beta = 1 and 4 (EXACT_K chains of n_beta
+# replicas); the tolerances are absolute (renyi_inc: also 5 of its errors).
+EXACT_N, EXACT_ALPHA, EXACT_SCALE, EXACT_L, EXACT_K = 16, 4, 4.0, 8, 4096
+EXACT_ITERS, EXACT_XX_ITERS, EXACT_SWEEPS, EXACT_WARM = 50, 20, 2, 200
+EXACT_INC_WALKERS, EXACT_INC_WARM = 512, 100
+EXACT_TOL = {"smag m2": 2e-3, "zz": 0.02, "xx": 0.015, "renyi": 0.02, "renyi_inc": 0.01, "fidelity": 5e-3}
 SOLVER_CHECK_RTOL = 1e-8  # the on-card solver cross-check (phase 9)
 # its CG and MINRES-QLP tolerances: 1e-10, held to the bar at the first
 # step's lambda and at the floor to what its residual allows there (cond(A)
@@ -341,34 +392,111 @@ def _bound_ms(ops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> 
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _profile_steps(torch, vmc, params, state, step0: int, n_steps: int = 5) -> None:
-    """Device time by kernel over a few more SR steps (torch.profiler), and
-    the share of the window in which the card ran no kernel."""
+def _profile(torch, run, n: int, unit: str) -> dict | None:
+    """Device time by kernel over run(), n units of work (SR steps, estimator
+    iterations; torch.profiler), and the share of the window in which the
+    card ran no kernel; returns the per-unit wall and busy ms and the idle
+    share (None where the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for i in range(n_steps):
-            params, state, _ = vmc.step(params, state, step0 + i)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     rows = [  # device-side events only (kernels, copies): host ops would count their kernels twice
-        (ev.self_device_time_total / 1e3 / n_steps, ev.count / n_steps, ev.key)
+        (ev.self_device_time_total / 1e3 / n, ev.count / n, ev.key)
         for ev in prof.key_averages()
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
     ]
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        print("step profile: the profiler recorded no device time (device busy share not measured)")
-        return
-    print(f"step profile ({n_steps} steps, profiler on): wall {wall_ms / n_steps:.3f} ms/step, device busy "
-          f"{busy:.3f} ms/step in {sum(r[1] for r in rows):.0f} device events/step, idle share {1.0 - busy * n_steps / wall_ms:.3f}")
+        print(f"{unit} profile: the profiler recorded no device time (device busy share not measured)")
+        return None
+    idle = 1.0 - busy * n / wall_ms
+    print(f"{unit} profile ({n} {unit}s, profiler on): wall {wall_ms / n:.3f} ms/{unit}, device busy "
+          f"{busy:.3f} ms/{unit} in {sum(r[1] for r in rows):.0f} device events/{unit}, idle share {idle:.3f}")
     ranked = sorted(rows, reverse=True)
     always = (*KERNEL_NAMES.values(), "conj")  # the kernels, and the conjugate copies of the CG solve
     for ms, count, key in ranked[:8] + [r for r in ranked[8:] if any(k in r[2] for k in always)]:
-        print(f"  {ms:8.4f} ms/step  {count:6.1f} calls/step  {key[:90]}")
+        print(f"  {ms:8.4f} ms/{unit}  {count:6.1f} calls/{unit}  {key[:90]}")
+    return {"wall_ms": wall_ms / n, "busy_ms": busy, "idle_share": idle}
+
+
+def _profile_steps(torch, vmc, params, state, step0: int, n_steps: int = 5) -> None:
+    """Device time by kernel over a few more SR steps (``_profile``)."""
+
+    def run():
+        p, st = params, state
+        for i in range(n_steps):
+            p, st, _ = vmc.step(p, st, step0 + i)
+
+    _profile(torch, run, n_steps, "step")
+
+
+def _exact_estimators(dev, n_beta: int) -> dict:
+    """Phase 15c (e): the estimators of RBMTrSymm(EXACT_N, alpha=EXACT_ALPHA)
+    with fixed seeded parameters (times EXACT_SCALE), sampled on `dev`
+    with an n_beta ladder, beside their exact values from enumerating the
+    2^EXACT_N states on `dev` with the same parameters: name -> (got,
+    want, tolerance)."""
+    import numpy as np
+    import torch
+
+    from neural_network_quantum_state_tpu_torch.measurements import (
+        AmplitudeSampler, fidelity, renyi2_entropy, renyi2_increment, spin_x_correlation, spin_z_correlation,
+        spontaneous_magnetization,
+    )
+    from neural_network_quantum_state_tpu_torch.models import RBMTrSymm
+    from neural_network_quantum_state_tpu_torch.ops import engine
+    from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
+
+    n, l = EXACT_N, EXACT_L
+    machine = RBMTrSymm(n_inputs=n, alpha=EXACT_ALPHA, dtype=torch.float32)
+
+    def params(seed):
+        return {k: EXACT_SCALE * v.to(dev) for k, v in machine.init_params(make_generator(seed, "cpu")).items()}
+
+    p1, p2 = params(1), params(2)
+    idx = torch.arange(2**n, device=dev)
+    basis = (1 - 2 * ((idx[:, None] >> torch.arange(n, device=dev)) & 1)).to(torch.float32)
+
+    def psi(p):  # the normalized amplitudes over the basis, on the host
+        ln = engine.log_psi(machine.make_work(p), basis).to(torch.complex128)
+        v = torch.exp(ln - ln.real.max())
+        return (v / torch.linalg.vector_norm(v)).cpu().numpy()
+
+    psi1, psi2 = psi(p1), psi(p2)
+    s, prob, flip = basis.double().cpu().numpy(), np.abs(psi1) ** 2, np.arange(2**n)
+    mat = psi1.reshape(2 ** (n - l), 2**l)
+    rho = mat.T @ mat.conj()
+    s2_exact = float(-np.log(np.real(np.trace(rho @ rho))))
+    want_x = np.array([np.real(np.vdot(psi1, psi1[flip ^ (1 << i)])) for i in range(n)])
+    want_xx = np.array([[np.real(np.vdot(psi1, psi1[flip ^ (1 << i) ^ (1 << j)])) if i != j else 1.0
+                         for j in range(n)] for i in range(n)])
+
+    def smp(seed, p=p1):
+        return AmplitudeSampler(machine, p, EXACT_K * n_beta, key=seed, n_beta=n_beta, device=dev)
+
+    out = {}
+    _, m2, _ = spontaneous_magnetization(smp(11), EXACT_ITERS, EXACT_SWEEPS, EXACT_WARM)
+    out["smag m2"] = (m2, float((prob * s.mean(1) ** 2).sum()), EXACT_TOL["smag m2"])
+    zz = spin_z_correlation(smp(12), EXACT_ITERS, EXACT_SWEEPS, EXACT_WARM)
+    out["zz"] = (zz, (s[:, :, None] * s[:, None, :] * prob[:, None, None]).sum(0), EXACT_TOL["zz"])
+    sx, sxx = spin_x_correlation(smp(13), EXACT_XX_ITERS, EXACT_SWEEPS, EXACT_WARM)
+    out["x"] = (sx, want_x, EXACT_TOL["xx"])
+    out["xx"] = (sxx, want_xx, EXACT_TOL["xx"])
+    out[f"renyi l={l}"] = (renyi2_entropy(smp(14), smp(15), l, EXACT_ITERS, EXACT_SWEEPS, EXACT_WARM), s2_exact,
+                           EXACT_TOL["renyi"])
+    s2_inc, s2_err, _ = renyi2_increment(machine, p1, l, EXACT_ITERS, 1, EXACT_INC_WARM,
+                                         walkers_per_level=EXACT_INC_WALKERS * n_beta, key=16, n_beta=n_beta,
+                                         device=dev)
+    out[f"renyi_inc l={l}"] = (s2_inc, s2_exact, max(5 * s2_err, EXACT_TOL["renyi_inc"]))
+    f_val, _ = fidelity(smp(17), smp(18, p2), EXACT_ITERS, EXACT_WARM, EXACT_SWEEPS)
+    out["fidelity"] = (f_val, float(abs(np.vdot(psi1, psi2))), EXACT_TOL["fidelity"])
+    return out
 
 
 # the template parameters of each kernel after R: C (output weights c), T
@@ -1709,6 +1837,173 @@ def main() -> int:
         _require(sector_ok(torch.as_tensor(saved["__spins__"])),
                  "train driver Hubbard float64 tempered: a replica left its sector")
 
+    _enter("15c measure driver", t0)
+    # the measure driver as a user runs it (python -m ...drivers.measure),
+    # each run on a copy of its checkpoint under the build directory (the
+    # driver writes next to -prefix; runs/ holds the anchors), the counts set
+    # to 0 just before each run: its launches, plain calls, wall seconds,
+    # iterations/s and peak memory, its printed result lines
+    import contextlib
+    import io
+
+    from neural_network_quantum_state_tpu_torch.drivers import measure as measure_driver
+    from neural_network_quantum_state_tpu_torch.measurements import fermion as fermion_meas
+
+    meas_root = build.BUILD_DIR / "measure_driver"
+    shutil.rmtree(meas_root, ignore_errors=True)
+    meas_root.mkdir(parents=True)
+    meas_results = {}
+
+    def copy_run(src: str) -> str:
+        """Copy a recorded checkpoint's text files (the symmetric machines'
+        one file, an RBM's Dw/Da/Db.dat) under meas_root; returns the copy's prefix."""
+        dst = str(meas_root / os.path.basename(src))
+        copied = [sfx for sfx in ("", "Dw.dat", "Da.dat", "Db.dat") if os.path.isfile(src + sfx)]
+        _require(bool(copied), f"{src} (a measured checkpoint) is missing from the checkout")
+        for sfx in copied:
+            shutil.copyfile(src + sfx, dst + sfx)
+        return dst
+
+    def drive_measure(label, argv, want, iterations):
+        """One measure.main run with the counts set to 0 just before; checks
+        its launches (``want``) and plain calls; prints its result lines,
+        wall s, iterations/s and peak MiB; returns (result, printed text)."""
+        reset_counts()
+        torch.cuda.synchronize()
+        mem_base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        t_run = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = measure_driver.main(argv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches, plain_calls = read_counts()
+        text = out.getvalue()
+        lines = [ln for ln in text.splitlines() if not re.match(r"# \w+ = ", ln)]
+        peak = (torch.cuda.max_memory_allocated() - mem_base) / 2**20
+        for ln in lines[-3:]:
+            print(f"measure {label}: {ln}")
+        print(f"measure {label}: wall {wall:.3f} s, {iterations} iterations, {iterations / wall:.1f} iterations/s, "
+              f"peak memory above the {mem_base / 2**20:.1f} MiB held before {peak:.1f} MiB; launches {launches}; "
+              f"plain-version calls: {plain_calls}")
+        _require(plain_calls == 0, f"measure {label}: the path called a plain version {plain_calls} times")
+        _require(launches == want, f"measure {label}: launches {launches}, expected {want}")
+        meas_results[label] = {"wall_s": wall, "iterations": iterations, "iterations_per_s": iterations / wall,
+                               "peak_mib": peak, "launches": {k_: v for k_, v in launches.items() if v}}
+        path_launches[f"measure {label}"] = launches
+        return res, text
+
+    # (a) the Binder production run: the sweep kernel's n_beta = 8 instance,
+    # one launch for the warm-up and one per iteration
+    binder_argv = ["-what=stag", "-ansatz=rbmtrsymm", "-L=64", "-nf=4", "-ns=8192", "-niter=300", "-nms=3",
+                   "-nwarm=500", "-nbeta=8", "-fused=1", "-seed=21"]
+    binder_prefix = copy_run(MEAS_BINDER_RUN)
+    (m1, m2, m4), text = drive_measure("binder", binder_argv + [f"-prefix={binder_prefix}"], expect(sweep=1 + 300), 300)
+    _require(0.0 <= m1 * m1 <= m2 <= 1.0 and m4 <= m2, f"measure binder: moments {m1}, {m2}, {m4}")
+    grep = re.findall(r"binder=[0-9.-]*", text)  # the campaign script's grep
+    _require(len(grep) == 1 and math.isfinite(float(grep[0].split("=")[1])), f"measure binder: grep {grep}")
+
+    # (b) the L=32 Hubbard trap at the recorded depth: energy, density, OPDM
+    hub_argv = ["-model=hubbard", "-U=4", "-t=1", f"-trap={HUB_TRAP}", "-ansatz=rbm", f"-L={2 * HUB_L}",
+                f"-nf={HUB_H}", f"-ns={HUB_K}", f"-npar={HUB_PARTICLES},{HUB_PARTICLES}", "-nms=3", "-fused=1"]
+    hub_prefix = copy_run(MEAS_HUB_RUN)
+    recorded_density = np.loadtxt(MEAS_HUB_RUN + ".density.dat")
+    recorded_opdm = np.loadtxt(MEAS_HUB_RUN + ".opdm16.dat")
+    full = ["-nwarm=5000", "-niter=300", f"-prefix={hub_prefix}"]
+    (e_hub, e_err), _ = drive_measure("Hubbard energy", hub_argv + full + ["-what=energy", "-seed=3"],
+                                      expect(exchange=1 + 300), 300)
+    print(f"measure Hubbard energy: {e_hub.real:+.7f} +/- {e_err:.2e}, recorded {MEAS_HUB_ENERGY} "
+          f"(difference {e_hub.real - MEAS_HUB_ENERGY:+.2e}, bar {MEAS_HUB_ENERGY_TOL})")
+    _require(abs(e_hub.real - MEAS_HUB_ENERGY) < MEAS_HUB_ENERGY_TOL, f"measure Hubbard energy {e_hub}")
+    occ, _ = drive_measure("Hubbard density", hub_argv + full + ["-what=density", "-seed=4"],
+                           expect(exchange=1 + 300), 300)
+    d_err = float(np.abs(np.c_[occ[:HUB_L], occ[HUB_L:]] - recorded_density).max())
+    print(f"measure Hubbard density: sum n = {occ.sum():.6f}; max |n - recorded| {d_err:.4f} (bar {MEAS_DENSITY_TOL})")
+    _require(abs(occ.sum() - MEAS_SUM_N) < MEAS_SUM_TOL and d_err < MEAS_DENSITY_TOL, "measure Hubbard density")
+    row, _ = drive_measure("Hubbard OPDM", hub_argv + full + ["-what=opdm", "-site=16", "-seed=5"],
+                           expect(exchange=1 + 16 * 300), 16 * 300)
+    o_err = max(abs(row[m].real - recorded_opdm[m, 0]) for m in (0, 1))
+    print(f"measure Hubbard OPDM: (16,16) {row[0].real:.6f}, (16,17) {row[1].real:.6f}, recorded "
+          f"{recorded_opdm[0, 0]:.6f}, {recorded_opdm[1, 0]:.6f}; max difference {o_err:.5f} (bar {MEAS_OPDM_TOL})")
+    _require(o_err < MEAS_OPDM_TOL and all(math.isfinite(abs(v)) for v in row), "measure Hubbard OPDM")
+    # ... then tempered (-nbeta=4), cut depth: the exchange kernel's tempered instance
+    samplers = []
+    fermion_sampler = measure_driver.FermionAmplitudeSampler
+
+    class Recorded(fermion_sampler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            samplers.append(self)
+
+    measure_driver.FermionAmplitudeSampler = Recorded
+    try:
+        occ_t, _ = drive_measure("Hubbard density tempered", hub_argv + [
+            f"-nwarm={MEAS_TEMPERED_WARM}", f"-niter={MEAS_TEMPERED_ITERS}", f"-prefix={hub_prefix}",
+            "-what=density", "-nbeta=4", "-fused=0", "-seed=4"],
+            expect(exchange=1 + MEAS_TEMPERED_ITERS, exchange_tempered=1 + MEAS_TEMPERED_ITERS), MEAS_TEMPERED_ITERS)
+    finally:
+        measure_driver.FermionAmplitudeSampler = fermion_sampler
+    _require(len(samplers) == 1 and samplers[0].n_beta == 4 and sector_ok(samplers[0].state.cache.spins)
+             and abs(occ_t.sum() - MEAS_SUM_N) < MEAS_SUM_TOL, "measure Hubbard density tempered: sectors")
+    print(f"measure Hubbard density tempered: every replica of the {HUB_K // 4} chains x 4 in its sector, "
+          f"sum n = {occ_t.sum():.6f}")
+
+    # (c) the deep-ordered Renyi run (plain PyTorch glued sweeps: no kernel)
+    renyi_prefix = copy_run(MEAS_RENYI_RUN)
+    (s2, s2_err), _ = drive_measure("Renyi increment", [
+        "-what=renyi_inc", "-ansatz=rbmtrsymm", "-L=64", "-nf=4", "-l=32", "-l0=0", "-z2q=1", "-ns=256",
+        f"-niter={MEAS_RENYI_ITERS}", "-nms=2", f"-nwarm={MEAS_RENYI_WARM}", "-init=neel", "-seed=41", "-mchunk=25",
+        f"-prefix={renyi_prefix}"], expect(), MEAS_RENYI_ITERS)
+    print(f"measure Renyi increment: S2 {s2:.6f} +/- {s2_err:.2e}, ln 2 = {math.log(2):.6f} "
+          f"(difference {s2 - math.log(2):+.2e}, bar {MEAS_RENYI_TOL})")
+    _require(abs(s2 - math.log(2)) < MEAS_RENYI_TOL, f"measure Renyi increment: S2 {s2}")
+
+    # (d) the other modes at full width and small depth on the flagship
+    flag_prefix, flag2_prefix = copy_run(MEAS_FLAGSHIP), copy_run(MEAS_FLAGSHIP2)
+    spin_argv = ["-ansatz=rbmtrsymm", "-L=64", "-nf=4", "-ns=8192", f"-nwarm={MEAS_SMALL_WARM}", "-nms=1",
+                 f"-prefix={flag_prefix}", f"-prefix2={flag2_prefix}"]
+    one = 1 + MEAS_SMALL_ITERS  # a sampler's warm-up and iterations
+    small = [f"-niter={MEAS_SMALL_ITERS}"]
+    modes = [
+        ("energy", ["-what=energy", "-model=LICH", "-theta=2", "-alpha=2.5"] + small,
+         expect(sweep=one, energy=MEAS_SMALL_ITERS)),
+        ("renyi", ["-what=renyi", "-l=32"] + small, expect(sweep=2 * one)),
+        ("fidelity", ["-what=fidelity"] + small, expect(sweep=2 * one)),
+        ("overlap", ["-what=overlap"] + small, expect(sweep=one)),
+        ("smag", ["-what=smag"] + small, expect(sweep=one)),
+        ("corrratio", ["-what=corrratio"] + small, expect(sweep=one)),
+        ("zz", ["-what=zz"] + small, expect(sweep=one)),
+        ("xx", ["-what=xx", f"-niter={MEAS_XX_ITERS}"], expect(sweep=1 + MEAS_XX_ITERS)),
+        ("neel", ["-what=neel"] + small, expect(sweep=one)),
+        ("smag float64", ["-what=smag", "-dtype=float64", f"-ns={MEAS_F64_K}"] + small, expect(sweep_f64=one)),
+    ]
+    for label, extra, want in modes:
+        iters = MEAS_XX_ITERS if label == "xx" else MEAS_SMALL_ITERS
+        res, _ = drive_measure(label, spin_argv + extra, want, iters)
+        flat = np.concatenate([np.ravel(np.asarray(v, dtype=complex)) for v in (res if isinstance(res, tuple) else (res,))])
+        _require(bool(np.isfinite(flat).all()), f"measure {label}: {res}")
+    for sfx in (".zz.dat", ".x.dat", ".xx.dat"):
+        _require(np.loadtxt(flag_prefix + sfx).shape[0] == N, f"measure: {flag_prefix}{sfx}")
+
+    # (e) N = 16 estimators against exact enumeration on the card, n_beta = 1 and 4
+    for nb in (1, TEMPERED_NBETA):
+        reset_counts()
+        t_run = time.perf_counter()
+        exact = _exact_estimators(dev, nb)
+        torch.cuda.synchronize()
+        launches, plain_calls = read_counts()
+        errs_e = {}
+        for name, (got_v, want_v, tol) in exact.items():
+            errs_e[name] = float(np.max(np.abs(np.asarray(got_v) - np.asarray(want_v))))
+            _require(errs_e[name] < tol, f"measure exact n_beta={nb}: {name} off by {errs_e[name]:.3e} (tol {tol:.3e})")
+        print(f"measure exact N={EXACT_N} n_beta={nb}: max |estimate - exact| "
+              + ", ".join(f"{k} {v:.2e} (tol {exact[k][2]:.2e})" for k, v in errs_e.items())
+              + f"; {time.perf_counter() - t_run:.1f} s; launches {launches}; plain-version calls: {plain_calls}")
+        _require(plain_calls == 0 and launches["sweep"] > 0, f"measure exact n_beta={nb}: launches {launches}")
+        meas_results[f"exact N={EXACT_N} n_beta={nb}"] = {"max_abs_err": errs_e, "tolerance": {
+            k: v[2] for k, v in exact.items()}}
+
     _enter("16 kernel device times", t0)
     # the instance each timed call runs: R = ceil(H/32) (exchange: G x U), then c and t
     hub_g = kernel_lanes(HUB_H)
@@ -1774,6 +2069,30 @@ def main() -> int:
 
     _enter("22 tempered Hubbard step profile", t0)
     _profile_steps(torch, th_vmc, th_params, th_state, HUB_SR_STEPS)
+
+    _enter("22b measure profile", t0)
+    # a few profiled estimator iterations of (a) and (b) on the same
+    # checkpoints and shapes: device busy share
+    from neural_network_quantum_state_tpu_torch.drivers.common import build_machine
+    from neural_network_quantum_state_tpu_torch.measurements import AmplitudeSampler
+    from neural_network_quantum_state_tpu_torch.measurements.estimators import measure_energy, order_parameter
+    from neural_network_quantum_state_tpu_torch.utils.checkpoint import load_reference_text
+
+    b_machine = build_machine("rbmtrsymm", N, ALPHA, torch.float32)
+    b_smp = AmplitudeSampler(b_machine, load_reference_text(b_machine, binder_prefix), K, key=21, n_beta=8,
+                             use_fused=True)
+    b_smp.warm_up(MEAS_SMALL_WARM)
+    stag = np.where(np.arange(N) % 2 == 0, 1.0, -1.0)
+    meas_results["binder"]["profile"] = _profile(
+        torch, lambda: order_parameter(b_smp, stag, MEAS_PROFILE_ITERS, 3, 0), MEAS_PROFILE_ITERS,
+        "Binder iteration")
+    h_machine = build_machine("rbm", 2 * HUB_L, HUB_H, torch.float32)
+    h_smp = fermion_meas.FermionAmplitudeSampler(h_machine, load_reference_text(h_machine, hub_prefix), HUB_K,
+                                                 HUB_PARTICLES, HUB_PARTICLES, key=3, use_fused=True)
+    h_smp.warm_up(HUB_WARM_SWEEPS)
+    meas_results["Hubbard energy"]["profile"] = _profile(  # the trap chain of -trap=HUB_TRAP: `hubbard`
+        torch, lambda: measure_energy((h_smp, hubbard), MEAS_PROFILE_ITERS, 3), MEAS_PROFILE_ITERS,
+        "Hubbard energy iteration")
 
     _enter("23 report", t0)
     print(f"launches by path: {json.dumps(path_launches)}")
@@ -2055,6 +2374,7 @@ def main() -> int:
         **chain_entry("sweep", "chain_rate"), "energy_body": chain_entry("energy", "chain_rate_energy"),
     })
     print(f"solver cross-check: {json.dumps(solver_check)}; auto's MINRES-QLP fallbacks: {json.dumps(auto_fallbacks)}")
+    print(f"measure driver: {json.dumps(meas_results)}")
     print(json.dumps({"kernels": kernels}))
     print(_smi())  # the card's name and power limit, as nvidia-smi prints them
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -5,7 +5,7 @@ PyTorch; the TPU kernels on the ported path are CUDA kernels for Hopper
 (``csrc/``), each with a plain PyTorch version that runs on the CPU. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``. The
 subpackages are exported as the JAX package exports its own (those ported:
-not yet ``measurements`` or ``parallel``), and ``drivers``, the CLI.
+not yet ``parallel``), and ``drivers``, the CLI.
 """
 
 from neural_network_quantum_state_tpu_torch.vmc import VMC, VMCConfig
@@ -13,6 +13,7 @@ from neural_network_quantum_state_tpu_torch.vmc import VMC, VMCConfig
 from neural_network_quantum_state_tpu_torch import (  # noqa: E402  (after VMC: the drivers reach nqs.VMC)
     drivers,
     hamiltonians,
+    measurements,
     models,
     ops,
     optim,
@@ -25,6 +26,7 @@ __all__ = [
     "VMCConfig",
     "drivers",
     "hamiltonians",
+    "measurements",
     "models",
     "ops",
     "optim",

@@ -1,6 +1,6 @@
-"""CLI drivers: the parameterized train entry point (the JAX package's
-``drivers``; its measure driver is not ported yet)."""
+"""CLI drivers: the parameterized train and measure entry points (the JAX
+package's ``drivers``)."""
 
-from neural_network_quantum_state_tpu_torch.drivers import common, train
+from neural_network_quantum_state_tpu_torch.drivers import common, measure, train
 
-__all__ = ["common", "train"]
+__all__ = ["common", "measure", "train"]

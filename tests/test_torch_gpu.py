@@ -1078,3 +1078,117 @@ def test_train_driver_resumes_on_card(cuda, tmp_path):
     lam = {r["step"]: r["lam"] for r in map(json.loads, open(res["prefix"] + ".metrics.jsonl"))}
     assert abs(lam[10] - 100.0 * 0.9**11) < 1e-9
     assert all(np.isfinite(h["energy"]) for h in res2["history"])
+
+
+def _launch_counts():
+    """(sweep launches, exchange launches, tempered exchange launches,
+    energy launches, plain calls of the sweep, exchange and energy)."""
+    return (sweep_ops.sweep_cuda.launches, exchange_ops.exchange_cuda.launches,
+            exchange_ops.exchange_cuda.launches_tempered, energy.offdiag_sum_cuda.launches,
+            sweep_ops.sweep_plain.calls + exchange_ops.exchange_plain.calls + energy.offdiag_sum_plain.calls)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_beta", [1, 4])
+def test_amplitude_sampler_makes_one_sweep_launch_per_iteration_on_card(cuda, n_beta):
+    """AmplitudeSampler on the card: the warm-up and every run_estimator
+    iteration are one sweep-kernel launch each (the ladder in the kernel
+    for n_beta = 4), no plain version runs, and the estimator body sees the
+    contiguous beta = 1 slice [::n_beta]."""
+    from neural_network_quantum_state_tpu_torch.measurements import AmplitudeSampler
+
+    tm = RBMTrSymm(n_inputs=16, alpha=2, dtype=torch.float32)
+    params = {k: 3.0 * v for k, v in tm.init_params(make_generator(2, cuda)).items()}
+    smp = AmplitudeSampler(tm, params, 1024, key=3, n_beta=n_beta)
+    assert smp.state.cache.spins.device.type == "cuda"  # the card by default
+    seen = []
+
+    def accum(cache, lnpsi):
+        seen.append((tuple(cache.spins.shape), cache.spins.is_contiguous(), lnpsi.is_contiguous()))
+        return cache.spins.mean(), lnpsi.real.mean()
+
+    before = _launch_counts()
+    smp.warm_up(20)
+    out = smp.run_estimator(accum, 7, n_sweeps=3, chunk=3)
+    got = tuple(a - b for a, b in zip(_launch_counts(), before))
+    assert got == (8, 0, 0, 0, 0)
+    assert seen == [((1024 // n_beta, 16), True, True)] * 7
+    assert out[0].shape == (7,) and np.isfinite(out[1]).all()
+    torch.testing.assert_close(smp.spins, smp.state.cache.spins[::n_beta])
+    torch.testing.assert_close(smp.log_psi(smp.spins), smp.lnpsi, rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_beta", [1, 4])
+def test_fermion_sampler_keeps_sectors_per_replica_on_card(cuda, n_beta):
+    """FermionAmplitudeSampler on the card: one exchange launch per sampler
+    call (of the tempered instance for n_beta = 4), no plain version, every
+    replica in its (3, 2) sector, the density summing to 5 on the beta = 1
+    slice."""
+    from neural_network_quantum_state_tpu_torch.measurements.fermion import FermionAmplitudeSampler, density_profile
+
+    tm = RBM(n_inputs=16, n_hiddens=24, dtype=torch.float32)
+    params = {k: 3.0 * v for k, v in tm.init_params(make_generator(5, cuda)).items()}
+    smp = FermionAmplitudeSampler(tm, params, 1024, 3, 2, key=7, n_beta=n_beta)
+    before = _launch_counts()
+    occ = density_profile(smp, 6, n_sweeps=2, n_warmup=30)
+    got = tuple(a - b for a, b in zip(_launch_counts(), before))
+    assert got == (0, 7, 7 if n_beta > 1 else 0, 0, 0)
+    up, dn = _sector_counts(smp.state.cache.spins, 8)
+    assert bool((up == 3).all()) and bool((dn == 2).all())
+    assert occ.shape == (16,) and abs(occ.sum() - 5.0) < 1e-5
+    assert smp.spins.shape == (1024 // n_beta, 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_beta", [1, 4])
+def test_estimators_match_exact_enumeration_at_n12_on_card(cuda, n_beta):
+    """The magnetization moments and <s_i s_j> of RBMTrSymm(12, alpha=4)
+    (fixed scaled parameters) sampled on the card against exact
+    enumeration of the 2^12 states on the card."""
+    from neural_network_quantum_state_tpu_torch.measurements import (
+        AmplitudeSampler, spin_z_correlation, spontaneous_magnetization,
+    )
+
+    n = 12
+    tm = RBMTrSymm(n_inputs=n, alpha=4, dtype=torch.float32)
+    params = {k: 4.0 * v for k, v in tm.init_params(make_generator(12, cuda)).items()}
+    idx = torch.arange(2**n, device=cuda)
+    spins = (1 - 2 * ((idx[:, None] >> torch.arange(n, device=cuda)) & 1)).to(torch.float32)
+    ln = engine.log_psi(tm.make_work(params), spins).to(torch.complex128)
+    p = torch.exp(2.0 * (ln.real - ln.real.max()))
+    p = (p / p.sum()).cpu().numpy()
+    s = spins.double().cpu().numpy()
+    m_abs = np.abs(s.mean(1))
+    m1, m2, _ = spontaneous_magnetization(AmplitudeSampler(tm, params, 4096, key=1, n_beta=n_beta), 40, 2, 200)
+    assert abs(m1 - (p * m_abs).sum()) < 0.01 and abs(m2 - (p * m_abs**2).sum()) < 0.01, (m1, m2)
+    zz = spin_z_correlation(AmplitudeSampler(tm, params, 4096, key=2, n_beta=n_beta), 40, 2, 200)
+    np.testing.assert_allclose(zz, (s[:, :, None] * s[:, None, :] * p[:, None, None]).sum(0), atol=0.03)
+
+
+@pytest.mark.gpu
+def test_measure_driver_runs_on_card(cuda, tmp_path, capsys):
+    """The measure driver on its default device: -what=energy on a spin
+    chain through the sweep and energy kernels (one energy launch per
+    iteration), -what=density through the tempered exchange instance."""
+    from neural_network_quantum_state_tpu_torch.drivers import measure
+    from neural_network_quantum_state_tpu_torch.utils.checkpoint import save_reference_text
+
+    tm = RBMTrSymm(n_inputs=16, alpha=2, dtype=torch.float32)
+    save_reference_text(tm, tm.init_params(make_generator(1, "cpu")), str(tmp_path / "spin"))
+    th = RBM(n_inputs=16, n_hiddens=16, dtype=torch.float32)
+    save_reference_text(th, th.init_params(make_generator(2, "cpu")), str(tmp_path / "hub"))
+    before = _launch_counts()
+    e, err = measure.main(["-what=energy", "-model=LICH", "-theta=1", "-alpha=2.5", "-ansatz=rbmtrsymm", "-L=16",
+                           "-nf=2", "-ns=512", f"-prefix={tmp_path}/spin", "-niter=6", "-nwarm=20", "-fused=1"])
+    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == (1 + 6, 0, 0, 6, 0)
+    assert np.isfinite(e.real) and np.isfinite(err)
+    occ = measure.main(["-what=density", "-ansatz=rbm", "-L=16", "-nf=16", "-ns=512", "-npar=2,2", "-nbeta=4",
+                        f"-prefix={tmp_path}/hub", "-niter=5", "-nwarm=20"])
+    assert abs(occ.sum() - 4.0) < 1e-5 and (tmp_path / "hub.density.dat").exists()
+    assert "# sum n = 4.0000" in capsys.readouterr().out
+    # -init=neel: the Neel row, a tensor on the card, starts every glued chain
+    s2, err = measure.main(["-what=renyi_inc", "-l=4", "-z2q=1", "-init=neel", "-ansatz=rbmtrsymm", "-L=16", "-nf=2",
+                            "-ns=64", f"-prefix={tmp_path}/spin", "-niter=4", "-nwarm=2"])
+    assert np.isfinite(s2) and np.isfinite(err)
+    assert tuple(a - b for a, b in zip(_launch_counts(), before))[-1] == 0
