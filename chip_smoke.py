@@ -50,6 +50,9 @@ Phases, each printed with its seconds:
    (2^22 elements, 32 bodies a chain), against its plain version to a
    relative 1e-5 of the largest |value| (the elements whose energy-body
    chain takes a phase near the branch cut left out, their share bounded);
+   every sweep and exchange instance (float32 and float64, n_beta = 1 and
+   tempered, with and without c) on its Philox stream at row0 = K/2, the
+   counter offset of a walker mesh's shard, against its plain version;
    the sweep's float64 instances against the plain float64 sweep (the
    flagship widened to complex128, its Philox stream and float64 caller
    uniforms, n_beta = 1 and 8, 5 sweeps in one launch, with and without c;
@@ -154,6 +157,23 @@ Phases, each printed with its seconds:
    n_beta = 1 and 4. Each run: launches per kernel instance (one per
    sampler call), no plain version, finite values, wall s, iterations/s
    and peak memory;
+15d. the walker mesh (``parallel.make_mesh(4)``: four shards of this card)
+   through the user's entry points, the counts set to 0 before each run:
+   (a) the LITFI flagship (K=8192, 100 warm-up sweeps, 10 SR steps) on one
+   device and on the mesh, the same seed: the warm-up spins equal to the
+   bit, the step-0 energy within 1e-6 relative, 4 sweep launches per
+   sampler call and 4 energy launches per step, no plain version, both
+   step times; (b) the L=32 trap on the mesh (500 warm-up sweeps, 5 steps,
+   4 exchange launches per call, every shard in its sector) and both
+   tempered flagships (n_beta = 4, 3 steps); (c) the flagship on the 2D
+   mesh (2, 2) and the TP mesh (2, 2), 3 steps, within 1e-6 of the 1D
+   mesh's energies; (d) the train driver with -mesh=4 (warm-started as in
+   15b, 20 steps, then -resume for 5), -dtype=float64 -mesh=2 (50 + 3),
+   -gridmesh=2 on two thetas (two threads, 2 shards each), and the measure
+   driver -what=stag -mesh=4 at small depth; (e) the pynqs-style API
+   (``api.sampler.RBM``, floatType float32, symmType tr) on a copy of the
+   flagship checkpoint: one sweep launch per do_mcmc_steps, get_lnpsi
+   within 1e-4 of get_lnpsi_for_fixed_spins(get_spinStates());
 16. the device time of each kernel and instance on phase 3's inputs
    (torch.profiler; the sweep and exchange in the main paths' Philox mode,
    and also on caller uniforms), beside the instance's registers and spill
@@ -165,7 +185,7 @@ Phases, each printed with its seconds:
    FFNN flagship SR steps, 20. 3 more Hubbard minSR steps, 21. 3 more 2D
    dense SR steps, 22. 5 more tempered Hubbard SR steps, 22b. 5 more
    estimator iterations of the Binder run and of the Hubbard energy run.
-The profiler runs only after the timed phases 4 to 15c, so that it cannot
+The profiler runs only after the timed phases 4 to 15d, so that it cannot
 disturb their times.
 
 Then one JSON line with the kernels' numbers, the card's name and power
@@ -291,6 +311,15 @@ MEAS_RENYI_WARM, MEAS_RENYI_ITERS = 40, 60
 MEAS_FLAGSHIP, MEAS_FLAGSHIP2 = "runs/RBMTrSymmLICH-L64NF4A2.5T2V1", "runs/RBMTrSymmLICH-L64NF4A2.5T2V2"
 MEAS_SMALL_WARM, MEAS_SMALL_ITERS, MEAS_XX_ITERS, MEAS_F64_K = 100, 20, 2, 4096
 MEAS_PROFILE_ITERS = 5  # the profiled estimator iterations of (a) and (b) (phase 22b)
+# The walker mesh (phase 15d): MESH_SHARDS shards of the one card; the
+# LITFI flagship's warm-up and MESH_STEPS steps on one device and on the
+# mesh (the step-0 energy within MESH_E0_RTOL, and the 2D and TP layouts'
+# energies of the 1D mesh's); the trap and both tempered flagships at a cut
+# depth; the train driver's grid of two thetas; the API sampler's calls,
+# its ln psi on its own spins within MESH_API_ATOL.
+MESH_SHARDS, MESH_STEPS, MESH_E0_RTOL = 4, 10, 1e-6
+MESH_HUB_STEPS, MESH_HUB_WARM, MESH_TEMPERED_STEPS, MESH_LAYOUT_STEPS = 5, 100, 3, 3
+MESH_GRID_STEPS, MESH_API_WARM, MESH_API_CALLS, MESH_API_ATOL = 3, 10, 3, 1e-4
 # (e): RBMTrSymm(16, alpha=4), its init parameters times 4, against exact
 # enumeration on the card at n_beta = 1 and 4 (EXACT_K chains of n_beta
 # replicas); the tolerances are absolute (renyi_inc: also 5 of its errors).
@@ -1229,6 +1258,39 @@ def main() -> int:
                     ExchangeDraws(philox_key(g), 2 * WIDTH_N), WIDTH_MISMATCH_MAX, bool(clab), nb, None,
                     f64_tols(w64c[1]))[:2]
 
+    # every sweep and exchange instance on its Philox stream at row0 = K/2,
+    # as a walker mesh's shard launches (the counter's walker row offset by
+    # the shard's first global row), against its plain version on the same
+    # draws
+    row0 = {}
+    for clab, w_, c_, ln_ in (("", work, cache, lnpsi), (" with c", fwork, fcache, flnpsi)):
+        for nb in (1, CHECK_NBETA):
+            draws = PhiloxDraws(philox_key(g), N, row0=K // 2)
+            ck, lk, _ = sweep_cuda(w_, c_, sched, draws, nb)
+            cp, lp, _ = sweep_plain(w_, c_, ln_, sched, draws, nb)
+            row0[("sweep", clab, nb)] = _compare(f"sweep{clab} philox row0={K // 2} n_beta={nb}", ck, lk, cp, lp,
+                                                 SWEEP_MISMATCH_MAX, SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL, failures,
+                                                 cut=bool(clab))[:2]
+            row0[("sweep_f64", clab, nb)] = sweep64_vs_plain(
+                f"{clab} row0={K // 2} n_beta={nb}", *f64_cases[clab], sched, PhiloxDraws(philox_key(g), N, row0=K // 2),
+                nb, SWEEP_MISMATCH_MAX)
+    for clab, (w_, c_, ln_), w64c in (("", (hwork, hcache, hlnpsi), h64_cases[""]),
+                                      (" with c", (hfwork, hfcache, hflnpsi), h64_cases[" with c"])):
+        for nb in (1, TEMPERED_NBETA):
+            xdraws = ExchangeDraws(philox_key(g), n_unit, row0=HUB_K // 2)
+            row0[("exchange", clab, nb)] = exchange_vs_plain(
+                f"exchange{clab} philox row0={HUB_K // 2} n_beta={nb}", w_, c_, ln_, bonds, xdraws,
+                EXCHANGE_MISMATCH_MAX, bool(clab), nb)[:2]
+            row0[("exchange_f64", clab, nb)] = exchange_vs_plain(
+                f"exchange float64{clab} philox row0={HUB_K // 2} n_beta={nb}", *w64c, bonds, xdraws,
+                EXCHANGE_MISMATCH_MAX, bool(clab), nb, None, f64_tols(w64c[1]))[:2]
+
+    def row0_entry(name):
+        """The row0 comparisons of kernel ``name``: mismatch share and
+        largest ln psi error by instance."""
+        return {f"{'c' if clab else 'rbm'} n_beta={nb}": {"mismatch_share": v[0], "max_abs_err": v[1]}
+                for (kname, clab, nb), v in row0.items() if kname == name}
+
     # the hot-math chain-rate probe against its plain chain at bench.py's size
     cx, cy = probe_inputs(N_ELEMS, dev)
     chain_err = {}
@@ -2004,6 +2066,157 @@ def main() -> int:
         meas_results[f"exact N={EXACT_N} n_beta={nb}"] = {"max_abs_err": errs_e, "tolerance": {
             k: v[2] for k, v in exact.items()}}
 
+    _enter("15d mesh", t0)
+
+    def mesh_phase():
+        """Phase 15d in a scope of its own (its names must not replace
+        those that later phases read); returns its results."""
+        # the walker mesh (parallel/mesh.py) through the user's entry points:
+        # MESH_SHARDS shards on this one card, each sampler call one launch per
+        # shard on the call's one Philox key (each shard at its first global
+        # walker row), each step's local energy one launch per shard, the SR sums
+        # reduced over the shards; held to one device with the same seed
+        from neural_network_quantum_state_tpu_torch.api import sampler as api_sampler
+        from neural_network_quantum_state_tpu_torch.parallel import gather, make_mesh, make_mesh_2d, make_mesh_tp
+
+        mesh_results = {}
+        mesh4 = make_mesh(MESH_SHARDS)
+        litfi_ham = LITFIChain(n_sites=N, h=-0.5, j=0.866, alpha=2.5, pbc=True)
+
+        def litfi_vmc(mesh, n_beta=1):
+            return VMC(RBMTrSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32), litfi_ham,
+                       VMCConfig(n_walkers=K, learning_rate=1e-2, solver="cg", use_fused_sweeps=True, n_beta=n_beta,
+                                 seed=3), mesh=mesh)
+
+        def hubbard_vmc(mesh, n_beta=1):
+            return VMC(RBM(n_inputs=2 * HUB_L, n_hiddens=HUB_H, dtype=torch.float32), hubbard,
+                       VMCConfig(n_walkers=HUB_K, learning_rate=1e-2, solver="cg", n_beta=n_beta, seed=11), mesh=mesh)
+
+        def mesh_run(label, vmc, n_warm, n_steps, want):
+            """init, one warm-up call and n_steps SR steps with the counts set to
+            0 just before; checks the launches (``want``) and that no plain
+            version ran; returns (warm-up spins gathered, final state, energies,
+            mean step ms after the first)."""
+            reset_counts()
+            t_run = time.perf_counter()
+            params, state = vmc.init()
+            warm = vmc.warm_up(params, state, n_warm)
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter() - t_run
+            stamps = [time.perf_counter()]
+            _, state, hist, _ = vmc.run(params, warm, n_steps, callback=lambda i, st: stamps.append(time.perf_counter()))
+            torch.cuda.synchronize()
+            launches, plain_calls = read_counts()
+            steps_ms = [1e3 * (b_ - a_) for a_, b_ in zip(stamps, stamps[1:])]
+            mean_ms = sum(steps_ms[1:]) / max(1, len(steps_ms) - 1)
+            energies = [r["energy"] for r in hist]
+            print(f"mesh {label}: init + warm-up {t_warm:.3f} s; step ms first {steps_ms[0]:.2f}, mean of the rest "
+                  f"{mean_ms:.2f}; energies {energies[:3]}..{energies[-1:]}; launches {launches}; "
+                  f"plain-version calls: {plain_calls}")
+            _require(len(hist) == n_steps and all(math.isfinite(e) for e in energies), f"mesh {label}: energies {energies}")
+            _require(plain_calls == 0, f"mesh {label}: a plain version ran {plain_calls} times")
+            _require(launches == want, f"mesh {label}: launches {launches}, expected {want}")
+            path_launches[label if vmc.mesh is None else f"mesh {label}"] = launches
+            mesh_results[label] = {"step_ms": mean_ms, "first_step_ms": steps_ms[0], "warm_s": t_warm,
+                                   "launches": {k_: v_ for k_, v_ in launches.items() if v_}}
+            return gather(warm.cache.spins), state, energies, mean_ms
+
+        # (a) the flagship on one device and on 4 shards, the same seed
+        s = MESH_SHARDS
+        one_warm, _, one_e, one_ms = mesh_run("LITFI one device", litfi_vmc(None), WARM_SWEEPS, MESH_STEPS,
+                                              expect(sweep=1 + MESH_STEPS, energy=MESH_STEPS))
+        m_warm, _, m_e, m_ms = mesh_run(f"LITFI {s} shards", litfi_vmc(mesh4), WARM_SWEEPS, MESH_STEPS,
+                                        expect(sweep=s * (1 + MESH_STEPS), energy=s * MESH_STEPS))
+        rel0 = abs(m_e[0] - one_e[0]) / abs(one_e[0])
+        print(f"mesh LITFI: warm-up spins equal to one device's: {torch.equal(m_warm, one_warm)}; step-0 energy "
+              f"rel. difference {rel0:.3e} (tol {MESH_E0_RTOL:.0e}); all steps' largest rel. difference "
+              f"{max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(m_e, one_e)):.3e}; step ms {m_ms:.2f} on {s} shards "
+              f"against {one_ms:.2f} on one device")
+        _require(torch.equal(m_warm, one_warm), "mesh LITFI: the warm-up spins differ from one device's")
+        _require(rel0 <= MESH_E0_RTOL, f"mesh LITFI: step-0 energy off by {rel0:.3e}")
+        mesh_results["LITFI"] = {"warm_spins_equal": True, "step0_rel_diff": rel0, "step_ms_mesh": m_ms,
+                                 "step_ms_one_device": one_ms}
+
+        # (b) the trap on 4 shards, every shard in its sector; both tempered flagships on 4 shards
+        _, h_state, _, _ = mesh_run(f"Hubbard {s} shards", hubbard_vmc(mesh4), HUB_WARM_SWEEPS, MESH_HUB_STEPS,
+                                    expect(exchange=s * (1 + MESH_HUB_STEPS)))
+        _require(all(sector_ok(p_) for p_ in h_state.cache.spins), "mesh Hubbard: a shard's walker left its sector")
+        mesh_run(f"tempered LITFI {s} shards", litfi_vmc(mesh4, TEMPERED_NBETA), WARM_SWEEPS, MESH_TEMPERED_STEPS,
+                 expect(sweep=s * (1 + MESH_TEMPERED_STEPS), energy=s * MESH_TEMPERED_STEPS))
+        _, th_state, _, _ = mesh_run(f"tempered Hubbard {s} shards", hubbard_vmc(mesh4, TEMPERED_NBETA), MESH_HUB_WARM,
+                                     MESH_TEMPERED_STEPS, expect(exchange=s * (1 + MESH_TEMPERED_STEPS),
+                                                                 exchange_tempered=s * (1 + MESH_TEMPERED_STEPS)))
+        _require(all(sector_ok(p_) for p_ in th_state.cache.spins), "mesh tempered Hubbard: a replica left its sector")
+        print(f"mesh Hubbard: every shard's walkers in the {HUB_PARTICLES}+{HUB_PARTICLES} sector, tempered too")
+
+        # (c) the 2D and TP layouts of the same 4 devices against the 1D mesh
+        for label, mesh in (("2D (2, 2)", make_mesh_2d(2, 2)), ("TP (2, 2)", make_mesh_tp(2, 2))):
+            _, _, e_, _ = mesh_run(label, litfi_vmc(mesh), WARM_SWEEPS, MESH_LAYOUT_STEPS,
+                                   expect(sweep=s * (1 + MESH_LAYOUT_STEPS), energy=s * MESH_LAYOUT_STEPS))
+            diff = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(e_, m_e))
+            print(f"mesh {label}: energies' largest rel. difference from the 1D mesh {diff:.3e} (tol {MESH_E0_RTOL:.0e})")
+            _require(diff <= MESH_E0_RTOL, f"mesh {label}: energies off the 1D mesh's by {diff:.3e}")
+            mesh_results[label]["rel_diff_1d"] = diff
+
+        # (d) the drivers: -mesh=4 warm-started and resumed, -gridmesh=2 on two
+        # thetas (two threads, each on a 2-shard submesh of the card), float64 on
+        # 2 shards; the measure driver on 4 shards
+        drive_cli(f"LITFI float32 -mesh={s}", "mesh", flagship_argv + [
+            f"-ns={K}", f"-nwarm={DRIVER_WARM}", f"-niter={DRIVER_STEPS}", f"-nrec={DRIVER_NREC}", "-ifprefix=start",
+            f"-mesh={s}"], range(DRIVER_STEPS), expect(sweep=s * (1 + DRIVER_STEPS), energy=s * DRIVER_STEPS))
+        drive_cli(f"LITFI float32 -mesh={s} resumed", "mesh", flagship_argv + [
+            f"-ns={K}", f"-niter={DRIVER_RESUME_STEPS}", f"-resume={os.path.basename(DRIVER_RUN)}", f"-mesh={s}"],
+            range(DRIVER_STEPS, DRIVER_STEPS + DRIVER_RESUME_STEPS),
+            expect(sweep=s * DRIVER_RESUME_STEPS, energy=s * DRIVER_RESUME_STEPS))
+        drive_cli("LITFI float64 -mesh=2", "mesh_f64", flagship_argv + [
+            "-dtype=float64", f"-ns={DRIVER_F64_K}", f"-nwarm={DRIVER_TEMPERED_WARM}", f"-niter={DRIVER_TEMPERED_STEPS}",
+            "-mesh=2"], range(DRIVER_TEMPERED_STEPS),
+            expect(sweep_f64=2 * (1 + DRIVER_TEMPERED_STEPS), energy_f64=2 * DRIVER_TEMPERED_STEPS))
+        grid_path = run_root / "gridmesh"
+        grid_path.mkdir(parents=True, exist_ok=True)
+        reset_counts()
+        t_run = time.perf_counter()
+        grid = train_driver.main(["-model=LICH", "-ansatz=rbmtrsymm", "-L=64", "-nf=4", "-alpha=2.5", "-theta=1.8,2.2",
+                                  f"-ns={DRIVER_F64_K}", f"-nwarm={DRIVER_TEMPERED_WARM}", f"-niter={MESH_GRID_STEPS}",
+                                  "-gridmesh=2", f"-path={grid_path}"])
+        torch.cuda.synchronize()
+        launches, plain_calls = read_counts()
+        grid_e = [r_["history"][-1]["energy"] for r_ in grid]
+        print(f"train driver -gridmesh=2 (two thetas at once, 2 shards each): {time.perf_counter() - t_run:.3f} s; "
+              f"last energies {grid_e}; launches {launches}; plain-version calls: {plain_calls}")
+        _require(len({r_["prefix"] for r_ in grid}) == 2 and all(os.path.exists(r_["prefix"]) for r_ in grid),
+                 f"-gridmesh: checkpoints {[r_['prefix'] for r_ in grid]}")
+        _require(all(math.isfinite(e_) for e_ in grid_e) and plain_calls == 0 and launches["sweep"] > 0
+                 and launches["energy"] > 0, f"-gridmesh: energies {grid_e}, launches {launches}, plain {plain_calls}")
+        path_launches["train driver -gridmesh=2"] = launches
+        flagship_copy = copy_run(MEAS_FLAGSHIP)
+        _, text = drive_measure(f"stag -mesh={s}", [
+            "-what=stag", "-ansatz=rbmtrsymm", "-L=64", "-nf=4", f"-ns={K}", f"-niter={MEAS_SMALL_ITERS}", "-nms=1",
+            f"-nwarm={MEAS_SMALL_WARM}", f"-prefix={flagship_copy}", f"-mesh={s}"],
+            expect(sweep=s * (1 + MEAS_SMALL_ITERS)), MEAS_SMALL_ITERS)
+
+        # (e) the pynqs-style API on a copy of the flagship checkpoint
+        reset_counts()
+        rbm = api_sampler.RBM(floatType="float32", symmType="tr")
+        rbm.init(nInputs=N, nHiddens=ALPHA, nChains=K, seedNumber=7, seedDistance=1, path_to_load=flagship_copy,
+                 init_mcmc_steps=MESH_API_WARM)
+        for _ in range(MESH_API_CALLS):
+            rbm.do_mcmc_steps(2)
+        ln_api = rbm.get_lnpsi()
+        ln_fixed = rbm.get_lnpsi_for_fixed_spins(rbm.get_spinStates())
+        launches, plain_calls = read_counts()
+        api_err = float(np.max(np.abs(ln_fixed - ln_api)))
+        print(f"API RBM(tr) on the flagship checkpoint: |get_lnpsi - get_lnpsi_for_fixed_spins| {api_err:.3e} "
+              f"(tol {MESH_API_ATOL:.0e}); launches {launches}; plain-version calls: {plain_calls}")
+        _require(api_err <= MESH_API_ATOL and ln_api.shape == (K,), f"API: ln psi off by {api_err:.3e}")
+        _require(launches == expect(sweep=1 + MESH_API_CALLS) and plain_calls == 0, f"API: launches {launches}")
+        path_launches["API sampler"] = launches
+        mesh_results["API"] = {"max_abs_err": api_err, "launches": launches["sweep"]}
+        print(f"mesh: {json.dumps(mesh_results)}")
+        return mesh_results
+
+    mesh_results = mesh_phase()
+
     _enter("16 kernel device times", t0)
     # the instance each timed call runs: R = ceil(H/32) (exchange: G x U), then c and t
     hub_g = kernel_lanes(HUB_H)
@@ -2174,12 +2387,17 @@ def main() -> int:
                if c in tempered_calls else {}),
         }
 
+    def mesh_launches(name):
+        """Kernel ``name``'s launches on the walker-mesh paths (phase 15d)."""
+        return sum(v.get(name, 0) for k_, v in path_launches.items() if "mesh" in k_)
+
     kernels = [
         {
             "name": name, "route": "cuda",
             "source": f"neural_network_quantum_state_tpu_torch/csrc/{name}.cu",
-            # launches: both instances, over every path; has_c: the instance with c alone
+            # launches: both instances, over every path (the mesh's among them); has_c: the instance with c alone
             "replaces": replaces[name], "launches": sum(p[name] for p in path_launches.values()),
+            **({"row0": row0_entry(name)} if name in ("sweep", "exchange") else {}),
             **errs[name],
             # ms: the kernel's device time; the wrapper's time where the profiler saw none
             "ms": device_ms[name] if device_ms[name] is not None else timing[name][0],
@@ -2323,6 +2541,7 @@ def main() -> int:
         "name": "sweep_f64", "route": "cuda", "source": "neural_network_quantum_state_tpu_torch/csrc/sweep_f64.cu",
         "replaces": replaces["sweep"], "instance_of": "sweep",
         "launches": sum(p.get("sweep_f64", 0) for p in path_launches.values()),
+        "row0": row0_entry("sweep_f64"),
         **sweep64_entry("", ""), "has_c": sweep64_entry(" with c", "_c"),
     })
 
@@ -2347,6 +2566,7 @@ def main() -> int:
         "replaces": replaces["exchange"], "instance_of": "exchange",
         # launches: every float64 instance's, over every path (the tempered ones also below)
         "launches": sum(p.get("exchange_f64", 0) for p in path_launches.values()),
+        "row0": row0_entry("exchange_f64"),
         **exchange64_entry("", "", False), "has_c": exchange64_entry(" with c", "_c", False),
         "tempered": {"launches": sum(p.get("exchange_f64_tempered", 0) for p in path_launches.values()),
                      **exchange64_entry("", "", True), "has_c": exchange64_entry(" with c", "_c", True)},
@@ -2373,8 +2593,11 @@ def main() -> int:
         "replaces": "bench.py:105", "launches": sum(p.get("chain_rate", 0) for p in path_launches.values()),
         **chain_entry("sweep", "chain_rate"), "energy_body": chain_entry("energy", "chain_rate_energy"),
     })
+    for entry in kernels:  # of every kernel's launches, those on the walker-mesh paths (phase 15d)
+        entry["mesh_launches"] = mesh_launches(entry["name"])
     print(f"solver cross-check: {json.dumps(solver_check)}; auto's MINRES-QLP fallbacks: {json.dumps(auto_fallbacks)}")
     print(f"measure driver: {json.dumps(meas_results)}")
+    print(f"walker mesh: {json.dumps(mesh_results)}")
     print(json.dumps({"kernels": kernels}))
     print(_smi())  # the card's name and power limit, as nvidia-smi prints them
     print(f"# total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -179,6 +179,7 @@ struct ExchangeArgs {
   int* swap_out;  // (K,) accepted swaps with each row as the lower member (tempered instances)
   int K, N, H, B, n_steps;
   int n_unit, n_beta;  // proposals per sweep and replicas (tempered instances)
+  int row0;            // the first walker's row in the Philox counter
 };
 
 __host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
@@ -333,8 +334,9 @@ __device__ __forceinline__ float group_sum(float v) {
 }
 
 // The selection and acceptance uniforms of walker row k. In the Philox mode
-// the uniform of proposal t is word t % 4 of philox(counter (t / 4, k, 0,
-// stream), key), as ops/rng.py philox_uniforms makes it: lanes l < G/2 of the
+// the uniform of proposal t is word t % 4 of philox(counter (t / 4, row0 + k,
+// 0, stream), key), as ops/rng.py philox_uniforms makes it (row0: the
+// shard's first global walker row, 0 without a mesh): lanes l < G/2 of the
 // walker hold selection block base + l, lanes G/2 + l acceptance block
 // base + l, so one evaluation per lane covers 2G proposals, and a proposal's
 // two uniforms come out by two shuffles. t is uniform over the warp, so every
@@ -363,7 +365,7 @@ struct ExchangeDraws {
     const int blk = t >> 2;
     if ((blk & ~(kHalf - 1)) != base) {
       base = blk & ~(kHalf - 1);
-      const uint4 ctr = make_uint4(static_cast<unsigned>(base + (gl & (kHalf - 1))), static_cast<unsigned>(k), 0u,
+      const uint4 ctr = make_uint4(static_cast<unsigned>(base + (gl & (kHalf - 1))), static_cast<unsigned>(p.row0 + k), 0u,
                                    gl < kHalf ? kSelectStream : kAcceptStream);
       bits = nqs::philox4x32_10(ctr, key);
     }
@@ -378,7 +380,7 @@ struct ExchangeDraws {
   // The swap uniform of sweep s, parity `parity`, lower row `lower`.
   __device__ __forceinline__ Real swap(const A& p, int s, int parity, int lower) const {
     if (p.u_sel) return __ldg(p.u_swap + (size_t)(2 * s + parity) * p.K + lower);
-    return nqs::swap_uniform(key, s, parity, lower);
+    return nqs::swap_uniform(key, s, parity, p.row0 + lower);
   }
 };
 
@@ -840,16 +842,18 @@ cudaError_t dispatch(const ExchangeArgs& p, cudaStream_t stream) {
 // swap_out and n_unit unread); 1 < n_beta <= 16 a tempered one: K a
 // multiple of n_beta, n_steps a multiple of n_unit (the proposals per
 // sweep), u_swap (n_steps / n_unit, 2, K) beside u_sel, and swap_out (K,)
-// accepted swaps with each row as the lower member. Each returns the
-// cudaError_t of the launch (0 on success).
+// accepted swaps with each row as the lower member. row0 >= 0 is the first
+// walker's row in the Philox counter (row0 + K < 2^31), after the stream so
+// that a build of a source without it is called the same way at row0 = 0.
+// Each returns the cudaError_t of the launch (0 on success).
 #define NQS_EXCHANGE_PARAMS                                                                                       \
   const void *w, const void *a, const void *c, const void *bonds, const void *inc_ptr, const void *inc_idx,      \
       const void *spins_in, const void *y_in, const void *sa_in, const void *u_sel, const void *u_acc,          \
       const void *u_swap, const void *key, void *spins_out, void *y_out, void *sa_out, void *acc_out,           \
-      void *swap_out, int K, int N, int H, int B, int n_steps, int n_unit, int n_beta, void *stream
+      void *swap_out, int K, int N, int H, int B, int n_steps, int n_unit, int n_beta, void *stream, int row0
 #define NQS_EXCHANGE_ARGS                                                                                         \
   w, a, c, bonds, inc_ptr, inc_idx, spins_in, y_in, sa_in, u_sel, u_acc, u_swap, key, spins_out, y_out, sa_out, \
-      acc_out, swap_out, K, N, H, B, n_steps, n_unit, n_beta, stream
+      acc_out, swap_out, K, N, H, B, n_steps, n_unit, n_beta, stream, row0
 
 // The checked arguments of that interface as the instance's args struct A
 // (ExchangeArgs, or exchange_f64.cu's): cudaErrorInvalidValue where a shape,
@@ -863,6 +867,7 @@ cudaError_t exchange_args(A* p, NQS_EXCHANGE_PARAMS) {
     return cudaErrorInvalidValue;
   if ((u_sel == nullptr) != (u_acc == nullptr) || (u_sel == nullptr && key == nullptr)) return cudaErrorInvalidValue;
   if (n_beta < 1 || n_beta > nqs::kMaxNBeta || K % n_beta != 0) return cudaErrorInvalidValue;
+  if (row0 < 0 || row0 > INT_MAX - K) return cudaErrorInvalidValue;
   if (n_beta > 1 && (n_unit < 1 || n_steps % n_unit != 0 || swap_out == nullptr || (u_sel != nullptr && u_swap == nullptr)))
     return cudaErrorInvalidValue;
   *p = A{static_cast<const R2*>(w),      static_cast<const R2*>(a),       static_cast<const R2*>(c),
@@ -871,7 +876,7 @@ cudaError_t exchange_args(A* p, NQS_EXCHANGE_PARAMS) {
          static_cast<const R*>(u_sel),   static_cast<const R*>(u_acc),    static_cast<const R*>(u_swap),
          static_cast<const long long*>(key), static_cast<R*>(spins_out), static_cast<R2*>(y_out),
          static_cast<R2*>(sa_out),       static_cast<int*>(acc_out),      static_cast<int*>(swap_out),
-         K, N, H, B, n_steps, n_unit, n_beta};
+         K, N, H, B, n_steps, n_unit, n_beta, row0};
   return cudaSuccess;
 }
 

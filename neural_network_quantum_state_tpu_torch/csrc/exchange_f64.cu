@@ -64,6 +64,7 @@ struct ExchangeArgsF64 {
   int* swap_out;
   int K, N, H, B, n_steps;
   int n_unit, n_beta;
+  int row0;
 };
 
 // Byte offsets of a block's shared memory for W walkers (one a warp): a
@@ -219,7 +220,7 @@ __global__ void __launch_bounds__(32 * kMaxWarpsT) exchange_kernel_f64(const Exc
   if constexpr (T) {
     // sweeps of n_unit proposals at the row's beta, each followed by the even
     // and the odd swap phase
-    const nqs::d::Draws swaps(p.u_sel, p.u_swap, p.key, p.K);
+    const nqs::d::Draws swaps(p.u_sel, p.u_swap, p.key, p.K, p.row0);
     const int n_sweeps = p.n_steps / p.n_unit;
     for (int s = 0; s < n_sweeps; ++s) {
       scale = 2.0 * nqs::d::row_beta(row, p.n_beta);

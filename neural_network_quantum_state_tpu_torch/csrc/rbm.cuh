@@ -37,6 +37,8 @@
 
 #pragma once
 
+#include <climits>
+
 #include <cuda_runtime.h>
 
 namespace nqs {
@@ -303,8 +305,11 @@ __device__ __forceinline__ void store_row(float2* row, int H, int lane, const fl
 // the flip uniform of round t and walker row k is word t % 4 of
 // philox(counter (t / 4, k, 0, 0), key); the swap uniform of sweep s, parity
 // p and lower row k is word (2s + p) % 4 of philox(counter ((2s + p) / 4, k,
-// 0, 1), key). Every call takes a fresh key. ops/rng.py::philox_uniforms
-// makes the same numbers in PyTorch.
+// 0, 1), key). Every call takes a fresh key. The counter's row k is the
+// walker's row plus row0: a launch on one shard of a walker mesh draws at
+// the global rows of its walkers, so the shards of one key draw the numbers
+// of one launch over all of them. ops/rng.py::philox_uniforms makes the same
+// numbers in PyTorch.
 struct SweepArgs {
   const float2* w;  // (N, H)
   const float2* a;  // (N,)
@@ -314,6 +319,7 @@ struct SweepArgs {
   const long long* key;  // (2,) words in [0, 2^32), read when u is null
   const float4* wt;  // (N, H) table of energy.cu, read by the instances with c
   int K, N, H, n_sites, n_steps, n_beta;
+  int row0 = 0;  // the first walker's row in the Philox counter (0: the megakernel's)
 };
 
 // The flip uniforms of one walker. In the Philox mode lane l holds the four
@@ -336,7 +342,7 @@ struct FlipDraws {
     const int blk = t >> 2;
     if ((blk & ~31) != base) {
       base = blk & ~31;
-      const uint4 ctr = make_uint4(static_cast<unsigned>(base + lane), static_cast<unsigned>(row), 0u, 0u);
+      const uint4 ctr = make_uint4(static_cast<unsigned>(base + lane), static_cast<unsigned>(p.row0 + row), 0u, 0u);
       bits = philox4x32_10(ctr, key);
     }
     return bits_uniform(__shfl_sync(kFull, word(bits, t & 3), blk & 31));
@@ -345,7 +351,7 @@ struct FlipDraws {
   // The swap uniform of sweep s, parity `parity`, lower row `lower`.
   __device__ __forceinline__ float swap(const SweepArgs& p, int s, int parity, int lower) const {
     if (p.u) return __ldg(p.u_swap + (size_t)(2 * s + parity) * p.K + lower);
-    return swap_uniform(key, s, parity, lower);
+    return swap_uniform(key, s, parity, p.row0 + lower);
   }
 };
 

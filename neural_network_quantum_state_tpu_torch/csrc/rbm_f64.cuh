@@ -72,18 +72,20 @@ __device__ __forceinline__ double warp_allsum(double v) {
 
 // The flip and swap uniforms of one walker, from the caller (u non-null:
 // (n_steps, K) flips, (n_sweeps, 2, K) swaps, doubles) or from the sweep's
-// Philox stream on `key` (rbm.cuh FlipDraws: the same float32 numbers,
-// widened), which ops/rng.py::philox_uniforms makes for the plain version.
+// Philox stream on `key` at walker rows offset by row0 (rbm.cuh FlipDraws:
+// the same float32 numbers, widened), which ops/rng.py::philox_uniforms makes
+// for the plain version.
 struct Draws {
   const double* u;
   const double* u_swap;
   int K;
+  int row0;
   uint2 key;
   uint4 bits;
   int base;  // first counter block of `bits`, -1 before the first evaluation
 
-  __device__ __forceinline__ Draws(const double* u_, const double* u_swap_, const long long* key_, int K_)
-      : u(u_), u_swap(u_swap_), K(K_), bits(make_uint4(0u, 0u, 0u, 0u)), base(-1) {
+  __device__ __forceinline__ Draws(const double* u_, const double* u_swap_, const long long* key_, int K_, int row0_)
+      : u(u_), u_swap(u_swap_), K(K_), row0(row0_), bits(make_uint4(0u, 0u, 0u, 0u)), base(-1) {
     key = u ? make_uint2(0u, 0u) : make_uint2(static_cast<unsigned>(key_[0]), static_cast<unsigned>(key_[1]));
   }
   // The rows of a tempered block change between sweeps: start anew.
@@ -95,7 +97,7 @@ struct Draws {
     const int blk = t >> 2;
     if ((blk & ~31) != base) {
       base = blk & ~31;
-      const uint4 ctr = make_uint4(static_cast<unsigned>(base + lane), static_cast<unsigned>(row), 0u, 0u);
+      const uint4 ctr = make_uint4(static_cast<unsigned>(base + lane), static_cast<unsigned>(row0 + row), 0u, 0u);
       bits = philox4x32_10(ctr, key);
     }
     return static_cast<double>(bits_uniform(__shfl_sync(kFull, word(bits, t & 3), blk & 31)));
@@ -104,7 +106,7 @@ struct Draws {
   // The swap uniform of sweep s, parity `parity`, lower row `lower`.
   __device__ __forceinline__ double swap(int s, int parity, int lower) const {
     if (u) return __ldg(u_swap + (size_t)(2 * s + parity) * K + lower);
-    return static_cast<double>(swap_uniform(key, s, parity, lower));
+    return static_cast<double>(swap_uniform(key, s, parity, row0 + lower));
   }
 };
 

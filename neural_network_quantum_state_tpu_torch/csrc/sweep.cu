@@ -138,8 +138,10 @@ cudaError_t dispatch(const SweepArgs& p, const void* c, const void* spins_in, co
 // sa (K,); spins (K, N); sched (n_sites,); u (n_steps, K) and u_swap
 // (n_steps / n_sites, 2, K), read only for n_beta > 1; or u and u_swap null
 // and key (2,) int64 words in [0, 2^32): the Philox stream of rbm.cuh
-// SweepArgs. n_steps is a multiple of n_sites for n_beta > 1, K a
-// multiple of n_beta, n_beta <= 16.
+// SweepArgs, row0 >= 0 the first walker's row in its counter (row0 + K <
+// 2^31). n_steps is a multiple of n_sites for n_beta > 1, K a multiple of
+// n_beta, n_beta <= 16. row0 comes after the stream, so that a build of a
+// source without it is called the same way at row0 = 0.
 // flip_out (K,): accepted flips while in each row; swap_out (K,): accepted
 // swaps with each row as the lower member. 1 <= H <= 512.
 // Returns the cudaError_t of the launch (0 on success).
@@ -147,9 +149,9 @@ extern "C" int nqs_sweep_f32(const void* w, const void* a, const void* c, const 
                              const void* y_in, const void* sa_in, const void* sched, const void* u,
                              const void* u_swap, const void* key, void* spins_out, void* y_out, void* sa_out,
                              void* flip_out, void* swap_out, int K, int N, int H, int n_sites, int n_steps,
-                             int n_beta, void* stream) {
+                             int n_beta, void* stream, int row0) {
   if (K <= 0 || N <= 0 || n_sites <= 0 || n_steps <= 0 || H < 1 || H > 32 * nqs::kMaxR ||
-      nqs::sweep_warps(n_beta) == 0 || K % n_beta != 0)
+      nqs::sweep_warps(n_beta) == 0 || K % n_beta != 0 || row0 < 0 || row0 > INT_MAX - K)
     return cudaErrorInvalidValue;
   if (n_beta > 1 && n_steps % n_sites != 0) return cudaErrorInvalidValue;
   if (u == nullptr ? key == nullptr : n_beta > 1 && u_swap == nullptr) return cudaErrorInvalidValue;
@@ -157,7 +159,7 @@ extern "C" int nqs_sweep_f32(const void* w, const void* a, const void* c, const 
   const SweepArgs p{static_cast<const float2*>(w), static_cast<const float2*>(a), static_cast<const int*>(sched),
                     static_cast<const float*>(u), static_cast<const float*>(u_swap),
                     static_cast<const long long*>(key), static_cast<const float4*>(wt), K, N, H, n_sites, n_steps,
-                    n_beta};
+                    n_beta, row0};
 #define NQS_SWEEP_ARGS p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out, flip_out, swap_out, stream
   // with c, a launch of more than one sweep takes the instance that restarts
   // cos/sin(Im y) at each sweep (M, rbm.cuh sweep_walker)

@@ -50,6 +50,7 @@ struct SweepArgsF64 {
   const double* u_swap;   // (n_steps / n_sites, 2, K) with u, for n_beta > 1
   const long long* key;   // (2,) words in [0, 2^32), read when u is null
   int K, N, H, n_sites, n_steps, n_beta;
+  int row0;               // the first walker's row in the Philox counter
 };
 
 // Shared memory of a block of G warps: c (H, C = true), then per warp its
@@ -103,7 +104,7 @@ sweep_kernel_f64(SweepArgsF64 p, const double2* __restrict__ c, const double* __
   double ln0 = active ? nqs::d::warp_allsum(l) + sa.x : 0.0;
 
   int row = k;
-  nqs::d::Draws draws(p.u, p.u_swap, p.key, p.K);
+  nqs::d::Draws draws(p.u, p.u_swap, p.key, p.K, p.row0);
   // sweeps of n_sites rounds, or for T = false all n_steps rounds in one run
   // over the schedule
   const int rounds = T ? p.n_sites : p.n_steps;
@@ -187,8 +188,10 @@ cudaError_t launch(const SweepArgsF64& p, const void* c, const void* spins_in, c
 // sa (K,); spins (K, N) of +-1 doubles; sched (n_sites,) int32; u
 // (n_steps, K) and u_swap (n_steps / n_sites, 2, K) doubles, u_swap read
 // only for n_beta > 1; or u and u_swap null and key (2,) int64 words in
-// [0, 2^32): the Philox stream of rbm.cuh SweepArgs. n_steps is a multiple
-// of n_sites for n_beta > 1, K a multiple of n_beta, n_beta <= 16.
+// [0, 2^32): the Philox stream of rbm.cuh SweepArgs, row0 >= 0 the first
+// walker's row in its counter (row0 + K < 2^31; after the stream, as in
+// sweep.cu). n_steps is a multiple of n_sites for n_beta > 1, K a multiple
+// of n_beta, n_beta <= 16.
 // flip_out (K,): accepted flips while in each row; swap_out (K,): accepted
 // swaps with each row as the lower member. 1 <= H <= 512. Returns the
 // cudaError_t of the launch (0 on success).
@@ -196,15 +199,15 @@ extern "C" int nqs_sweep_f64(const void* w, const void* a, const void* c, const 
                              const void* sa_in, const void* sched, const void* u, const void* u_swap,
                              const void* key, void* spins_out, void* y_out, void* sa_out, void* flip_out,
                              void* swap_out, int K, int N, int H, int n_sites, int n_steps, int n_beta,
-                             void* stream) {
+                             void* stream, int row0) {
   if (K <= 0 || N <= 0 || n_sites <= 0 || n_steps <= 0 || H < 1 || H > 32 * nqs::kMaxR ||
-      nqs::sweep_warps(n_beta) == 0 || K % n_beta != 0)
+      nqs::sweep_warps(n_beta) == 0 || K % n_beta != 0 || row0 < 0 || row0 > INT_MAX - K)
     return cudaErrorInvalidValue;
   if (n_beta > 1 && n_steps % n_sites != 0) return cudaErrorInvalidValue;
   if (u == nullptr ? key == nullptr : n_beta > 1 && u_swap == nullptr) return cudaErrorInvalidValue;
   const SweepArgsF64 p{static_cast<const double2*>(w), static_cast<const double2*>(a), static_cast<const int*>(sched),
                        static_cast<const double*>(u), static_cast<const double*>(u_swap),
-                       static_cast<const long long*>(key), K, N, H, n_sites, n_steps, n_beta};
+                       static_cast<const long long*>(key), K, N, H, n_sites, n_steps, n_beta, row0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NQS_SWEEP_ARGS p, c, spins_in, y_in, sa_in, spins_out, y_out, sa_out, flip_out, swap_out, s
   if (c != nullptr) return n_beta > 1 ? launch<true, true>(NQS_SWEEP_ARGS) : launch<true, false>(NQS_SWEEP_ARGS);

@@ -16,9 +16,10 @@ The options, defaults, printed lines, output files (written next to
   sampler call is one launch of the sweep kernel (the exchange kernel for
   the fermion modes; their tempered instances with -nbeta > 1, their
   float64 instances with -dtype=float64) and the spin models' -what=energy
-  runs the energy kernel; -fused=1 changes no route;
-- ``-mesh > 0`` raises NotImplementedError: multi-device walker sharding is
-  ``ROADMAP.md``'s A4, not ported yet.
+  runs the energy kernel; -fused=1 changes no route.
+``-mesh=n`` shards every sampler's walkers over ``parallel.make_mesh(n)``
+(one launch per shard and sampler call; two replicas share one sharding),
+and the renyi_inc levels x walkers batch with them.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from neural_network_quantum_state_tpu_torch.measurements.estimators import (
 )
 from neural_network_quantum_state_tpu_torch.measurements.fermion import density_profile, opdm_pair
 from neural_network_quantum_state_tpu_torch.measurements.renyi_increment import swap_base_z2
-from neural_network_quantum_state_tpu_torch.measurements.sampler import MESH_NOT_PORTED
+from neural_network_quantum_state_tpu_torch.parallel.mesh import make_mesh
 from neural_network_quantum_state_tpu_torch.sampler import kawasaki, tempering
 from neural_network_quantum_state_tpu_torch.utils.checkpoint import load_reference_text
 from neural_network_quantum_state_tpu_torch.utils.cli import DriverArgs
@@ -156,8 +157,7 @@ def main(argv=None, device: torch.device | str = "cuda"):
     seed = args.find("seed", int)
     niter, nms, nwarm = args.find("niter", int), args.find("nms", int), args.find("nwarm", int)
     n_mesh = args.find("mesh", int)
-    if n_mesh > 0:
-        raise NotImplementedError(f"-mesh={n_mesh}: {MESH_NOT_PORTED}")
+    mesh = make_mesh(n_mesh, device=device) if n_mesh > 0 else None
     device = torch.device(device)
 
     machine = build_machine(args.find("ansatz").lower(), n, nf, dtype)
@@ -176,7 +176,7 @@ def main(argv=None, device: torch.device | str = "cuda"):
         # warmed probe ensemble of this checkpoint
         probe = AmplitudeSampler(machine, params, ns, key=seed + 13, init_spins=init_spins, device=device)
         probe.warm_up(nwarm)
-        n_beta, diags = tempering.tune_n_beta(probe.work, probe.state, probe.schedule, n_devices=1)
+        n_beta, diags = tempering.tune_n_beta(probe.work, probe.state, probe.schedule, n_devices=max(n_mesh, 1))
         for cand, d in sorted(diags.items()):
             print(f"# nbeta=auto probe n_beta={cand}: swap/pair "
                   + "/".join(f"{a:.2f}" for a in d["swap"])
@@ -203,7 +203,7 @@ def main(argv=None, device: torch.device | str = "cuda"):
             probe = FermionAmplitudeSampler(machine, params, ns, n_up, n_down, key=seed + 13, device=device)
             probe.warm_up(nwarm)
             nb, diags = kawasaki.tune_n_beta_exchange(
-                probe.work, probe.state, probe.bonds, probe.n_unit_steps, n_devices=1,
+                probe.work, probe.state, probe.bonds, probe.n_unit_steps, n_devices=max(n_mesh, 1),
             )
             for cand, d in sorted(diags.items()):
                 print(f"# nbeta=auto probe n_beta={cand}: swap/pair "
@@ -211,12 +211,12 @@ def main(argv=None, device: torch.device | str = "cuda"):
                       + "  exch/replica " + "/".join(f"{a:.2f}" for a in d["flip"]))
             print(f"# nbeta=auto -> n_beta={nb}")
         return with_chunk(FermionAmplitudeSampler(
-            machine, params, ns, n_up, n_down, key=key, n_beta=nb, use_fused=use_fused, device=device,
+            machine, params, ns, n_up, n_down, key=key, n_beta=nb, mesh=mesh, use_fused=use_fused, device=device,
         ))
 
     def make_sampler(key, machine_=machine, params_=params):
         return with_chunk(AmplitudeSampler(
-            machine_, params_, ns, key=key, init_spins=init_spins, n_beta=n_beta, use_fused=use_fused,
+            machine_, params_, ns, key=key, init_spins=init_spins, n_beta=n_beta, mesh=mesh, use_fused=use_fused,
             device=device,
         ))
 
@@ -270,7 +270,7 @@ def main(argv=None, device: torch.device | str = "cuda"):
             walkers_per_level=ns, key=seed, chunk=mchunk,
             level_offset=l0, init_spins=inc_init,
             z2_quadrature=bool(args.find("z2q", int)),
-            n_beta=max(n_beta, 1), device=device,
+            n_beta=max(n_beta, 1), mesh=mesh, device=device,
         )
         # levels are INDEPENDENT chains, so the running sums give the whole
         # entanglement profile S2(l') for every l' <= l from this one

@@ -12,12 +12,16 @@ early stop, periodic auto-save and structured resume.
         -ns=8192 -niter=2000 -path=./runs
 
 The options, defaults, file names and stdout lines are the JAX driver's.
-It differs in:
+``-mesh=n`` shards the walkers over ``parallel.make_mesh(n)`` (n shards
+round-robin over the visible cards, or the CPU); ``-resume`` on a mesh
+replicates the restored parameters and re-shards the walkers, and the saved
+``.state.npz`` holds the gathered walkers, so a mesh run and a one-device
+run resume each other. ``-gridmesh=g`` with several grid points runs them
+concurrently in a thread pool, each on its own g-shard submesh
+(``parallel.make_submeshes``: disjoint cards where there are at least g
+times the points of them, shared cards otherwise). It differs in:
 - no compilation cache (PyTorch runs eagerly; the JAX driver's persistent
   XLA cache has no counterpart);
-- ``-mesh > 0``, and ``-gridmesh > 0`` with more than one grid point, raise
-  NotImplementedError: multi-device walker sharding is ``ROADMAP.md``'s A4,
-  not ported yet;
 - ``-ckpt=orbax`` raises NotImplementedError (Orbax is a JAX library); the
   structured state is ``.state.npz`` with this package's generator state
   (``utils/checkpoint.py``);
@@ -34,6 +38,7 @@ import dataclasses
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -45,6 +50,7 @@ from neural_network_quantum_state_tpu_torch.drivers.common import (
     enable_cli_logging,
     hamiltonian_kwargs,
 )
+from neural_network_quantum_state_tpu_torch.parallel.mesh import Mesh, gather, make_mesh, make_submeshes, n_devices
 from neural_network_quantum_state_tpu_torch.sampler import kawasaki, metropolis, tempering
 from neural_network_quantum_state_tpu_torch.utils.checkpoint import (
     load_npz,
@@ -151,11 +157,10 @@ DEFAULTS = {
     "blockmoves": "0",
 }
 
-_MESH_NOT_PORTED = ("multi-device walker sharding (ROADMAP.md A4) is not ported to PyTorch yet; "
-                    "run with -mesh=0 -gridmesh=0")
-
-
-def run_one(model, ansatz, l, nf, args, theta, alpha, ver, device: torch.device | str = "cuda") -> dict:
+def run_one(model, ansatz, l, nf, args, theta, alpha, ver, device: torch.device | str = "cuda",
+            mesh_override: Mesh | None = None) -> dict:
+    """One grid point: train and save. ``mesh_override`` (a -gridmesh
+    submesh) takes the place of -mesh."""
     dtype = torch.float32 if args.find("dtype") == "float32" else torch.float64
     n_inputs = 2 * l if model == "hubbard" else l
     machine = build_machine(ansatz, n_inputs, nf, dtype)
@@ -199,7 +204,10 @@ def run_one(model, ansatz, l, nf, args, theta, alpha, ver, device: torch.device 
         solve_dtype=solve_dtype,
         seed=args.find("seed", int),
     )
-    vmc = nqs.VMC(machine, ham, cfg, device=device)
+    mesh = mesh_override
+    if mesh is None and args.find("mesh", int) > 0:
+        mesh = make_mesh(args.find("mesh", int), device=device)
+    vmc = nqs.VMC(machine, ham, cfg, mesh=mesh, device=device)
     params, state = vmc.init()
     t0 = time.time()
     start_step = 0
@@ -224,12 +232,14 @@ def run_one(model, ansatz, l, nf, args, theta, alpha, ver, device: torch.device 
                 f"{rpath} holds {spins.shape[0]} walkers but -ns={cfg.n_walkers}; "
                 "resume with the checkpoint's walker count"
             )
-        state = metropolis.init_state(machine.make_work(params), spins, generator)
+        # on a mesh: the parameters replicated, the walkers re-sharded
+        params, state = vmc.place(params, metropolis.init_state(machine.make_work(params), spins, generator))
         print(f"# resumed from {rpath} at step {start_step}")
     else:
         ifprefix = args.find("ifprefix")
         if ifprefix != "None":
             params = load_reference_text(machine, args.find("path") + "/" + ifprefix, device=vmc.device)
+            params, state = vmc.place(params, state)
             print(f"# warm start from {ifprefix}")
         state = vmc.warm_up(params, state, args.find("nwarm", int))
 
@@ -237,18 +247,20 @@ def run_one(model, ansatz, l, nf, args, theta, alpha, ver, device: torch.device 
         # measured-acceptance replica-count choice on the warmed ensemble
         # (tempering.tune_n_beta); the walkers then reinterpret as
         # replica-minor groups and the tempered sweep takes over
+        n_dev = n_devices(mesh)
         if getattr(ham, "sampler_kind", "flip") == "exchange":
             # sector-preserving tempered-exchange probe (kawasaki)
-            nb, diags = kawasaki.tune_n_beta_exchange(machine.make_work(params), state, vmc.bonds, ham.n_unit_steps)
+            nb, diags = kawasaki.tune_n_beta_exchange(machine.make_work(params), state, vmc.bonds, ham.n_unit_steps,
+                                                      n_devices=n_dev)
         else:
-            nb, diags = tempering.tune_n_beta(machine.make_work(params), state, vmc.schedule)
+            nb, diags = tempering.tune_n_beta(machine.make_work(params), state, vmc.schedule, n_devices=n_dev)
         for cand, d in sorted(diags.items()):
             print(f"# nbeta=auto probe n_beta={cand}: swap/pair "
                   + "/".join(f"{a:.2f}" for a in d["swap"])
                   + "  flip/replica " + "/".join(f"{a:.2f}" for a in d["flip"]))
         print(f"# nbeta=auto -> n_beta={nb}")
         cfg = dataclasses.replace(cfg, n_beta=nb)
-        vmc = nqs.VMC(machine, ham, cfg, device=device)
+        vmc = nqs.VMC(machine, ham, cfg, mesh=mesh, device=device)
 
     log = MetricsLogger(prefix + ".metrics.jsonl", echo=True)
 
@@ -263,11 +275,12 @@ def run_one(model, ansatz, l, nf, args, theta, alpha, ver, device: torch.device 
 
     def save_all(step, params_c, state_c):
         # reference-format text (interoperable with the reference's loaders)
-        # + the structured resume state alongside (.state.npz)
+        # + the structured resume state alongside (.state.npz; a mesh's
+        # walkers gathered in walker order)
         save_reference_text(machine, params_c, prefix)
         save_npz(
             prefix + ".state.npz", machine, params_c, step=step,
-            generator=state_c.generator, spins=state_c.cache.spins,
+            generator=state_c.generator, spins=gather(state_c.cache.spins),
         )
 
     nrec = args.find("nrec", int)
@@ -301,10 +314,19 @@ def main(argv=None, device: torch.device | str = "cuda"):
                 if model != "lich":
                     break
 
-    if args.find("mesh", int) > 0:
-        raise NotImplementedError(f"-mesh={args.find('mesh')}: {_MESH_NOT_PORTED}")
-    if args.find("gridmesh", int) > 0 and len(points) > 1:
-        raise NotImplementedError(f"-gridmesh={args.find('gridmesh')}: {_MESH_NOT_PORTED}")
+    g = args.find("gridmesh", int)
+    if g > 0 and len(points) > 1:
+        # grid-sweep parallelism: every point trains at the same time on its
+        # own g-shard submesh, in a thread of its own; the threads spend
+        # their time in kernel launches and device waits, so they overlap
+        meshes = make_submeshes(len(points), g, device=device)
+
+        def run_point(point, mesh):
+            theta, alpha, ver, nf = point
+            return run_one(model, ansatz, l, nf, args, theta, alpha, ver, device=device, mesh_override=mesh)
+
+        with ThreadPoolExecutor(max_workers=len(points)) as pool:
+            return list(pool.map(run_point, points, meshes))
     return [run_one(model, ansatz, l, nf, args, theta, alpha, ver, device=device) for theta, alpha, ver, nf in points]
 
 

@@ -7,7 +7,8 @@ A Hamiltonian is a frozen config exposing:
 - ``schedule()``: site-visit order for the Metropolis sweep,
 - ``init_spins(g, n_walkers, dtype)``: initial spin states on ``g.device``,
 - ``local_energy(work, cache, lnpsi)``: per-walker local energy
-  Etilde(s) = sum_s' <s|H|s'> psi(s')/psi(s)   -> (K,) complex.
+  Etilde(s) = sum_s' <s|H|s'> psi(s')/psi(s)   -> (K,) complex;
+  ``local_energy_sharded`` runs it once per shard of a walker mesh.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.rng import random_spins
+from neural_network_quantum_state_tpu_torch.parallel.mesh import shard_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +45,15 @@ class Hamiltonian:
 
     def local_energy(self, work: Work, cache: Cache, lnpsi: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def local_energy_sharded(self, work: Work, cache: Cache, lnpsi):
+        """The local energy of walkers sharded over a mesh (``Sharded`` cache
+        and ln psi): ``local_energy`` once per shard on its device, with the
+        work copied there, and a ``Sharded`` result. The local energy has no
+        cross-walker terms, so nothing is reduced; on the card each shard of
+        a spin chain or lattice is one energy-kernel launch, the Hubbard
+        chain's plain local energy runs per shard."""
+        return shard_map(self.local_energy, work, cache, lnpsi)
 
     def device_table(self, name: str, device: torch.device, dtype: torch.dtype, make: Callable[[], np.ndarray]) -> torch.Tensor:
         """A static table of the local energy (pair indices, couplings, a

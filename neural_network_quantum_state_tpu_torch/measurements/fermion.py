@@ -15,7 +15,9 @@ with JW-string local value (meas__OPDM__ kernels, impl_meas.cuh:648-686):
 
 where flip negates sites n and n+m in both flavor sectors. Each estimator
 iteration is one sampler call: on the card one launch of the exchange
-kernel (its tempered instance for n_beta > 1).
+kernel (its tempered instance for n_beta > 1), once per shard of a walker
+mesh (``mesh=``, as ``AmplitudeSampler``'s): the shards conserve every
+walker's sector as one device does.
 """
 
 from __future__ import annotations
@@ -25,13 +27,14 @@ import torch
 
 from neural_network_quantum_state_tpu_torch.hamiltonians.hubbard import HubbardChain
 from neural_network_quantum_state_tpu_torch.measurements.sampler import (
-    MESH_NOT_PORTED,
     beta1,
+    check_shards,
     generator_for,
     run_chunked,
 )
 from neural_network_quantum_state_tpu_torch.models.base import Machine, Params
 from neural_network_quantum_state_tpu_torch.ops import engine
+from neural_network_quantum_state_tpu_torch.parallel.mesh import gather, shard_walker_tree
 from neural_network_quantum_state_tpu_torch.sampler import kawasaki, metropolis
 
 
@@ -61,9 +64,8 @@ class FermionAmplitudeSampler:
         in-sector configurations). As in the JAX package it does not combine
         with ``use_fused``, which is accepted (a float32 machine only) and
         changes no route: on the card every sampler call is one launch of
-        the exchange kernel. ``mesh`` raises NotImplementedError."""
-        if mesh is not None:
-            raise NotImplementedError(f"FermionAmplitudeSampler(mesh=...): {MESH_NOT_PORTED}")
+        the exchange kernel. ``mesh``: a walker mesh to shard the walkers
+        over (its first device takes the place of ``device``)."""
         if machine.n_inputs % 2 != 0:
             raise ValueError("fermion machines need 2L inputs")
         if n_beta > 1 and n_walkers % n_beta != 0:
@@ -72,6 +74,10 @@ class FermionAmplitudeSampler:
             raise ValueError("use_fused does not implement tempered exchange (set n_beta=1)")
         if use_fused and machine.dtype != torch.float32:
             raise ValueError("use_fused requires a float32 machine")
+        if mesh is not None:
+            check_shards(mesh, n_walkers, n_beta)
+            device = mesh.devices[0]
+        self.mesh = mesh
         self.device = torch.device(device)
         self.n_beta = n_beta
         self.machine = machine
@@ -86,6 +92,8 @@ class FermionAmplitudeSampler:
         self.bonds = torch.as_tensor(bonds, dtype=torch.int32, device=self.device)
         self.n_unit_steps = machine.n_inputs
         self.state = metropolis.init_state(self.work, spins, g)
+        if mesh is not None:
+            self.state = shard_walker_tree(self.state, mesh, n_walkers)
 
     def _advance(self, state: metropolis.MCState, n_sweeps: int) -> metropolis.MCState:
         """One sampler call (on the card one exchange-kernel launch; none for
@@ -122,11 +130,11 @@ class FermionAmplitudeSampler:
 
     @property
     def spins(self) -> torch.Tensor:
-        return self.state.cache.spins[:: self.n_beta]
+        return gather(self.state.cache.spins)[:: self.n_beta]
 
     @property
     def lnpsi(self) -> torch.Tensor:
-        return self.state.lnpsi[:: self.n_beta]
+        return gather(self.state.lnpsi)[:: self.n_beta]
 
 
 def opdm_pair(

@@ -40,7 +40,11 @@ The glued sweeps are plain PyTorch on every device (the JAX package runs
 them in XLA; no TPU kernel computes them). Their draws are separate from
 their update (``glued_draws``, ``glued_sweep``), so that a test can feed
 shared uniforms; ``glued_sweeps`` draws one sweep's block at a time from
-the state's generator.
+the state's generator. With ``mesh=`` the levels x walkers batch is sharded
+over a walker mesh, as in the JAX package: each sweep's block is drawn for
+all walkers, every shard sweeps on its columns of it, and the observables
+are taken per shard and gathered, so a mesh run gives the one-device run's
+chains.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ import torch
 
 from neural_network_quantum_state_tpu_torch.measurements.estimators import _blocked_jackknife
 from neural_network_quantum_state_tpu_torch.measurements.sampler import (
-    MESH_NOT_PORTED,
+    check_shards,
     generator_for,
     run_chunked,
     run_pair_estimator,
@@ -62,6 +66,14 @@ from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.logcosh import logcosh
 from neural_network_quantum_state_tpu_torch.ops.rng import random_spins, uniform_block
 from neural_network_quantum_state_tpu_torch.ops.sweep import replica_betas
+from neural_network_quantum_state_tpu_torch.parallel.mesh import (
+    Sharded,
+    gather,
+    reduce_sum,
+    shard_map,
+    shard_walker_tree,
+    split,
+)
 
 
 class GluedState(NamedTuple):
@@ -230,12 +242,23 @@ def glued_sweeps(work: Work, state: GluedState, schedule, mask: torch.Tensor, n_
     ``n_beta`` > 1 runs the glued PT ladder (replica-minor within each
     level's walker block, beta_r = (nBeta - r)/nBeta): tempered proposals
     sample W_j^beta and each sweep ends with even- then odd-pair whole-state
-    swaps. Estimators must then read the beta=1 slice ``[::n_beta]``."""
+    swaps. Estimators must then read the beta=1 slice ``[::n_beta]``.
+
+    A sharded state (``Sharded`` caches, ln psi and ``mask``) sweeps each
+    shard on its columns of the block; the counters add the shards'."""
     sites = torch.as_tensor(schedule).tolist()
     k = state.ln1.shape[0]
     for _ in range(n_sweeps):
         uniforms, swaps = glued_draws(state.generator, k, len(sites), n_beta, state.c1.spins.dtype)
-        state = glued_sweep(work, state, sites, mask, uniforms, swaps, n_beta)
+        if not isinstance(state.ln1, Sharded):
+            state = glued_sweep(work, state, sites, mask, uniforms, swaps, n_beta)
+            continue
+        zero = torch.zeros_like(state.n_accepted)
+        parts = shard_map(lambda w, st, m, u, sw: glued_sweep(w, st, sites, m, u, sw, n_beta),
+                          work, state._replace(n_accepted=zero, n_proposed=zero), mask,
+                          split(uniforms, state.ln1, 2), split(swaps, state.ln1, 1))
+        state = parts._replace(generator=state.generator, n_accepted=state.n_accepted + reduce_sum(parts.n_accepted),
+                               n_proposed=state.n_proposed + reduce_sum(parts.n_proposed))
     return state
 
 
@@ -424,21 +447,24 @@ def renyi2_increment(
     walkers_per_level TOTAL chains per level of which
     walkers_per_level/n_beta beta=1 chains feed the estimator.
 
-    ``mesh`` raises NotImplementedError (ROADMAP.md A4).
+    ``mesh``: a walker mesh to shard the levels x walkers batch over (whole
+    replica groups per shard; its first device takes the place of
+    ``device``); the chains are the one-device run's.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"renyi2_increment(mesh=...): {MESH_NOT_PORTED}")
     n = machine.n_inputs
     if not (0 <= level_offset < l < n):
         raise ValueError("need 0 <= level_offset < l < n")
     if n_beta > 1 and walkers_per_level % n_beta != 0:
         raise ValueError("walkers_per_level must be a multiple of n_beta")
+    n_levels = l - level_offset
+    k_total = n_levels * walkers_per_level
+    if mesh is not None:
+        check_shards(mesh, k_total, n_beta)
+        device = mesh.devices[0]
     device = torch.device(device)
     rdt = machine.dtype
     g = generator_for(key, device)
 
-    n_levels = l - level_offset
-    k_total = n_levels * walkers_per_level
     # levels-major: walker k sits at level j = offset + k // walkers_per_level,
     # sampling W_j with A_j = [0, j) and measuring the ratio q_{j+1}/q_j;
     # within a level block the n_beta replicas of a physical chain are
@@ -455,28 +481,33 @@ def renyi2_increment(
 
     work = machine.make_work({k: v.to(device) for k, v in params.items()})
     state = init_glued(work, s1, s2, mask, g)
+    if mesh is not None:
+        state, mask, inc_site = shard_walker_tree((state, mask, inc_site), mesh, k_total)
     schedule = np.arange(n)
 
     state = glued_sweeps(work, state, schedule, mask, n_warmup, n_beta)
     kb_per_level = walkers_per_level // n_beta
-    mask_o, inc_o = mask[::n_beta].contiguous(), inc_site[::n_beta].contiguous()
 
     def b1(x):
         return x[::n_beta].contiguous()
 
-    def step():
-        nonlocal state
-        state = glued_sweeps(work, state, schedule, mask, n_sweeps, n_beta)
-        st_obs = state
+    mask_o, inc_o = shard_map(lambda m, i: (b1(m), b1(i)), mask, inc_site)
+
+    def observe(w, st, m_o, i_o):
+        """The per-walker (num, den) of one shard (or of all walkers)."""
         if n_beta > 1:
             # beta=1 readout slice (replica-minor): the hot replicas are
             # auxiliary; observables (incl. the z2q orbit forwards) are
             # only evaluated on the cold chains
-            st_obs = GluedState(*(Cache(*map(b1, c)) for c in state[:4]), *map(b1, state[4:8]), *state[8:])
+            st = GluedState(*(Cache(*map(b1, c)) for c in st[:4]), *map(b1, st[4:8]), *st[8:])
         if z2_quadrature:
-            num, den = _orbit_increment_observable(work, st_obs, mask_o, inc_o)
-        else:
-            num, den = _increment_observable(work, st_obs, inc_o)
+            return _orbit_increment_observable(w, st, m_o, i_o)
+        return _increment_observable(w, st, i_o)
+
+    def step():
+        nonlocal state
+        state = glued_sweeps(work, state, schedule, mask, n_sweeps, n_beta)
+        num, den = gather(shard_map(observe, work, state, mask_o, inc_o))
 
         # per-level means over the readout-walker axis
         def per(x):

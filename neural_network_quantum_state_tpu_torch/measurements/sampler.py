@@ -14,6 +14,13 @@ followed by the estimator's accumulation on the beta = 1 slice. The
 per-iteration outputs stay on the device and are stacked there; each chunk
 of iterations returns to the host in one copy, and nothing in the loop
 waits for the device.
+
+``mesh=`` shards the walkers over a walker mesh (``parallel/mesh.py``), as
+the JAX package's sampler does: each sampler call runs once per shard (on
+the card one launch per shard), a shard holds whole replica groups, and the
+estimators read the walkers gathered in walker order onto the first shard's
+device (``beta1``), where the parameters live. Two samplers on one mesh
+share one sharding.
 """
 
 from __future__ import annotations
@@ -27,11 +34,19 @@ from neural_network_quantum_state_tpu_torch.models.base import Machine, Params
 from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache
 from neural_network_quantum_state_tpu_torch.ops.rng import make_generator, random_spins
+from neural_network_quantum_state_tpu_torch.parallel.mesh import Mesh, gather, shard_walker_tree
 from neural_network_quantum_state_tpu_torch.sampler import metropolis, tempering
 from neural_network_quantum_state_tpu_torch.sampler.schedule import sequential
 
-MESH_NOT_PORTED = ("multi-device walker sharding (ROADMAP.md A4) is not ported to PyTorch yet; "
-                   "measure on one device (mesh=None, -mesh=0)")
+
+def check_shards(mesh: Mesh, n_walkers: int, n_beta: int) -> None:
+    """Raise unless the walkers split over the mesh into shards of whole
+    replica groups (the JAX package's error)."""
+    if n_walkers % mesh.size != 0 or (n_walkers // mesh.size) % n_beta != 0:
+        raise ValueError(
+            f"walker shards must hold whole replica groups: k_total={n_walkers} "
+            f"over {mesh.size} devices with n_beta={n_beta}"
+        )
 
 
 def generator_for(key: torch.Generator | int, device: torch.device) -> torch.Generator:
@@ -46,7 +61,9 @@ def generator_for(key: torch.Generator | int, device: torch.device) -> torch.Gen
 def beta1(tree, n_beta: int):
     """beta = 1 replica slice of per-walker tensors (replica-minor), made
     contiguous (the kernels take contiguous tensors): a Cache, a tensor, or
-    a tuple of them."""
+    a tuple of them; sharded ones gathered in walker order first (a shard
+    holds whole replica groups, so the slice is the same)."""
+    tree = gather(tree)
     if n_beta == 1:
         return tree
     if isinstance(tree, torch.Tensor):
@@ -119,13 +136,16 @@ class AmplitudeSampler:
         initial spins (unless ``init_spins`` is given) and then every sweep.
         ``use_fused`` is accepted as the JAX package's flag (a float32
         machine only); on the card every sampler call is one launch of the
-        sweep kernel either way. ``mesh`` raises NotImplementedError."""
-        if mesh is not None:
-            raise NotImplementedError(f"AmplitudeSampler(mesh=...): {MESH_NOT_PORTED}")
+        sweep kernel either way. ``mesh``: a walker mesh to shard the
+        walkers over (its first device takes the place of ``device``)."""
         if n_beta > 1 and n_walkers % n_beta != 0:
             raise ValueError("n_walkers must be a multiple of n_beta")
         if use_fused and machine.dtype != torch.float32:
             raise ValueError("use_fused requires a float32 machine")
+        if mesh is not None:
+            check_shards(mesh, n_walkers, n_beta)
+            device = mesh.devices[0]
+        self.mesh = mesh
         self.device = torch.device(device)
         self.machine = machine
         self.params = {k: v.to(self.device) for k, v in params.items()}
@@ -139,6 +159,8 @@ class AmplitudeSampler:
         sched = schedule if schedule is not None else sequential(machine.n_inputs)
         self.schedule = torch.as_tensor(sched, dtype=torch.int32, device=self.device)
         self.state = metropolis.init_state(self.work, init_spins, g)
+        if mesh is not None:
+            self.state = shard_walker_tree(self.state, mesh, n_walkers)
 
     # -- reference API surface -------------------------------------------
     def warm_up(self, n_sweeps: int) -> None:
@@ -185,12 +207,12 @@ class AmplitudeSampler:
     def spins(self) -> torch.Tensor:
         """Current spin states (K, N) - get_quantumStates(). With tempering,
         only the beta=1 replicas (impl_mcmc_sampler.hpp:193-205)."""
-        return self.state.cache.spins[:: self.n_beta]
+        return gather(self.state.cache.spins)[:: self.n_beta]
 
     @property
     def lnpsi(self) -> torch.Tensor:
         """ln psi of the current states (K,) complex - get_lnpsi(); beta=1 slice."""
-        return self.state.lnpsi[:: self.n_beta]
+        return gather(self.state.lnpsi)[:: self.n_beta]
 
     def log_psi(self, spins: torch.Tensor) -> torch.Tensor:
         """ln psi on fixed spin configurations - get_lnpsi_for_fixed_spins()."""

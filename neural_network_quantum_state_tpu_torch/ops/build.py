@@ -16,8 +16,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -42,6 +45,10 @@ NVCC_FLAGS = [
 NVCC_TIMEOUT_S = 240
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# One first-use build at a time: threads that launch a kernel together (the
+# grid points of drivers/train.py -gridmesh) would otherwise run two nvcc
+# into one target.
+_build_lock = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,10 +109,15 @@ def build(names=KERNELS) -> dict[str, Built]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name`, built first if needed."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build([name])[name].path))
-    return _loaded[name]
+    """The loaded kernel library `name`, built first if needed (under a
+    lock, so that concurrent first calls build it once)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        with _build_lock:
+            if name not in _loaded:
+                _loaded[name] = ctypes.CDLL(str(build([name])[name].path))
+            lib = _loaded[name]
+    return lib
 
 
 def load(name: str, path) -> ctypes.CDLL:
@@ -115,20 +127,34 @@ def load(name: str, path) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def check_inputs(kernel: str, device, hidden: int, tensors: dict) -> None:
+def check_inputs(kernel: str, device, hidden: int, tensors: dict, row0: int = 0, n_rows: int = 0) -> None:
     """Raise unless every ``name: (tensor, dtype, shape)`` is a contiguous
-    tensor of that dtype and shape on the CUDA `device`, and the hidden
-    count is one the kernel is built for (1 to MAX_HIDDEN)."""
+    tensor of that dtype and shape on the CUDA `device`, the hidden count is
+    one the kernel is built for (1 to MAX_HIDDEN), and the Philox counter's
+    walker rows ``row0 .. row0 + n_rows`` (a shard's global rows) fit the
+    kernels' int: 0 <= row0 and row0 + n_rows < 2^31."""
     if device.type != "cuda":
         raise ValueError(f"{kernel} kernel: tensors must be on a CUDA device, got {device}")
     if not 1 <= hidden <= MAX_HIDDEN:
         raise ValueError(f"{kernel} kernel: hidden count {hidden} not in [1, {MAX_HIDDEN}] (the kernels' limit)")
+    if not (isinstance(row0, int) and 0 <= row0 and row0 + n_rows < 2**31):
+        raise ValueError(f"{kernel} kernel: row0={row0!r} with {n_rows} walkers: the counter rows must lie in [0, 2^31)")
     for name, (t, dtype, shape) in tensors.items():
         if t.device != device or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
                 f"{kernel} kernel: {name} must be a contiguous {dtype} tensor of shape {shape} on {device}; "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
             )
+
+
+def launch(device: torch.device, fn, *args) -> int:
+    """``fn(*args)``, a C launch function, with ``device`` the current CUDA
+    device: a kernel runs on the current device, and the default stream
+    (handle 0) is the current device's, so tensors on another card than the
+    thread's current one (a mesh's shard, a -gridmesh thread) launch there
+    and not on card 0."""
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def check_launch(rc: int, what: str) -> None:

@@ -97,8 +97,8 @@ def chain_cuda(body: str, x: torch.Tensor, y: torch.Tensor, chain_len: int = CHA
     if not 0 < n < 2**31:
         raise ValueError(f"chain kernel: {n} elements, not in [1, 2^31)")
     x_out, y_out = torch.empty_like(x), torch.empty_like(y)
-    rc = _library()(x.data_ptr(), y.data_ptr(), x_out.data_ptr(), y_out.data_ptr(), n, chain_len,
-                    BODIES.index(body), torch.cuda.current_stream(x.device).cuda_stream)
+    rc = build.launch(x.device, _library(), x.data_ptr(), y.data_ptr(), x_out.data_ptr(), y_out.data_ptr(), n,
+                      chain_len, BODIES.index(body), torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(rc, "chain kernel")
     chain_cuda.launches += 1
     return x_out, y_out

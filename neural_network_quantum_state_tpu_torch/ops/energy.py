@@ -95,8 +95,8 @@ def offdiag_sum_cuda(work: Work, cache: Cache) -> torch.Tensor:
         table, a_site = engine.kernel_table_f64(work)
         ptrs = (table.data_ptr(), a_site.data_ptr(), weights[2])
     out = torch.empty(k, dtype=cdt, device=dev)
-    rc = _kernel(symbol)(
-        *ptrs, cache.spins.data_ptr(), cache.y.data_ptr(), out.data_ptr(), k, n, h,
+    rc = build.launch(
+        dev, _kernel(symbol), *ptrs, cache.spins.data_ptr(), cache.y.data_ptr(), out.data_ptr(), k, n, h,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(rc, f"energy kernel ({symbol})")

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -60,8 +61,19 @@ def kernel_weights(work: Work, dtype: torch.dtype = torch.complex64) -> tuple[di
     return entries, (work.w.data_ptr(), a.data_ptr(), c_ptr)
 
 
-# The last table of kernel_table: (w, w's version counter, table).
-_table_memo: list = [None]
+# The last table of kernel_table on each device, for each thread: device ->
+# (w, w's version counter, table). Thread-local, so that the concurrent grid
+# points of drivers/train.py -gridmesh keep their own tables on one card
+# instead of replacing each other's on every launch.
+_table_memos = threading.local()
+
+
+def _table_memo() -> dict:
+    """This thread's memo of kernel_table."""
+    memo = getattr(_table_memos, "memo", None)
+    if memo is None:
+        memo = _table_memos.memo = {}
+    return memo
 
 
 def kernel_table(w: torch.Tensor) -> torch.Tensor:
@@ -73,16 +85,19 @@ def kernel_table(w: torch.Tensor) -> torch.Tensor:
     addition from cos/sin(2 Im w), as the JAX energy kernel's XLA caller
     tabulates them (``pallas_energy.py``'s c2w/s2w).
 
-    Built once per weight tensor: the last table is kept with its w and w's
-    version counter, so the sweeps of one ``Work`` share one build, and a
-    new w, or an in-place update of this one, makes a new table.
+    Built once per weight tensor: each thread keeps the last table on w's
+    device with its w and w's version counter, so the sweeps of one ``Work``
+    share one build, the shards of a mesh on other devices and concurrent
+    grid points keep theirs, and a new w, or an in-place update of this one,
+    makes a new table.
     """
-    memo = _table_memo[0]
-    if memo is not None and memo[0] is w and memo[1] == w._version:
-        return memo[2]
+    memo = _table_memo()
+    last = memo.get(w.device)
+    if last is not None and last[0] is w and last[1] == w._version:
+        return last[2]
     two = 2.0 * w.imag
     table = torch.stack((w.real, w.imag, torch.cos(two), torch.sin(two)), dim=-1)
-    _table_memo[0] = (w, w._version, table)
+    memo[w.device] = (w, w._version, table)
     return table
 
 

@@ -37,6 +37,7 @@ Replaces ``neural_network_quantum_state_tpu/ops/pallas_exchange.py``.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -175,18 +176,24 @@ def tempered_exchange_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, bonds
     return cache, lnpsi, counts
 
 
-# The last incidence table: (bonds, bonds' version counter, n, (ptr, idx)).
-_incidence_memo: list = [None]
+# The last incidence table on each device, for each thread: device ->
+# (bonds, bonds' version counter, n, (ptr, idx)), as ops/engine.py's
+# kernel_table keeps its tables.
+_incidence_memos = threading.local()
 
 
 def kernel_incidence(bonds: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``incidence_table`` of `bonds`, built once per bond tensor (the last
-    table is kept with its bonds and their version counter)."""
-    memo = _incidence_memo[0]
-    if memo is not None and memo[0] is bonds and memo[1] == bonds._version and memo[2] == n:
-        return memo[3]
+    """``incidence_table`` of `bonds`, built once per bond tensor (this
+    thread's last table on the bonds' device is kept with its bonds and
+    their version counter)."""
+    memo = getattr(_incidence_memos, "memo", None)
+    if memo is None:
+        memo = _incidence_memos.memo = {}
+    last = memo.get(bonds.device)
+    if last is not None and last[0] is bonds and last[1] == bonds._version and last[2] == n:
+        return last[3]
     table = incidence_table(bonds, n)
-    _incidence_memo[0] = (bonds, bonds._version, n, table)
+    memo[bonds.device] = (bonds, bonds._version, n, table)
     return table
 
 
@@ -205,7 +212,7 @@ def _launcher(dtype: torch.dtype, tempered: bool):
     (``csrc/exchange.cuh`` NQS_EXCHANGE_PARAMS)."""
     name, symbol = SOURCES[dtype, tempered]
     fn = getattr(build.library(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
@@ -285,17 +292,19 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=No
         if n_beta > 1:
             tensors["swap_uniforms"] = (swap_uniforms, rdt, (n_sweeps, 2, k))
         uniforms = (u_sel.data_ptr(), u_acc.data_ptr(), swap_uniforms.data_ptr() if n_beta > 1 else None, None)
-    build.check_inputs("exchange", dev, h, tensors)
+    row0 = u_sel.row0 if philox else 0
+    build.check_inputs("exchange", dev, h, tensors, row0, k)
     ptr, idx = kernel_incidence(bonds, n)
     spins = torch.empty_like(cache.spins)
     y = torch.empty_like(cache.y)
     sa = torch.empty_like(cache.sa)
     counts = torch.zeros((2, k), dtype=torch.int32, device=dev)  # row 1 written by the tempered instance only
-    rc = _launcher(rdt, n_beta > 1)(
-        *weights, bonds.data_ptr(), ptr.data_ptr(), idx.data_ptr(), cache.spins.data_ptr(), cache.y.data_ptr(),
-        cache.sa.data_ptr(), *uniforms, spins.data_ptr(), y.data_ptr(), sa.data_ptr(), counts[0].data_ptr(),
+    rc = build.launch(
+        dev, _launcher(rdt, n_beta > 1), *weights, bonds.data_ptr(), ptr.data_ptr(), idx.data_ptr(),
+        cache.spins.data_ptr(), cache.y.data_ptr(), cache.sa.data_ptr(), *uniforms,
+        spins.data_ptr(), y.data_ptr(), sa.data_ptr(), counts[0].data_ptr(),
         counts[1].data_ptr() if n_beta > 1 else None, k, n, h, b, n_steps, n_steps // n_sweeps, n_beta,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, row0,
     )
     build.check_launch(rc, "exchange kernel")
     if rdt == torch.float32:

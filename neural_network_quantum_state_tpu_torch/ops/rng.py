@@ -11,7 +11,9 @@ from a Philox4x32-10 counter stream (Salmon et al., SC'11) on a 64-bit key
 that the caller draws once per call from the state's generator
 (``PhiloxDraws``, ``ExchangeDraws``). ``philox_uniforms`` makes the same
 numbers with int64 tensor arithmetic, so the plain versions decide on the
-kernels' streams.
+kernels' streams. A draw's ``row0`` offsets the walker row of the counter:
+the shards of a walker mesh (``parallel/mesh.py``) share one key, each at
+its first global walker row, and so draw the columns of the unsharded call.
 """
 
 from __future__ import annotations
@@ -76,19 +78,20 @@ def philox4x32_10(counter, key):
     return c0, c1, c2, c3
 
 
-def philox_uniforms(key: torch.Tensor, stream: int, shape: tuple[int, int]) -> torch.Tensor:
+def philox_uniforms(key: torch.Tensor, stream: int, shape: tuple[int, int], row0: int = 0) -> torch.Tensor:
     """(T, K) float32 uniforms in [0, 1) on the key's device: element (t, k) is
-    word t % 4 of Philox4x32-10 at counter (t // 4, k, 0, stream) under
+    word t % 4 of Philox4x32-10 at counter (t // 4, row0 + k, 0, stream) under
     ``key`` ((2,) int64 words in [0, 2^32)), made from its top 24 bits as
     (bits >> 8) * 2^-24 (the TPU kernel's conversion). ``stream`` is
     FLIP_STREAM or SWAP_STREAM, which the sweep kernel draws (csrc/rbm.cuh
     ``FlipDraws``), or SELECT_STREAM or ACCEPT_STREAM, which the exchange
     kernel draws (csrc/exchange.cu ``ExchangeDraws``; its tempered instance
-    also draws SWAP_STREAM)."""
+    also draws SWAP_STREAM). Columns row0.. of a call with more walkers are
+    the columns of a call at ``row0``."""
     n_rows, k = shape
     dev = key.device
     blocks = torch.arange((n_rows + 3) // 4, dtype=torch.int64, device=dev)[:, None]
-    rows = torch.arange(k, dtype=torch.int64, device=dev)[None, :]
+    rows = torch.arange(row0, row0 + k, dtype=torch.int64, device=dev)[None, :]
     words = philox4x32_10((blocks, rows, 0, stream), (key[0], key[1]))
     # row t of the stacked (blocks, 4, K) words: word t % 4 of block t // 4
     bits = torch.stack(torch.broadcast_tensors(*words), dim=1).reshape(-1, k)[:n_rows]
@@ -104,18 +107,20 @@ class PhiloxDraws(NamedTuple):
     """The uniforms of one sweep call, drawn on the chip: ``n_rounds`` rows of
     flip uniforms and, with n_beta > 1, the swap uniforms of each sweep (row
     2 s + parity of the swap stream). Every call takes a fresh key, which
-    alone keeps the calls' streams apart."""
+    alone keeps the calls' streams apart. ``row0``: the first walker's row in
+    the counter (a shard's first global walker row; 0 without a mesh)."""
 
     key: torch.Tensor  # (2,) int64 words in [0, 2^32), on the walkers' device
     n_rounds: int
+    row0: int = 0
 
     def flips(self, k: int) -> torch.Tensor:
         """(n_rounds, K) flip uniforms."""
-        return philox_uniforms(self.key, FLIP_STREAM, (self.n_rounds, k))
+        return philox_uniforms(self.key, FLIP_STREAM, (self.n_rounds, k), self.row0)
 
     def swaps(self, n_sweeps: int, k: int) -> torch.Tensor:
         """(n_sweeps, 2, K) swap uniforms (even-pair, then odd-pair phase)."""
-        return philox_uniforms(self.key, SWAP_STREAM, (2 * n_sweeps, k)).reshape(n_sweeps, 2, k)
+        return philox_uniforms(self.key, SWAP_STREAM, (2 * n_sweeps, k), self.row0).reshape(n_sweeps, 2, k)
 
 
 class ExchangeDraws(NamedTuple):
@@ -123,19 +128,21 @@ class ExchangeDraws(NamedTuple):
     of selection and of acceptance uniforms, on the selection and acceptance
     streams of a fresh key (one per call, which alone keeps the calls'
     streams apart), and with n_beta > 1 the swap uniforms of each sweep on
-    the swap stream, in the layout of ``PhiloxDraws.swaps``."""
+    the swap stream, in the layout of ``PhiloxDraws.swaps``; ``row0`` as
+    there."""
 
     key: torch.Tensor  # (2,) int64 words in [0, 2^32), on the walkers' device
     n_steps: int
+    row0: int = 0
 
     def selection(self, k: int) -> torch.Tensor:
         """(n_steps, K) bond-selection uniforms."""
-        return philox_uniforms(self.key, SELECT_STREAM, (self.n_steps, k))
+        return philox_uniforms(self.key, SELECT_STREAM, (self.n_steps, k), self.row0)
 
     def acceptance(self, k: int) -> torch.Tensor:
         """(n_steps, K) acceptance uniforms."""
-        return philox_uniforms(self.key, ACCEPT_STREAM, (self.n_steps, k))
+        return philox_uniforms(self.key, ACCEPT_STREAM, (self.n_steps, k), self.row0)
 
     def swaps(self, n_sweeps: int, k: int) -> torch.Tensor:
         """(n_sweeps, 2, K) swap uniforms (even-pair, then odd-pair phase)."""
-        return philox_uniforms(self.key, SWAP_STREAM, (2 * n_sweeps, k)).reshape(n_sweeps, 2, k)
+        return philox_uniforms(self.key, SWAP_STREAM, (2 * n_sweeps, k), self.row0).reshape(n_sweeps, 2, k)

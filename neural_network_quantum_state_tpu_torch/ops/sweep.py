@@ -153,9 +153,11 @@ def sweep_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniform
 sweep_plain.calls = 0
 
 
-def _kernel(name: str, symbol: str, n_pointers: int):
+def _kernel(name: str, symbol: str, n_pointers: int, row0: bool):
+    """The C launch function: pointers, six ints, the stream and, for the
+    sweep's sources, the Philox counter's row offset ``row0``."""
     fn = getattr(build.library(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * row0
     fn.restype = ctypes.c_int
     return fn
 
@@ -190,6 +192,9 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
         "y": (cache.y, cdt, (k, h)),
         "sa": (cache.sa, cdt, (k,)),
     }
+    row0 = uniforms.row0 if philox else 0
+    if row0 and kernel != "sweep":
+        raise ValueError(f"{kernel} kernel: takes no row offset (row0={row0})")
     if philox:
         tensors["key"] = (uniforms.key, torch.int64, (2,))
         u_ptr, swap_ptr, key_ptr = None, None, uniforms.key.data_ptr()
@@ -199,7 +204,7 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
             tensors["swap_uniforms"] = (swap_uniforms, rdt, (n_sweeps, 2, k))
         u_ptr, key_ptr = uniforms.data_ptr(), None
         swap_ptr = swap_uniforms.data_ptr() if n_beta > 1 else None
-    build.check_inputs(kernel, dev, h, tensors)
+    build.check_inputs(kernel, dev, h, tensors, row0, k)
     spins = torch.empty_like(cache.spins)
     y = torch.empty_like(cache.y)
     sa = torch.empty_like(cache.sa)
@@ -211,12 +216,14 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
     elif kernel == "sweep":  # its instances with c read the energy kernel's table (rbm.cuh sweep_walker)
         table = engine.kernel_table(work.w) if work.c is not None else None
         pointers.append(None if table is None else table.data_ptr())
-    rc = _kernel(kernel, symbol, 12 + len(pointers) + len(extra))(
+    with_row0 = kernel != "sweep_energy"
+    rc = build.launch(
+        dev, _kernel(kernel, symbol, 12 + len(pointers) + len(extra), with_row0),
         *pointers, cache.spins.data_ptr(), cache.y.data_ptr(), cache.sa.data_ptr(),
         sched.data_ptr(), u_ptr, swap_ptr, key_ptr,
         spins.data_ptr(), y.data_ptr(), sa.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
         *(t.data_ptr() for t in extra), k, n, h, sched.shape[0], n_steps, n_beta,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, *((row0,) if with_row0 else ()),
     )
     build.check_launch(rc, f"{kernel} kernel")
     return Cache(spins=spins, y=y, sa=sa), stats

@@ -205,9 +205,13 @@ def minres_qlp_solve(
 def sr_minres_solve(o_mat: torch.Tensor, htilda: torch.Tensor, lam: float, tol: float = 1e-9, max_iters: int = 1000):
     """Matrix-free SR solve by MINRES-QLP (the reference's MINRESQLP
     backend): the minimum-length solution even where the sampled S is
-    numerically rank-deficient. Returns (dx, MinresResult)."""
+    numerically rank-deficient. Returns (dx, MinresResult). O and Etilde
+    sharded over a walker mesh are gathered onto the first shard's device
+    first."""
     from neural_network_quantum_state_tpu_torch.optim.sr import _s_matvec, force_vector, sr_diag
+    from neural_network_quantum_state_tpu_torch.parallel.mesh import gather
 
+    o_mat, htilda = gather(o_mat), gather(htilda)
     f, a_o = force_vector(o_mat, htilda)
     res = minres_qlp_solve(_s_matvec(o_mat, a_o, sr_diag(o_mat, a_o), lam), f, tol=tol, max_iters=max_iters)
     return res.x, res

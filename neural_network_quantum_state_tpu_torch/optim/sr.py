@@ -12,6 +12,13 @@ matrix-free solve adds lambda*diag(S) to the matvec and preconditions with
 1/((1+lambda) diag(S)); the dense solves scale the diagonal, S_ii *=
 (1+lambda); minSR solves the same system in walker space with an isotropic
 ridge.
+
+O and Etilde may be sharded over a walker mesh (``parallel/mesh.py``: one
+row block per shard, on its device). Every walker sum (<Etilde>, aO, diag S,
+F, the CG matvec's O^H (O a), the dense S = O^H O) is then taken per shard
+and the O(V) partial sums are added on the first shard's device, on every
+mesh layout (a TP mesh's walkers shard over all its devices). minSR gathers
+O onto the first device.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from neural_network_quantum_state_tpu_torch.optim.cg import CGResult, cg_solve
+from neural_network_quantum_state_tpu_torch.parallel.mesh import Sharded, gather, reduce_sum, shard_map
 
 LAMBDA0, LAMBDA_DECAY, LAMBDA_MIN = 100.0, 0.9, 1e-2
 
@@ -41,35 +49,54 @@ def _abs2(a: torch.Tensor) -> torch.Tensor:
     return a.real * a.real + a.imag * a.imag
 
 
+def walker_mean(x, f=lambda v: v) -> torch.Tensor:
+    """<f(x)> over the walkers (axis 0): the mean of a tensor, or of a
+    ``Sharded`` one the shards' sums added on the first device over K."""
+    if isinstance(x, Sharded):
+        return reduce_sum(shard_map(lambda p: f(p).sum(0), x)) / x.shape[0]
+    return f(x).mean(0)
+
+
+def _hdot(v, o_mat) -> torch.Tensor:
+    """O^H v = conj(conj(v) @ O) over the walkers (the shards' products
+    added): conjugate vectors, never the (K, V) O."""
+    return reduce_sum(shard_map(lambda vs, os: torch.conj_physical(torch.conj_physical(vs) @ os), v, o_mat))
+
+
+def _gram(o_mat) -> torch.Tensor:
+    """O^H O (V, V), the shards' products added."""
+    return reduce_sum(shard_map(lambda os: os.mH @ os, o_mat))
+
+
 def energy_and_rsd(htilda: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    havg = htilda.mean()
+    havg = walker_mean(htilda)
     h2 = _abs2(havg)
-    var = _abs2(htilda).mean() - h2
+    var = walker_mean(htilda, _abs2) - h2
     return havg, torch.sqrt(torch.clamp(var, min=0.0) / h2)
 
 
 def force_vector(o_mat: torch.Tensor, htilda: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """F_i = <Etilde O_i*> - <Etilde><O_i>*; returns (F, aO)."""
     k = o_mat.shape[0]
-    a_o = o_mat.mean(0)
-    # E @ conj(O) = conj(conj(E) @ O): conjugate vectors, never the (K, V) O
-    f = torch.conj_physical(torch.conj_physical(htilda) @ o_mat) / k - htilda.mean() * a_o.conj()
+    a_o = walker_mean(o_mat)
+    f = _hdot(htilda, o_mat) / k - walker_mean(htilda) * a_o.conj()
     return f, a_o
 
 
 def sr_diag(o_mat: torch.Tensor, a_o: torch.Tensor) -> torch.Tensor:
     """diag(S)_i = <|O_i|^2> - |aO_i|^2 (real)."""
-    return _abs2(o_mat).mean(0) - _abs2(a_o)
+    return walker_mean(o_mat, _abs2) - _abs2(a_o)
 
 
 def _s_matvec(o_mat: torch.Tensor, a_o: torch.Tensor, diag: torch.Tensor, lam: float):
     """a -> (S + lam diag(S)) a, matrix-free: O^H (O a) / K - aO* (aO . a)
-    plus the scaled diagonal."""
+    plus the scaled diagonal. O^H (O a) is taken per shard of a sharded O
+    (the (V,) products added)."""
     k = o_mat.shape[0]
     a_o_c = a_o.conj()
 
     def matvec(a: torch.Tensor) -> torch.Tensor:
-        b = torch.conj_physical(torch.conj_physical(o_mat @ a) @ o_mat) * (1.0 / k)  # O^H O a / K
+        b = _hdot(shard_map(torch.matmul, o_mat, a), o_mat) * (1.0 / k)  # O^H O a / K
         b = b - a_o_c * (a_o @ a)
         return b + (lam * diag) * a
 
@@ -109,7 +136,7 @@ def sr_cg_solve(
 def build_s_matrix(o_mat: torch.Tensor, a_o: torch.Tensor) -> torch.Tensor:
     """Dense S = O^H O / K - conj(aO) aO^T, (V, V) Hermitian."""
     k = o_mat.shape[0]
-    return (o_mat.mH @ o_mat) * (1.0 / k) - a_o.conj()[:, None] * a_o[None, :]
+    return _gram(o_mat) * (1.0 / k) - a_o.conj()[:, None] * a_o[None, :]
 
 
 def _regularize_dense(s: torch.Tensor, lam: float) -> torch.Tensor:
@@ -143,10 +170,10 @@ def sr_dense_solve_accumulated(
     scale = 1.0 / (k * n_acc)
     s_sum = f_sum = a_sum = h_sum = 0.0
     for o_mat, htilda in samples:
-        s_sum = s_sum + (o_mat.mH @ o_mat) * scale
-        a_sum = a_sum + o_mat.mean(0) * (1.0 / n_acc)
-        h_sum = h_sum + htilda.mean() * (1.0 / n_acc)
-        f_sum = f_sum + torch.conj_physical(torch.conj_physical(htilda) @ o_mat) * scale
+        s_sum = s_sum + _gram(o_mat) * scale
+        a_sum = a_sum + walker_mean(o_mat) * (1.0 / n_acc)
+        h_sum = h_sum + walker_mean(htilda) * (1.0 / n_acc)
+        f_sum = f_sum + _hdot(htilda, o_mat) * scale
     s = s_sum - a_sum.conj()[:, None] * a_sum[None, :]
     f = f_sum - h_sum * a_sum.conj()
     return solver(_regularize_dense(s, lam), f)
@@ -173,6 +200,7 @@ def sr_minsr_solve(
         from neural_network_quantum_state_tpu_torch.optim.solvers import lu_solve
 
         solver = lu_solve
+    o_mat, htilda = gather(o_mat), gather(htilda)
     k = o_mat.shape[0]
     oc = o_mat - o_mat.mean(0)
     eps = htilda - htilda.mean()

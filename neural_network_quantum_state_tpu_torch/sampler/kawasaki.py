@@ -31,6 +31,13 @@ two (K,) swap blocks from the state's generator.
 ladder diagnostics of ``tempering.swap_acceptance_probe`` and
 ``tempering.tune_n_beta`` with this move class.
 
+A state sharded over a walker mesh runs each call once per shard, as the
+JAX package's ``make_fused_exchange_sharded_sweeps`` does: on the card one
+launch per shard on the call's key at the shard's first global walker row,
+on the CPU each shard on its columns of the call's blocks
+(``sampler/metropolis.py``); a shard holds whole replica groups, so its
+swaps stay in the shard.
+
 Lattice topologies:
 - ring_bonds(n): one ring over all inputs; exchanges may cross the up/down
   boundary (conserves the total particle number only).
@@ -46,6 +53,7 @@ import torch
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.exchange import exchange_steps
 from neural_network_quantum_state_tpu_torch.ops.rng import ExchangeDraws, philox_key, uniform_block
+from neural_network_quantum_state_tpu_torch.parallel.mesh import gather, shard_map, split, split_draws
 from neural_network_quantum_state_tpu_torch.sampler.metropolis import MCState
 
 
@@ -68,7 +76,9 @@ def exchange_calls(work: Work, cache: Cache, lnpsi: torch.Tensor, bonds: torch.T
     kernel launch on one Philox key, for all of them; on the CPU one call per
     sweep on its uniform blocks (selection, acceptance, then the two swap
     phases'). Returns (cache, lnpsi, counts), counts the summed (2, K)
-    per-row counts of ``ops.exchange.exchange_steps``."""
+    per-row counts of ``ops.exchange.exchange_steps``. A sharded state runs
+    one call per shard on its columns of the blocks, or on the call's key at
+    its rows."""
     k = lnpsi.shape[0]
     total = torch.zeros((2, k), dtype=torch.float64, device=lnpsi.device)
     if cache.spins.device.type == "cpu":
@@ -79,11 +89,14 @@ def exchange_calls(work: Work, cache: Cache, lnpsi: torch.Tensor, bonds: torch.T
             swaps = None
             if n_beta > 1:
                 swaps = torch.stack([uniform_block(g, (k,), dtype), uniform_block(g, (k,), dtype)])[None]
-            cache, lnpsi, counts = exchange_steps(work, cache, lnpsi, bonds, u_sel, u_acc, n_beta, n_unit, swaps)
-            total += counts
+            u_sel, u_acc, swaps = split(u_sel, lnpsi, 1), split(u_acc, lnpsi, 1), split(swaps, lnpsi, 2)
+            cache, lnpsi, counts = shard_map(exchange_steps, work, cache, lnpsi, bonds, u_sel, u_acc, n_beta, n_unit,
+                                             swaps)
+            total += gather(counts, dim=1)
     elif n_sweeps * n_unit > 0:
-        draws = ExchangeDraws(philox_key(g), n_sweeps * n_unit)
-        cache, lnpsi, total = exchange_steps(work, cache, lnpsi, bonds, draws, n_beta=n_beta, n_unit=n_unit)
+        draws = split_draws(ExchangeDraws(philox_key(g), n_sweeps * n_unit), lnpsi)
+        cache, lnpsi, counts = shard_map(exchange_steps, work, cache, lnpsi, bonds, draws, None, n_beta, n_unit)
+        total = gather(counts, dim=1)
     return cache, lnpsi, total
 
 

@@ -22,6 +22,14 @@ the CPU run's numbers.
 
 ``block_flip_moves`` adds symmetric block flips (an ergodicity move), and
 ``acceptance_ratio`` reads and resets the counters.
+
+A state sharded over a walker mesh (``parallel/mesh.py``: its cache and ln
+psi ``Sharded``) runs every call once per shard, as the JAX package's
+``make_fused_sharded_sweeps`` does under ``shard_map``: on the card one
+kernel launch per shard on the call's one key, each shard at its first
+global walker row; on the CPU each shard takes its columns of the call's
+uniform blocks. Either way a sharded run makes the unsharded run's
+decisions, and the acceptance counters sum over the shards.
 """
 
 from __future__ import annotations
@@ -34,10 +42,12 @@ from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.ops.engine import Cache, Work
 from neural_network_quantum_state_tpu_torch.ops.rng import PhiloxDraws, philox_key, uniform_block
 from neural_network_quantum_state_tpu_torch.ops.sweep import metropolis_sweeps
+from neural_network_quantum_state_tpu_torch.parallel.mesh import gather, reduce_sum, shard_map, split, split_draws
 
 
 class MCState(NamedTuple):
-    """Sampler state threaded through the steps."""
+    """Sampler state threaded through the steps; on a walker mesh the cache
+    and ln psi are ``Sharded`` (``parallel.mesh.shard_walker_tree``)."""
 
     cache: Cache  # spins / y / sa, all (K, ...)
     lnpsi: torch.Tensor  # (K,) complex: ln psi of the current states
@@ -47,7 +57,9 @@ class MCState(NamedTuple):
 
 
 def init_state(work: Work, spins: torch.Tensor, generator: torch.Generator) -> MCState:
-    cache, lnpsi = engine.full_forward(work, spins)
+    """The state of walkers ``spins`` (a tensor, or ``Sharded`` spins: a
+    sharded state)."""
+    cache, lnpsi = shard_map(engine.full_forward, work, spins)
     zero = torch.zeros((), dtype=torch.float64, device=spins.device)
     return MCState(cache=cache, lnpsi=lnpsi, generator=generator, n_accepted=zero, n_proposed=zero.clone())
 
@@ -64,23 +76,38 @@ def sweep_draws(g: torch.Generator, spins: torch.Tensor, n_rounds: int, n_beta: 
     return uniforms, uniform_block(g, (1, 2, k), spins.dtype) if n_beta > 1 else None
 
 
+def _sharded_sweeps(work: Work, cache: Cache, lnpsi, schedule, uniforms, n_beta: int, swaps, rows: bool):
+    """``metropolis_sweeps`` once per shard of a sharded state (the walkers'
+    columns of caller uniforms, or the call's Philox key at each shard's
+    rows); an unsharded state's one call. The counts come back summed, or
+    with ``rows=True`` as the (2, K) rows of all shards in walker order."""
+    like = lnpsi
+    if isinstance(uniforms, PhiloxDraws):
+        uniforms = split_draws(uniforms, like)
+    else:
+        uniforms, swaps = split(uniforms, like, dim=1), split(swaps, like, dim=2)
+    cache, lnpsi, acc = shard_map(metropolis_sweeps, work, cache, lnpsi, schedule, uniforms, n_beta, swaps, rows)
+    return cache, lnpsi, gather(acc, dim=1) if rows else reduce_sum(acc)
+
+
 def sweep_calls(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule: torch.Tensor, n_sweeps: int,
                 n_beta: int, g: torch.Generator, rows: bool = False):
     """``n_sweeps`` sweeps (each with its swap phases for n_beta > 1): on the
     card one ``metropolis_sweeps`` call, one kernel launch on one Philox
-    key, for all of them; on the CPU one call per sweep on its uniform
-    blocks. Returns (cache, lnpsi, accepted flips), or with ``rows=True``
-    the summed (2, K) per-row counts of ``ops.sweep.sweep_plain``."""
+    key, for all of them (one launch per shard of a sharded state, on that
+    key); on the CPU one call per sweep on its uniform blocks. Returns
+    (cache, lnpsi, accepted flips), or with ``rows=True`` the summed (2, K)
+    per-row counts of ``ops.sweep.sweep_plain``."""
     n_rounds = schedule.shape[0]
     total = torch.zeros((2, lnpsi.shape[0]) if rows else (), dtype=torch.float64, device=lnpsi.device)
     if cache.spins.device.type == "cpu":
         for _ in range(n_sweeps):
             uniforms, swaps = sweep_draws(g, cache.spins, n_rounds, n_beta)
-            cache, lnpsi, acc = metropolis_sweeps(work, cache, lnpsi, schedule, uniforms, n_beta, swaps, rows)
+            cache, lnpsi, acc = _sharded_sweeps(work, cache, lnpsi, schedule, uniforms, n_beta, swaps, rows)
             total = total + acc
     elif n_sweeps > 0:
         draws = PhiloxDraws(philox_key(g), n_sweeps * n_rounds)
-        cache, lnpsi, acc = metropolis_sweeps(work, cache, lnpsi, schedule, draws, n_beta, rows=rows)
+        cache, lnpsi, acc = _sharded_sweeps(work, cache, lnpsi, schedule, draws, n_beta, None, rows)
         total = total + acc
     return cache, lnpsi, total
 
@@ -112,27 +139,38 @@ def block_flip_moves(work: Work, state: MCState, n_moves: int = 1, max_block: in
     ``ops.sweep.replica_betas``). An ergodicity move beyond the reference's
     single flips: where those freeze in a deep-ordered phase, a block flip
     can hop between ordered sectors. The accepts are not counted in the
-    single-flip acceptance counters (the reference's convention)."""
+    single-flip acceptance counters (the reference's convention). A move's
+    draws are made for all K walkers; a sharded state's shards take their
+    rows of them."""
     k, n = state.cache.spins.shape
     if max_block is None:
         max_block = max(n // 2, 1)
     g, dev = state.generator, state.cache.spins.device
     cache, lnpsi0 = state.cache, state.lnpsi
-    sites = torch.arange(n, device=dev)
+    beta = split(beta, lnpsi0)
     for _ in range(n_moves):
         i0 = torch.randint(0, n, (k,), generator=g, device=dev)
         ell = torch.randint(1, max_block + 1, (k,), generator=g, device=dev)
         u = uniform_block(g, (k,), cache.spins.dtype)
-        mask = (sites[None, :] - i0[:, None]) % n < ell[:, None]
-        cache1, lnpsi1 = engine.full_forward(work, torch.where(mask, -cache.spins, cache.spins))
-        dln = lnpsi1.real - lnpsi0.real
-        if beta is not None:
-            dln = beta.to(dln.dtype) * dln
-        accept = u < torch.exp(2.0 * torch.clamp(dln, max=0.0))
-        cache = Cache(*(torch.where(accept.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
-                        for new, old in zip(cache1, cache)))
-        lnpsi0 = torch.where(accept, lnpsi1, lnpsi0)
+        draws = [split(x, lnpsi0) for x in (i0, ell, u)]
+        cache, lnpsi0 = shard_map(_block_flip, work, cache, lnpsi0, *draws, beta)
     return state._replace(cache=cache, lnpsi=lnpsi0)
+
+
+def _block_flip(work: Work, cache: Cache, lnpsi0: torch.Tensor, i0: torch.Tensor, ell: torch.Tensor,
+                u: torch.Tensor, beta: torch.Tensor | None):
+    """One block-flip move of ``block_flip_moves`` on its drawn (i0, ell, u)."""
+    n = cache.spins.shape[1]
+    sites = torch.arange(n, device=cache.spins.device)
+    mask = (sites[None, :] - i0[:, None]) % n < ell[:, None]
+    cache1, lnpsi1 = engine.full_forward(work, torch.where(mask, -cache.spins, cache.spins))
+    dln = lnpsi1.real - lnpsi0.real
+    if beta is not None:
+        dln = beta.to(dln.dtype) * dln
+    accept = u < torch.exp(2.0 * torch.clamp(dln, max=0.0))
+    cache = Cache(*(torch.where(accept.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+                    for new, old in zip(cache1, cache)))
+    return cache, torch.where(accept, lnpsi1, lnpsi0)
 
 
 def acceptance_ratio(state: MCState) -> tuple[torch.Tensor, MCState]:

@@ -29,8 +29,17 @@ with a MINRES-QLP fallback); ``precond_ema`` preconditions CG with a
 moving average of diag(S). ``energy_dtype`` widens the estimators:
 float64 recomputes ln psi, the local energy and O_k in float64;
 "compensated" takes the float32 log-cosh differences and sums them in
-float64 (ising family). Meshes are not ported and raise
-NotImplementedError; no option is ignored.
+float64 (ising family); no option is ignored.
+
+``mesh`` (``parallel.make_mesh``, ``make_mesh_2d``, ``make_mesh_tp``) shards
+the walkers over its devices, as the JAX package's ``mesh=`` does: the
+parameters stay on the first shard's device (one generator there draws
+every key), each shard holds whole replica groups, every sampler call and
+local energy runs once per shard (on the card one kernel launch per shard),
+and the SR sums over walkers are reduced over the shards (``optim/sr.py``).
+The shards draw the unsharded run's random numbers, so a mesh run makes the
+one-device run's decisions. As in JAX, n_walkers must be a multiple of the
+mesh's devices times n_beta, and "compensated" is refused under a mesh.
 """
 
 from __future__ import annotations
@@ -62,6 +71,15 @@ from neural_network_quantum_state_tpu_torch.optim.sr import (
     sr_dense_solve_accumulated,
     sr_diag,
     sr_minsr_solve,
+    walker_mean,
+)
+from neural_network_quantum_state_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather,
+    n_devices,
+    replicate_tree,
+    shard_map,
+    shard_walker_tree,
 )
 from neural_network_quantum_state_tpu_torch.sampler import kawasaki, metropolis, tempering
 
@@ -147,15 +165,28 @@ class VMC:
         machine: Machine,
         hamiltonian: Hamiltonian,
         config: VMCConfig = VMCConfig(),
-        mesh: Optional[Any] = None,
+        mesh: Optional[Mesh] = None,
         device: torch.device | str = "cuda",
     ):
+        """``device``: where the walkers run without a mesh; with one, its
+        first shard's device takes its place."""
         if machine.n_inputs != hamiltonian.n_sites:
             raise ValueError("machine.n_inputs != hamiltonian.n_sites")
-        if mesh is not None:
-            raise NotImplementedError("VMC(mesh=...): multi-device walker sharding is not ported yet")
         if config.n_beta > 1 and config.n_walkers % config.n_beta != 0:
             raise ValueError("n_walkers must be a multiple of n_beta")
+        if mesh is not None:
+            if config.n_walkers % (mesh.size * config.n_beta) != 0:
+                raise ValueError(
+                    f"n_walkers ({config.n_walkers}) must be a multiple of "
+                    f"mesh devices * n_beta ({mesh.size} * {config.n_beta}) so the "
+                    "walker shards (and the beta=1 estimator slice) divide evenly"
+                )
+            if config.energy_dtype == "compensated":
+                raise ValueError(
+                    "energy_dtype='compensated' is a single-device anchor mode "
+                    "(use energy_dtype=float64 under a mesh)"
+                )
+            device = mesh.devices[0]
         if config.solver not in SOLVER_NAMES:
             raise ValueError(f"solver must be one of {SOLVER_NAMES}, got {config.solver!r}")
         if config.n_accumulations > 1 and config.solver not in dense_solvers.SOLVERS:
@@ -192,6 +223,7 @@ class VMC:
         self.machine = machine
         self.hamiltonian = hamiltonian
         self.config = config
+        self.mesh = mesh
         self.device = device
         self.schedule = torch.as_tensor(hamiltonian.schedule(), dtype=torch.int32, device=device)
         if exchange:
@@ -242,12 +274,21 @@ class VMC:
     # ------------------------------------------------------------------
     def init(self, seed: int | None = None) -> tuple[Params, metropolis.MCState]:
         """Random parameters and the Hamiltonian's initial spins; one
-        generator on the VMC's device serves both and then the sampler."""
+        generator on the VMC's device serves both and then the sampler. Under
+        a mesh the parameters are replicated and the state sharded."""
         g = make_generator(self.config.seed if seed is None else seed, self.device)
         params = self.machine.init_params(g)
         spins = self.hamiltonian.init_spins(g, self.config.n_walkers, self.machine.dtype)
         state = metropolis.init_state(self.machine.make_work(params), spins, g)
-        return params, state
+        return self.place(params, state)
+
+    def place(self, params: Params, state: metropolis.MCState) -> tuple[Params, metropolis.MCState]:
+        """(params, state) as this VMC runs them: under a mesh the parameters
+        replicated (``replicate_tree``) and the walkers sharded
+        (``shard_walker_tree``); without one as they are."""
+        if self.mesh is None:
+            return params, state
+        return replicate_tree(params, self.mesh), shard_walker_tree(state, self.mesh, self.config.n_walkers)
 
     def warm_up(self, params: Params, state: metropolis.MCState, n_sweeps: int = 500) -> metropolis.MCState:
         return self._sweep(self.machine.make_work(params), state, n_sweeps)
@@ -261,14 +302,20 @@ class VMC:
         machine, ham = self.machine, self.hamiltonian
         # "compensated" is passed only when set: the exchange Hamiltonians take no such argument
         kw = {"compensated": True} if self.config.energy_dtype == "compensated" else {}
-        if self._energy_dtype != machine.dtype:
-            wide = complex_dtype(self._energy_dtype)
+        edt = self._energy_dtype
+        if edt != machine.dtype:
+            wide = complex_dtype(edt)
             params = {k: v.to(wide) for k, v in params.items()}
-            cache, lnpsi = engine.full_forward(machine.make_work(params), cache.spins.to(self._energy_dtype))
-        htilda = ham.local_energy(machine.make_work(params), cache, lnpsi, **kw)
-        o_mat = machine.grad_log(params, cache)
+            cache, lnpsi = shard_map(lambda w, s: engine.full_forward(w, s.to(edt)), machine.make_work(params),
+                                     cache.spins)
+        work = machine.make_work(params)
+        if self.mesh is not None:  # no "compensated" under a mesh: kw is empty
+            htilda = ham.local_energy_sharded(work, cache, lnpsi)
+        else:
+            htilda = ham.local_energy(work, cache, lnpsi, **kw)
+        o_mat = shard_map(machine.grad_log, params, cache)
         sc = complex_dtype(self._solve_dtype)
-        return htilda.to(sc), o_mat.to(sc)
+        return shard_map(lambda h, o: (h.to(sc), o.to(sc)), htilda, o_mat)
 
     def _solve(self, o_mat: torch.Tensor, htilda: torch.Tensor, lam: float, step_idx: int, samples) -> tuple:
         """dx and the iteration count of the configured solver."""
@@ -276,7 +323,7 @@ class VMC:
         pdiag = None
         if self._use_ema:
             # EMA of diag(S), seeded with the current estimate at step 0
-            cur = sr_diag(o_mat, o_mat.mean(0))
+            cur = sr_diag(o_mat, walker_mean(o_mat))
             rho = cfg.precond_ema
             self._diag_ema = cur if step_idx == 0 else rho * self._diag_ema + (1.0 - rho) * cur
             pdiag = self._diag_ema
@@ -311,14 +358,16 @@ class VMC:
         """Everything after sampling: local energy, O_k, the solve, trust
         region and guards; returns the new parameters and the step's stats.
         ``extra_rounds``: the (cache, lnpsi) of the further sampling rounds
-        of ``n_accumulations > 1``; <H> and the rsd then pool all rounds."""
+        of ``n_accumulations > 1``; <H> and the rsd then pool all rounds.
+        Under a mesh the cache and ln psi are sharded, and so are O and the
+        local energies; the solve's sums are reduced over the shards."""
         machine, cfg = self.machine, self.config
         htilda, o_mat = self.estimator_terms(params, cache, lnpsi)
         samples = None
         pooled = htilda
         if extra_rounds:
             samples = [(o_mat, htilda)] + [self.estimator_terms(params, c, ln)[::-1] for c, ln in extra_rounds]
-            pooled = torch.cat([h for _, h in samples])
+            pooled = torch.cat([gather(h) for _, h in samples])
         havg, rsd = energy_and_rsd(pooled)
         lam = lambda_schedule(step_idx)
         dx, iters = self._solve(o_mat, htilda, lam, step_idx, samples)
@@ -331,7 +380,7 @@ class VMC:
         # freeze the update if <H> went non-finite or the energy variance
         # collapsed to zero (S and F are then exact zeros: the solve is noise);
         # the variance is the first round's, as in the JAX package
-        var = float((htilda.real**2 + htilda.imag**2).mean() - (havg.real**2 + havg.imag**2))
+        var = float(walker_mean(htilda, lambda h: h.real**2 + h.imag**2) - (havg.real**2 + havg.imag**2))
         ok = math.isfinite(float(havg.real)) and var > 0.0
         new_params = machine.update_params(params, dx, cfg.learning_rate) if ok else params
         return new_params, SRStats(energy=havg, rsd=rsd, cg_iters=iters, lam=lam)
@@ -339,11 +388,13 @@ class VMC:
     def _estimator_rows(self, state: metropolis.MCState) -> tuple[Cache, torch.Tensor]:
         """The cache and ln psi the estimators read: all walkers, or with
         n_beta > 1 the beta = 1 replicas [::n_beta], copied contiguous for
-        the kernels."""
+        the kernels (per shard under a mesh: a shard holds whole replica
+        groups, so its slices are the global slice's rows in order)."""
         nb = self.config.n_beta
         if nb == 1:
             return state.cache, state.lnpsi
-        return Cache(*(x[::nb].contiguous() for x in state.cache)), state.lnpsi[::nb].contiguous()
+        return shard_map(lambda c, ln: (Cache(*(x[::nb].contiguous() for x in c)), ln[::nb].contiguous()),
+                         state.cache, state.lnpsi)
 
     def step(self, params: Params, state: metropolis.MCState, step_idx: int):
         """One SR iteration; returns (params, state, stats)."""
@@ -356,7 +407,7 @@ class VMC:
             state = self._sweep(work, state, cfg.n_sweeps_per_step)
             extra.append(self._estimator_rows(state))
         params, stats = self.sr_update(params, cache, lnpsi, step_idx, extra_rounds=tuple(extra))
-        cache, lnpsi = engine.full_forward(self.machine.make_work(params), state.cache.spins)
+        cache, lnpsi = shard_map(engine.full_forward, self.machine.make_work(params), state.cache.spins)
         return params, state._replace(cache=cache, lnpsi=lnpsi), stats
 
     # ------------------------------------------------------------------
@@ -366,9 +417,10 @@ class VMC:
             return False  # already tempered / escalation disabled
         if self.hamiltonian.sampler_kind == "exchange" and cfg.use_fused_sweeps:
             return False  # as in JAX: the fused exchange has no tempered ladder, reseed in the sector
+        n_dev = n_devices(self.mesh)  # a shard must hold whole replica groups
         if cfg.collapse_escalate_nbeta == 0:
-            return any(cfg.n_walkers % nb == 0 for nb in _NBETA_CANDIDATES)
-        return cfg.n_walkers % cfg.collapse_escalate_nbeta == 0
+            return any(cfg.n_walkers % (n_dev * nb) == 0 for nb in _NBETA_CANDIDATES)
+        return cfg.n_walkers % (n_dev * cfg.collapse_escalate_nbeta) == 0
 
     def _resolve_escalation_nbeta(self, params: Params, state: metropolis.MCState) -> int:
         """collapse_escalate_nbeta, or - when 0 - the measured-acceptance
@@ -381,9 +433,10 @@ class VMC:
         work = self.machine.make_work(params)
         if self.hamiltonian.sampler_kind == "exchange":
             nb, diags = kawasaki.tune_n_beta_exchange(work, state, self.bonds, self.hamiltonian.n_unit_steps,
-                                                      candidates=_NBETA_CANDIDATES)
+                                                      candidates=_NBETA_CANDIDATES, n_devices=n_devices(self.mesh))
         else:
-            nb, diags = tempering.tune_n_beta(work, state, self.schedule, candidates=_NBETA_CANDIDATES)
+            nb, diags = tempering.tune_n_beta(work, state, self.schedule, candidates=_NBETA_CANDIDATES,
+                                              n_devices=n_devices(self.mesh))
         for cand, d in diags.items():
             print(f"#   n_beta={cand}: swap/pair = "
                   + "/".join(f"{a:.2f}" for a in d["swap"])
@@ -392,13 +445,16 @@ class VMC:
 
     def _reseed_state(self, params: Params, state: metropolis.MCState) -> metropolis.MCState:
         """Replace collapse_reseed_frac of the walkers with fresh random
-        configurations; caches recomputed."""
+        configurations (drawn for all K walkers, under a mesh then sharded);
+        caches recomputed."""
         cfg = self.config
         stride = max(1, int(round(1.0 / max(cfg.collapse_reseed_frac, 1e-9))))
         rand = self.hamiltonian.reseed_spins(state.generator, cfg.n_walkers, state.cache.spins.dtype)
         keep = (torch.arange(cfg.n_walkers, device=rand.device) % stride) != 0
-        spins = torch.where(keep[:, None], state.cache.spins, rand)
-        cache, lnpsi = engine.full_forward(self.machine.make_work(params), spins)
+        spins = torch.where(keep[:, None], gather(state.cache.spins), rand)
+        if self.mesh is not None:
+            spins = shard_walker_tree(spins, self.mesh, cfg.n_walkers)
+        cache, lnpsi = shard_map(engine.full_forward, self.machine.make_work(params), spins)
         return state._replace(cache=cache, lnpsi=lnpsi)
 
     def run(
@@ -473,7 +529,8 @@ class VMC:
                         f"parallel tempering (n_beta={esc_nbeta}"
                         + (", auto-tuned from swap acceptance)" if cfg.collapse_escalate_nbeta == 0 else ")")
                     )
-                    esc = VMC(self.machine, self.hamiltonian, dataclasses.replace(cfg, n_beta=esc_nbeta), device=self.device)
+                    esc = VMC(self.machine, self.hamiltonian, dataclasses.replace(cfg, n_beta=esc_nbeta),
+                              mesh=self.mesh, device=self.device)
                     esc.n_remediations = self.n_remediations
                     # the walkers become replica-minor groups (betas by
                     # position); their caches are consistent as they are

@@ -5,8 +5,10 @@ device="cpu")`` with the JAX driver's options: a train run (prefix, text
 checkpoint and metrics written, energies descending), a theta grid, the
 Hubbard chain with and without a trap, accumulated dense SR, periodic
 auto-save and structured resume (the step count and the lambda schedule
-continue), ``-nbeta=auto`` and ``-solvedtype``, and what the port does not take (``-mesh``, ``-gridmesh`` with
-a grid, ``-ckpt=orbax``). The JAX driver runs once in this module: a
+continue), ``-nbeta=auto`` and ``-solvedtype``, ``-mesh`` and ``-gridmesh``
+(held to the one-device and the serial run; more in
+``tests/test_torch_mesh_drivers.py``), and what the port does not take
+(``-ckpt=orbax``). The JAX driver runs once in this module: a
 ``-niter=0`` warm start of both drivers from the same text checkpoint
 writes the same file, byte for byte, under the same name. The file names
 of every model and ansatz are the JAX driver's.
@@ -144,9 +146,27 @@ def test_nbeta_auto_and_solvedtype(argv, tmp_path, capsys):
     ids=["mesh", "gridmesh", "orbax"],
 )
 def test_unported_options_raise(extra, tmp_path):
-    with pytest.raises(NotImplementedError, match="A4|Orbax"):
-        _main(["-model=LICH", "-ansatz=rbmtrsymm", "-L=8", "-nf=2", "-ns=64", "-niter=2", "-nwarm=2",
-               f"-path={tmp_path}", *extra])
+    """-ckpt=orbax raises (Orbax is a JAX library). -mesh and -gridmesh are
+    ported: a -mesh=4 run takes the one-device run's steps, and -gridmesh=2
+    the serial grid's, each point to 1e-10 (in float64, with the same seed);
+    a mesh whose shards the walkers do not divide is refused."""
+    base = ["-model=LICH", "-ansatz=rbmtrsymm", "-L=8", "-nf=2", "-ns=64", "-niter=2", "-nwarm=2",
+            "-dtype=float64"]
+    if extra == ["-ckpt=orbax"]:
+        with pytest.raises(NotImplementedError, match="Orbax"):
+            _main(base + [f"-path={tmp_path}", *extra])
+        return
+    plain = [a for a in extra if not a.startswith(("-mesh", "-gridmesh"))]
+    for sub in ("one", "mesh"):
+        (tmp_path / sub).mkdir()
+    want = _main(base + [f"-path={tmp_path / 'one'}", *plain])
+    got = _main(base + [f"-path={tmp_path / 'mesh'}", *extra])
+    assert [os.path.basename(r["prefix"]) for r in got] == [os.path.basename(r["prefix"]) for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose([h["energy"] for h in g["history"]], [h["energy"] for h in w["history"]],
+                                   rtol=0, atol=1e-10)
+    with pytest.raises(ValueError, match="multiple of"):
+        _main([a if a != "-ns=64" else "-ns=66" for a in base] + [f"-path={tmp_path}", "-mesh=4"])
 
 
 @pytest.mark.parametrize("model", ["CH", "LICH", "SQ", "TRI", "CB", "hubbard"])

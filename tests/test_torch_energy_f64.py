@@ -185,9 +185,10 @@ def test_kernel_table_f64_layout_and_memo(has_c):
     table's memo, which the float64 table leaves as it is."""
     w, b, a, c, _ = f64_stress_inputs("large Re w", has_c, seed=3, n=70)
     work = Work(*(None if x is None else torch.as_tensor(x) for x in (w, b, a, c)))
-    f32_memo = engine._table_memo[0]
+    f32_memo = dict(engine._table_memo())  # device -> this thread's float32 table memo entry
     table, a_site = engine.kernel_table_f64(work)
-    assert engine._table_memo[0] is f32_memo
+    assert engine._table_memo().keys() == f32_memo.keys()
+    assert all(engine._table_memo()[d] is entry for d, entry in f32_memo.items())
     n, h = w.shape
     n_pass, n_tile = -(-n // TILE_SITES), -(-h // TILE_UNITS)
     n_g = n_pass * n_tile * 2 * TILE_UNITS * TILE_SITES

@@ -27,6 +27,7 @@ from neural_network_quantum_state_tpu_torch.measurements import fermion
 from neural_network_quantum_state_tpu_torch.models import RBM, params_from_jax
 from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
+from neural_network_quantum_state_tpu_torch.parallel import make_mesh
 
 L = 3  # 6 JW spins, as the JAX package's tests
 N_UP = N_DN = 2
@@ -181,8 +182,13 @@ def test_fermion_sampler_refuses_what_the_jax_package_refuses():
         FermionAmplitudeSampler(machine, params, 8, 1, 1, n_beta=2, use_fused=True, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         FermionAmplitudeSampler(machine, params, 8, 1, 1, use_fused=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        FermionAmplitudeSampler(machine, params, 8, 1, 1, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="whole replica groups"):  # meshes: tests/test_torch_mesh_drivers.py
+        FermionAmplitudeSampler(machine, params, 8, 1, 1, mesh=make_mesh(3, device="cpu"))
+    one, two = (FermionAmplitudeSampler(machine, params, 8, 1, 1, key=3, **kw)
+                for kw in ({"device": "cpu"}, {"mesh": make_mesh(2, device="cpu")}))
+    one.do_mcmc_steps(3)
+    two.do_mcmc_steps(3)
+    assert torch.equal(two.spins, one.spins)  # a mesh makes one device's decisions
     odd = RBM(n_inputs=5, n_hiddens=4, dtype=torch.float64)
     with pytest.raises(ValueError, match="2L inputs"):
         FermionAmplitudeSampler(odd, odd.init_params(make_generator(0, "cpu")), 8, 1, 1, device="cpu")

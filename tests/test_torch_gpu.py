@@ -1192,3 +1192,153 @@ def test_measure_driver_runs_on_card(cuda, tmp_path, capsys):
                             "-ns=64", f"-prefix={tmp_path}/spin", "-niter=4", "-nwarm=2"])
     assert np.isfinite(s2) and np.isfinite(err)
     assert tuple(a - b for a, b in zip(_launch_counts(), before))[-1] == 0
+
+
+def _row0_case(cuda, kind, dtype, has_c, seed):
+    """Work, cache, ln psi and generator of a row0 case: the sweep on a
+    chain of 16 sites or the exchange on the L = 16 Hubbard chain, K = 512."""
+    k = 512
+    if kind == "sweep":
+        n = 16
+        if dtype == torch.float64:
+            return _f64_machine(cuda, n, 48, k, has_c, seed), None
+        return (_scaled_ffnn if has_c else _scaled_rbm)(cuda, n, 48, k, seed), None
+    l = 16
+    if dtype == torch.float64:
+        work, _, _, g = _f64_machine(cuda, 2 * l, 48, 8, has_c, seed)
+    else:
+        work, _, _, g = (_scaled_ffnn if has_c else _scaled_rbm)(cuda, 2 * l, 48, 8, seed)
+    ham = HubbardChain(n_sites=2 * l, n_up=3, n_down=4)
+    cache, ln = engine.full_forward(work, ham.init_spins(g, k, dtype))
+    return (work, cache, ln, g), ham
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+@pytest.mark.parametrize("n_beta", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kind", ["sweep", "exchange"])
+def test_every_sampler_instance_at_row0_matches_plain(cuda, kind, dtype, n_beta, has_c):
+    """Every instance of the sweep and exchange kernels (float32, float64,
+    n_beta = 1 and tempered, with and without c) on its Philox stream at
+    row0 = K/2 (a walker mesh's shard) against its plain version on the same
+    draws: the same decisions but for near-ties and near-cut walkers, y and
+    ln psi where they agree; the plain draws are the columns K/2 .. 3K/2 of
+    a call over 2K walkers."""
+    (work, cache, ln, g), ham = _row0_case(cuda, kind, dtype, has_c, 40 + n_beta)
+    k = cache.spins.shape[0]
+    key = philox_key(g)
+    if kind == "sweep":
+        sched = torch.as_tensor(chain_checkerboard(cache.spins.shape[1]), device=cuda)
+        draws = PhiloxDraws(key, 2 * sched.shape[0], row0=k // 2)
+        assert torch.equal(draws.flips(k), PhiloxDraws(key, 2 * sched.shape[0]).flips(2 * k)[:, k // 2:3 * k // 2])
+        ck, lk, _ = sweep_ops.sweep_cuda(work, cache, sched, draws, n_beta)
+        cp, lp, _ = sweep_ops.sweep_plain(work, cache, ln, sched, draws, n_beta)
+    else:
+        bonds = torch.as_tensor(ham.bonds, device=cuda)
+        n_unit = ham.n_unit_steps
+        draws = ExchangeDraws(key, 2 * n_unit, row0=k // 2)
+        ck, lk, _ = exchange_ops.exchange_cuda(work, cache, bonds, draws, None, n_beta, n_unit)
+        cp, lp, _ = exchange_ops.tempered_exchange_plain(work, cache, ln, bonds, draws, None, n_beta, n_unit)
+        up, dn = _sector_counts(ck.spins, ham.n_sites // 2)
+        assert bool((up == 3).all()) and bool((dn == 4).all())
+    if dtype == torch.float64:
+        _f64_states_agree(ck, lk, cp, lp, 1e-2)
+    else:
+        same = _agreeing(ck, cp, 2e-2)
+        torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=2e-5)
+        torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=2e-4)
+    # the rows of another offset draw other numbers: the decisions move
+    other = sweep_ops.sweep_cuda(work, cache, sched, draws._replace(row0=0), n_beta)[0] if kind == "sweep" else \
+        exchange_ops.exchange_cuda(work, cache, bonds, draws._replace(row0=0), None, n_beta, n_unit)[0]
+    assert not torch.equal(other.spins, ck.spins)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_beta", [1, 4])
+@pytest.mark.parametrize("kind", ["sweep", "exchange"])
+def test_four_shard_call_equals_the_unsharded_launch(cuda, kind, n_beta):
+    """A sampler call on a 4-shard mesh of the card (four launches on one
+    key, each at its shard's first row) makes the unsharded launch's
+    decisions: the spins to the bit, y and ln psi equal, the counters
+    equal, and four launches against one."""
+    from neural_network_quantum_state_tpu_torch.parallel import gather, make_mesh, shard_walker_tree
+
+    (work, cache, _, _), ham = _row0_case(cuda, kind, torch.float32, False, 60 + n_beta)
+    k = cache.spins.shape[0]
+    state = init_state(work, cache.spins, make_generator(8, cuda))
+    if kind == "sweep":
+        sched = torch.as_tensor(chain_checkerboard(cache.spins.shape[1]), device=cuda)
+        run = lambda st: tempering.tempering_sweeps(work, st, sched, 3, n_beta) if n_beta > 1 else \
+            metropolis.sweeps(work, st, sched, 3)  # noqa: E731
+        count = lambda: sweep_ops.sweep_cuda.launches  # noqa: E731
+    else:
+        bonds = torch.as_tensor(ham.bonds, device=cuda)
+        run = lambda st: kawasaki.tempered_exchange_sweeps(work, st, bonds, 3, ham.n_unit_steps, n_beta)  # noqa: E731
+        count = lambda: exchange_ops.exchange_cuda.launches  # noqa: E731
+    before = count()
+    one = run(state._replace(generator=make_generator(9, cuda)))
+    assert count() == before + 1
+    mesh = make_mesh(4, device="cuda")
+    sharded = shard_walker_tree(state._replace(generator=make_generator(9, cuda)), mesh, k)
+    got = run(sharded)
+    assert count() == before + 1 + 4
+    assert torch.equal(gather(got.cache.spins), one.cache.spins)
+    torch.testing.assert_close(gather(got.cache.y), one.cache.y, rtol=0, atol=0)
+    torch.testing.assert_close(gather(got.lnpsi), one.lnpsi, rtol=0, atol=1e-6)
+    assert float(got.n_accepted) == float(one.n_accepted)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sweep", "exchange"])
+def test_every_mesh_launch_runs_on_its_shards_card(cuda, kind, monkeypatch):
+    """A VMC on a mesh of two shards a visible card, the cards in reverse
+    order (shard 0 on the last card), run in a worker thread as a -gridmesh
+    grid point is (a fresh thread's current card is cuda:0): every C launch
+    of the sweep (or exchange) and energy kernels is made with its shard's
+    card current, in mesh order, and the energies equal one device's."""
+    import concurrent.futures
+
+    from neural_network_quantum_state_tpu_torch.parallel import make_mesh
+
+    cards = [torch.device("cuda", i) for i in reversed(range(torch.cuda.device_count()))]
+    mesh = make_mesh([c for c in cards for _ in range(2)])
+    current = []
+
+    def spy(get):
+        def wrapped(*a):
+            fn = get(*a)
+
+            def call(*args):
+                current.append(torch.cuda.current_device())
+                return fn(*args)
+
+            return call
+
+        return wrapped
+
+    monkeypatch.setattr(sweep_ops, "_kernel", spy(sweep_ops._kernel))
+    monkeypatch.setattr(exchange_ops, "_launcher", spy(exchange_ops._launcher))
+    monkeypatch.setattr(energy, "_kernel", spy(energy._kernel))
+    if kind == "sweep":
+        machine, ham = RBMTrSymm(n_inputs=16, alpha=2, dtype=torch.float32), LITFIChain(16, h=-0.5, j=0.866, alpha=2.5)
+    else:
+        machine, ham = RBM(n_inputs=32, n_hiddens=32, dtype=torch.float32), HubbardChain(n_sites=32, n_up=3, n_down=4)
+    cfg = VMCConfig(n_walkers=512, learning_rate=1e-2, seed=5)
+
+    def train(m, device):
+        vmc = VMC(machine, ham, cfg, mesh=m, device=device)
+        params, state = vmc.init()
+        state = vmc.warm_up(params, state, 10)
+        _, _, history, _ = vmc.run(params, state, 3)
+        return [h["energy"] for h in history]
+
+    one = train(None, cards[0])
+    current.clear()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        sharded = pool.submit(train, mesh, None).result()
+    order = [d.index for d in mesh.devices]
+    assert current and len(current) % mesh.size == 0
+    assert current == order * (len(current) // mesh.size)
+    np.testing.assert_allclose(sharded[0], one[0], rtol=1e-6, atol=0)  # the same walkers, sums in another order
+    np.testing.assert_allclose(sharded, one, rtol=1e-4, atol=0)

@@ -7,8 +7,9 @@ written by the port's ``save_reference_text`` (a spin chain of 8 sites, a
 within error of exact enumeration over the 2^N basis, its printed lines
 have the JAX driver's format (the JAX driver runs the same command at a
 tiny size; the numbers differ, their formats may not), its output files
-the JAX driver's shape and ``np.savetxt`` layout, and ``-mesh=1`` raises
-NotImplementedError.
+the JAX driver's shape and ``np.savetxt`` layout, and ``-mesh=2`` gives
+the one-device run's values (``tests/test_torch_mesh_drivers.py`` holds
+every mesh path).
 """
 
 import os
@@ -212,8 +213,14 @@ def test_measure_mode_matches_jax_format_and_exact_values(mode, ckpts, capsys, t
 
 
 def test_measure_refuses_a_mesh_and_unknown_modes(ckpts):
-    with pytest.raises(NotImplementedError, match="A4"):
-        measure.main(SPIN + ["-what=smag", f"-prefix={ckpts['A'][0]}", "-mesh=1"] + TINY, device="cpu")
+    """-mesh=2 measures what one device does, decision for decision; a mesh
+    whose shards the walkers do not divide is refused (the JAX package's
+    error), as are unknown modes and -what=energy without a model."""
+    one = measure.main(SPIN + ["-what=smag", f"-prefix={ckpts['A'][0]}"] + TINY, device="cpu")
+    two = measure.main(SPIN + ["-what=smag", f"-prefix={ckpts['A'][0]}", "-mesh=2"] + TINY, device="cpu")
+    np.testing.assert_allclose(two, one, rtol=0, atol=1e-12)
+    with pytest.raises(ValueError, match="whole replica groups"):
+        measure.main(SPIN + ["-what=smag", f"-prefix={ckpts['A'][0]}", "-mesh=3"] + TINY, device="cpu")
     with pytest.raises(ValueError, match="unknown measurement"):
         measure.main(SPIN + ["-what=nothing", f"-prefix={ckpts['A'][0]}"] + TINY, device="cpu")
     with pytest.raises(ValueError, match="requires -model"):

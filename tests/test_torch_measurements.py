@@ -44,6 +44,7 @@ from neural_network_quantum_state_tpu_torch.measurements.sampler import run_pair
 from neural_network_quantum_state_tpu_torch.models import REGISTRY, RBM, params_from_jax
 from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.ops.rng import make_generator
+from neural_network_quantum_state_tpu_torch.parallel import make_mesh
 
 N = 6
 TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
@@ -388,8 +389,13 @@ def test_amplitude_sampler_surface():
         AmplitudeSampler(m1, p1, 10, n_beta=4, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         AmplitudeSampler(m1, p1, 8, use_fused=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        AmplitudeSampler(m1, p1, 8, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="whole replica groups"):  # meshes: tests/test_torch_mesh_drivers.py
+        AmplitudeSampler(m1, p1, 8, n_beta=2, mesh=make_mesh(8, device="cpu"))
+    one, two = (AmplitudeSampler(m1, p1, 8, key=3, **kw) for kw in ({"device": "cpu"},
+                                                                      {"mesh": make_mesh(2, device="cpu")}))
+    one.do_mcmc_steps(3)
+    two.do_mcmc_steps(3)
+    assert torch.equal(two.spins, one.spins)  # a mesh makes one device's decisions
     neel = np.tile(np.where(np.arange(N) % 2 == 0, 1.0, -1.0), (8, 1))
     smp = AmplitudeSampler(m1, p1, 8, init_spins=torch.as_tensor(neel), device="cpu")
     np.testing.assert_array_equal(smp.spins.numpy(), neel)

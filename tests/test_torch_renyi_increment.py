@@ -33,6 +33,7 @@ from neural_network_quantum_state_tpu_torch.models import RBM, params_from_jax
 from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.ops.rng import make_generator, random_spins
 from neural_network_quantum_state_tpu_torch.ops.sweep import replica_betas
+from neural_network_quantum_state_tpu_torch.parallel import make_mesh
 
 N = 6
 ATOL = 1e-10
@@ -367,5 +368,9 @@ def test_renyi2_increment_refuses_what_the_jax_package_refuses():
         renyi2_increment(m1, p1, N, 2, device="cpu")
     with pytest.raises(ValueError, match="multiple of n_beta"):
         renyi2_increment(m1, p1, 2, 2, walkers_per_level=6, n_beta=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        renyi2_increment(m1, p1, 2, 2, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="whole replica groups"):  # meshes: tests/test_torch_mesh_drivers.py
+        renyi2_increment(m1, p1, 2, 2, walkers_per_level=6, n_beta=2, mesh=make_mesh(4, device="cpu"))
+    kw = dict(n_iterations=2, n_warmup=2, walkers_per_level=8, n_blocks=2, key=3)
+    one = renyi2_increment(m1, p1, 2, device="cpu", **kw)
+    two = renyi2_increment(m1, p1, 2, mesh=make_mesh(2, device="cpu"), **kw)
+    np.testing.assert_allclose(two[2], one[2], rtol=0, atol=1e-12)  # a mesh makes one device's chains

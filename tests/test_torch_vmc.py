@@ -15,6 +15,7 @@ from neural_network_quantum_state_tpu_torch.optim import SRStats
 from neural_network_quantum_state_tpu_torch.ops import energy, engine
 from neural_network_quantum_state_tpu_torch.ops import exchange as exchange_ops
 from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
+from neural_network_quantum_state_tpu_torch.parallel import make_mesh
 from neural_network_quantum_state_tpu_torch.sampler import kawasaki
 
 
@@ -53,7 +54,7 @@ def test_litfi_chain_converges_to_exact(dtype):
     [
         {"n_beta": 32, "hamiltonian": HubbardChain(n_sites=4, n_up=1, n_down=1), "dtype": torch.float32,
          "device": "cuda", "error": ValueError},
-        {"mesh": object()},
+        {"mesh": "3 shards", "error": ValueError},
         {"device": "cuda", "use_fused_sweeps": True, "error": ValueError},
     ],
     ids=["n_beta", "mesh", "float64_on_card"],
@@ -61,15 +62,17 @@ def test_litfi_chain_converges_to_exact(dtype):
 def test_unported_options_raise(change):
     """What the port does not take raises: a tempered-exchange ladder above
     the kernels' 16 replicas on the card (ValueError; tempered exchange
-    itself is ported, tests/test_torch_tempered_exchange.py), meshes
-    (NotImplementedError), and the fused sweeps for a float64 machine on
+    itself is ported, tests/test_torch_tempered_exchange.py), a mesh whose
+    shards the walkers do not divide (ValueError, as in JAX: 1024 walkers
+    over 3 shards; meshes themselves are ported, tests/test_torch_mesh.py
+    holds them to one device), and the fused sweeps for a float64 machine on
     the card (ValueError: the megakernel is float32 only, as the JAX
     package asserts; a float64 machine itself runs the sweep and exchange
     kernels' float64 instances)."""
     change = dict(change)
     machine = RBM(n_inputs=4, n_hiddens=4, dtype=change.pop("dtype", torch.float64))
     ham = change.pop("hamiltonian", TFIChain(n_sites=4))
-    mesh = change.pop("mesh", None)
+    mesh = make_mesh(3, device="cpu") if change.pop("mesh", None) else None
     device = change.pop("device", "cpu")
     with pytest.raises(change.pop("error", NotImplementedError)):
         VMC(machine, ham, dataclasses.replace(VMCConfig(), **change), mesh=mesh, device=device)
