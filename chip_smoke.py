@@ -10,9 +10,10 @@ Phases, each printed with its seconds:
    sources, the sweep's and the exchange's float64 instances two more);
    print each instance's registers and spill bytes (the energy kernel's two
    float64 instances, which serve every width, must not spill; the sweep's
-   and the exchange's float64 instances are four each, every width), and the
-   SASS instructions per element of the sweep's, the energy (float32 and
-   float64) and the exchange kernel's hot loops;
+   float64 instances are one per R, c and tempered class, the exchange's
+   four, every width), and the SASS instructions per element of the sweep's,
+   the energy (float32 and float64), the exchange kernel's and the float64
+   sweep's hot loops (its R = 8 proposal round with its accept);
 3. at full width hold each kernel against its plain PyTorch version on the
    same inputs and time both with CUDA events: the sweep and energy kernels
    at the LITFI flagship's N=64, H=256, K=8192 (the sweep at n_beta = 1 and
@@ -56,8 +57,10 @@ Phases, each printed with its seconds:
    the sweep's float64 instances against the plain float64 sweep (the
    flagship widened to complex128, its Philox stream and float64 caller
    uniforms, n_beta = 1 and 8, 5 sweeps in one launch, with and without c;
-   H = 16, 80, 384, 512; the stress inputs of utils/f64_stress.py at N = 16
-   and 72) and the exchange's float64 instances against the plain float64
+   H = 16, 80, 384, 512; the sweep's stress inputs of utils/f64_stress.py,
+   |Re w| = 25 among them, at N = 16 and 72, and at N = 16 a launch of 100
+   sweeps) and the exchange's float64
+   instances against the plain float64
    (tempered) exchange at the Hubbard flagship's shape (n_beta = 1, 4 and 8,
    the three modes, with and without c, every sector kept; H = 16, 80,
    384): decisions as the float32 gates, near-cut walkers counted with
@@ -180,7 +183,8 @@ Phases, each printed with its seconds:
    bytes from the build, the exchange's and the sweep's 5-sweep launches,
    the energy kernel's float64 instance, the exchange's tempered instance,
    the sweep's and the exchange's float64 instances and the chain-rate
-   probe;
+   probe; the float64 sweep's bound (the operations its form needs) beside
+   its RBM form's L1 floor and the time of its table;
 17. profile 5 more LITFI SR steps, 18. 5 more Hubbard SR steps, 19. 5 more
    FFNN flagship SR steps, 20. 3 more Hubbard minSR steps, 21. 3 more 2D
    dense SR steps, 22. 5 more tempered Hubbard SR steps, 22b. 5 more
@@ -284,6 +288,15 @@ F64_FORM_OPS, F64_FORM_SMEM_BYTES, PEAK_SMEM_BYTES_S = 14, 16, 132 * 128 * 1.98e
 # inputs of utils/f64_stress.py (sweep), N = 16 and 72, K = 300.
 F64_Y_RTOL, F64_LNPSI_ATOL = 1e-12, 1e-10
 F64_SWEEP_WIDTHS, F64_EXCHANGE_WIDTHS = (16, 80, 384, 512), (16, 80, 384)
+F64_LONG_SWEEPS = 100  # the float64 sweep's launch of a warm-up's sweeps on the stress inputs
+# The float64 sweep's operations per (walker, proposal, hidden unit), what
+# its form needs (csrc/sweep_f64.cu), its bound's count: in the RBM family 12
+# (the complex multiply-add c + u G, 8, |.|^2, 3, the running product, 1),
+# with c 25 (the multiply-add 8, |.|^2 3, the log and its half 2, atan2 1,
+# the phase 3 and its wrap 4, the sum 4); and beside the bound the RBM
+# form's 16 bytes of G read through L1 at the shared-memory/L1 rate of
+# PEAK_SMEM_BYTES_S, a floor of this form, not of the function.
+F64_SWEEP_FORM_OPS, F64_SWEEP_FORM_OPS_C, F64_SWEEP_FORM_BYTES = 12, 25, 16
 # The train driver's runs (phase 15b): the LITFI flagship warm-started from
 # the recorded run, its resume, the same model in float64 at the N=64
 # anchor's walker count, and the Hubbard trap chain in float64.
@@ -529,10 +542,11 @@ def _exact_estimators(dev, n_beta: int) -> dict:
 
 
 # the template parameters of each kernel after R: C (output weights c), T
-# (the sweep's tempered instance, n_beta > 1) and M (the sweep's launch of
-# more than one sweep with c), as the instances are named
+# (the sweep's tempered instance, n_beta > 1), M (the sweep's launch of
+# more than one sweep with c) and N (the float64 sweep's narrow tempered
+# instance, blocks of at most 8 warps), as the instances are named
 TEMPLATE_BOOLS = {"sweep": "ctm", "energy": "c", "exchange": "ct", "exchange_tempered": "ct", "sweep_energy": "t",
-                  "chain_rate": "", "sweep_f64": "ct", "exchange_f64": "ct"}
+                  "chain_rate": "", "sweep_f64": "ctn", "exchange_f64": "ct"}
 
 
 def _ptxas_table(name: str, lines) -> dict:
@@ -577,6 +591,11 @@ SASS_EXCHANGE_G, SASS_EXCHANGE_U = 8, 8
 SASS_F64 = (("Lb0E", "energy float64 RBM"), ("Lb1E", "energy float64 has_c"))
 SASS_F64_ELEMENTS = 16
 SASS_FP64 = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX")
+# The sweep's float64 instances at R = 8, n_beta = 1 and n_beta > 1: their
+# proposal round (the innermost loop with the warp's butterfly shuffles and
+# R loads of the G row), over its R hidden units of a lane.
+SASS_SWEEP_F64 = (("Lb0ELb0ELb0E", "sweep float64 RBM"), ("Lb0ELb1ELb0E", "sweep float64 RBM tempered"),
+                  ("Lb1ELb0ELb0E", "sweep float64 has_c"))
 
 
 def _loops(ins):
@@ -597,10 +616,11 @@ def _opcodes(body) -> list[str]:
 def _per_element(label, body, per) -> str:
     ops = _opcodes(body)
     fp, mufu, ldl = sum(o in SASS_FP for o in ops), ops.count("MUFU"), ops.count("LDL")
-    fp64 = sum(o in SASS_FP64 for o in ops)
+    fp64, calls = sum(o in SASS_FP64 for o in ops), ops.count("CALL")
     return (f"{label}: loop of {len(body)} instructions for {per} elements: "
             f"{len(body) / per:.1f} per element, {fp / per:.1f} floating-point/MUFU "
-            f"(MUFU {mufu / per:.2f}, LDL {ldl / per:.2f})" + (f", double {fp64 / per:.1f}" if fp64 else ""))
+            f"(MUFU {mufu / per:.2f}, LDL {ldl / per:.2f})" + (f", double {fp64 / per:.1f}" if fp64 else "")
+            + (f", calls {calls}" if calls else ""))
 
 
 def _sass_per_element(text: str) -> list[str]:
@@ -618,8 +638,11 @@ def _sass_per_element(text: str) -> list[str]:
     a barrier and with at least 16 DFMA and 16 LDS.128 (the table's loads),
     over its 8 units x 2 sites (the library's log and atan2 with c count as
     far as they are inlined; a loop of theirs, which loads no table, is
-    not taken for the unit loop). Cold
-    paths inside the loop count too (a library sincosf's slow
+    not taken for the unit loop). The sweep's float64 instances at R = 8:
+    the smallest loop without a barrier with five butterfly shuffles (the
+    warp's product) and R loads of the G row, a proposal round with its
+    accept, over its R units (calls: the accept's division's slow path).
+    Cold paths inside the loop count too (a library sincosf's slow
     reduction, the Philox refill, the words past the registers), so this
     bounds the issued instructions per element from above."""
     funcs = {}
@@ -662,6 +685,18 @@ def _sass_per_element(text: str) -> list[str]:
             lines.append(f"{label}: no unit loop found")
             continue
         lines.append(_per_element(label, min(loops, key=len), SASS_F64_ELEMENTS))
+    for flags, label in SASS_SWEEP_F64:
+        names = [n for n in funcs if re.search(rf"sweep_kernel_f64ILi{SASS_R}E{flags}E", n)]
+        if not names:
+            continue
+        loops = [body for body in _loops(funcs[names[0]])
+                 if sum("SHFL.BFLY" in o for o in body) >= 5 and sum("LDG" in o for o in body) >= SASS_R
+                 and not any("BAR" in o for o in body)]
+        if not loops:
+            lines.append(f"{label}: no proposal loop found")
+            continue
+        lines.append(_per_element(f"{label} (R={SASS_R}, a proposal round with its accept)", min(loops, key=len),
+                                  SASS_R))
     return lines
 
 
@@ -780,7 +815,7 @@ def main() -> int:
     from neural_network_quantum_state_tpu_torch.optim.sr import (
         LAMBDA_MIN, build_s_matrix, force_vector, lambda_schedule, sr_cg_solve, sr_dense_solve, sr_minsr_solve,
     )
-    from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_STRESS, f64_stress_inputs
+    from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_STRESS, F64_SWEEP_STRESS, f64_stress_inputs
 
     wrappers = {"sweep": sweep_cuda, "energy": offdiag_sum_cuda, "exchange": exchange_cuda,
                 "sweep_energy": sweeps_offdiag_cuda, "chain_rate": chain_cuda}
@@ -840,12 +875,19 @@ def main() -> int:
     _require(set(f64_regs) == {"d", "cd"} or not built["energy"].seconds,
              f"energy float64 instances {sorted(f64_regs)}, expected d and cd")
     _require(not any("B" in v for v in f64_regs.values()), f"energy float64 instances spill: {f64_regs}")
-    # the sweep's and the exchange's float64 instances: one per (c, tempered), every H
-    for name in ("sweep_f64", "exchange_f64"):
-        print(f"{name} instances (d; c: with c, t: tempered), every H: registers {ptxas[name]}")
-        _require(set(ptxas[name]) == {"d", "cd", "td", "ctd"} or not built[name].seconds,
-                 f"{name} instances {sorted(ptxas[name])}, expected d, cd, td and ctd")
-    for line in _sass_report([built[name].path for name in ("sweep", "energy", "exchange")]):
+    # the sweep's float64 instances: one per (R, c, tempered) and the RBM family's narrow tempered ones above
+    # R = 8; the exchange's: one per (c, tempered), every H
+    print(f"sweep_f64 instances (R, then c: with c, t: tempered, n: narrow, d), registers[+spill]: "
+          f"{_ptxas_summary(ptxas['sweep_f64'])}")
+    want = ({f"{r}{c}{t}d" for r in range(1, 17) for c in ("", "c") for t in ("", "t")}
+            | {f"{r}tnd" for r in range(9, 17)})
+    _require(set(ptxas["sweep_f64"]) == want or not built["sweep_f64"].seconds,
+             f"sweep_f64 instances {sorted(ptxas['sweep_f64'])}, expected R = 1..16 each with and without c and t, "
+             "and R = 9..16 tn")
+    print(f"exchange_f64 instances (d; c: with c, t: tempered), every H: registers {ptxas['exchange_f64']}")
+    _require(set(ptxas["exchange_f64"]) == {"d", "cd", "td", "ctd"} or not built["exchange_f64"].seconds,
+             f"exchange_f64 instances {sorted(ptxas['exchange_f64'])}, expected d, cd, td and ctd")
+    for line in _sass_report([built[name].path for name in ("sweep", "energy", "exchange", "sweep_f64")]):
         print(f"SASS per element: {line}")
 
     _enter("3 kernels vs plain", t0)
@@ -1224,7 +1266,7 @@ def main() -> int:
                 sweep64[(f" H={wh}{clab}", nb, "philox")] = sweep64_vs_plain(
                     f" H={wh}{clab} n_beta={nb} philox", *w64c, wsched, PhiloxDraws(philox_key(g), 2 * WIDTH_N), nb,
                     WIDTH_MISMATCH_MAX)
-    for case in F64_STRESS:
+    for case in F64_SWEEP_STRESS:
         for sn in F64_STRESS_N:
             for clab in ("", " with c"):
                 w_, b_, a_, c_, s_ = f64_stress_inputs(case, bool(clab), seed=sn, n=sn, k=F64_STRESS_K)
@@ -1233,6 +1275,17 @@ def main() -> int:
                     f" {case}, N={sn}{clab} philox", w64, *engine.full_forward(w64, torch.as_tensor(s_, device=dev)),
                     torch.arange(sn, dtype=torch.int32, device=dev), PhiloxDraws(philox_key(g), sn), 1,
                     F64_STRESS_NEAR_MAX)
+    # a warm-up's launch of F64_LONG_SWEEPS sweeps on the stress inputs (N = 16): the factor state renewed
+    # at every start of the schedule, its drift bounded by one sweep
+    for case in F64_SWEEP_STRESS:
+        sn = F64_STRESS_N[0]
+        for clab in ("", " with c"):
+            w_, b_, a_, c_, s_ = f64_stress_inputs(case, bool(clab), seed=sn, n=sn, k=F64_STRESS_K)
+            w64 = engine.Work(*(None if x is None else torch.as_tensor(x, device=dev) for x in (w_, b_, a_, c_)))
+            sweep64_vs_plain(
+                f" {case}, N={sn}{clab} {F64_LONG_SWEEPS} sweeps in one launch", w64,
+                *engine.full_forward(w64, torch.as_tensor(s_, device=dev)), torch.arange(sn, dtype=torch.int32, device=dev),
+                PhiloxDraws(philox_key(g), F64_LONG_SWEEPS * sn), 1, F64_STRESS_NEAR_MAX)
     # the exchange at the Hubbard flagship's shapes, widened, and at H = 16, 80, 384
     h64_cases = {"": widened(hwork, hcache), " with c": widened(hfwork, hfcache)}
     x64_sel, x64_acc = uniform_block(g, (n_unit, HUB_K), torch.float64), uniform_block(g, (n_unit, HUB_K), torch.float64)
@@ -2230,8 +2283,9 @@ def main() -> int:
                "chain_rate_energy": "chain_rate"}.get(base, base)
         f64 = base in ("energy_f64", "sweep_f64", "exchange_f64", "exchange_f64_tempered")
         tempered = tempered or base in ("exchange_tempered", "exchange_f64_tempered")
-        # the probe: its body; the float64 instances: one for every R
-        r = "" if f64 else {"chain_rate": 0, "chain_rate_energy": 1}.get(base, r_of.get(lib, (h + 31) // 32))
+        # the probe: its body; the float64 instances but the sweep's: one for every R
+        r = ("" if f64 and base != "sweep_f64"
+             else {"chain_rate": 0, "chain_rate_energy": 1}.get(base, r_of.get(lib, (h + 31) // 32)))
         c = name.endswith("_c")
         key = (f"{r}" + ("c" if c else "") + ("t" if tempered and "t" in TEMPLATE_BOOLS[lib] else "")
                + ("m" if multi and c and "m" in TEMPLATE_BOOLS[lib] else "") + ("d" if f64 else ""))
@@ -2264,6 +2318,30 @@ def main() -> int:
         print(f"{name} {MULTI_SWEEPS} sweeps in one launch: kernel "
               f"{'not measured' if d_ms is None else f'{d_ms:.4f} ms'} per call (device time, profiler); "
               f"instance {key}: registers {regs}")
+
+    # the sweep's float64 instances, where the JAX package runs XLA
+    # (sampler/metropolis.py::_sweep_scan): the operations their form needs
+    # at the float64 rate, their bytes in float64 (complex128 y, sa, w, a, c
+    # and the table G; float64 spins); beside them the RBM form's L1 floor
+    # and the table's time
+    f64_sweep_bytes = (2 * K * h * c128 + 2 * K * N * f64b + 2 * K * c128 + 3 * N * h * c128 + 2 * N * c128
+                       + 2 * K * i32b + 16)
+    sweep_f64_ops = {"": K * N * h * F64_SWEEP_FORM_OPS, "_c": K * N * h * F64_SWEEP_FORM_OPS_C}
+    sweep_f64_bounds = {"": _bound_ms(sweep_f64_ops[""], f64_sweep_bytes, PEAK_F64_FLOPS),
+                        "_c": _bound_ms(sweep_f64_ops["_c"], f64_sweep_bytes + h * c128, PEAK_F64_FLOPS)}
+    sweep_f64_t_bounds = {"": _bound_ms(sweep_f64_ops[""] + swap_ops, f64_sweep_bytes, PEAK_F64_FLOPS),
+                          "_c": _bound_ms(sweep_f64_ops["_c"] + swap_ops, f64_sweep_bytes + h * c128,
+                                          PEAK_F64_FLOPS)}
+    sweep_f64_l1_floor = 1e3 * K * N * h * F64_SWEEP_FORM_BYTES / PEAK_SMEM_BYTES_S
+    sweep_f64_table_ms = _time_ms(torch, lambda: engine.sweep_table_f64(f64_cases[""][0]), 20)
+    for c_ in ("", "_c"):
+        d_ms = device_ms[f"sweep_f64{c_}"]
+        print(f"sweep_f64{c_}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'}, bound "
+              f"{sweep_f64_bounds[c_][0]:.4f} ms ({sweep_f64_bounds[c_][1]}: the form's "
+              f"{F64_SWEEP_FORM_OPS_C if c_ else F64_SWEEP_FORM_OPS} double operations an element)"
+              + (f"; the form's L1 floor {sweep_f64_l1_floor:.4f} ms by its {F64_SWEEP_FORM_BYTES} bytes of G "
+                 "an element" if not c_ else ""))
+    print(f"sweep_f64: its table (engine.sweep_table_f64) {sweep_f64_table_ms:.4f} ms per call, in the wrapper's time")
 
     _enter("17 LITFI step profile", t0)
     _profile_steps(torch, vmc, params, state, SR_STEPS)
@@ -2485,16 +2563,10 @@ def main() -> int:
                   **tempered_entry(" with c", exchange_c_ops, FFNN_HUB_H)},
     })
 
-    # the sweep's and the exchange's float64 instances, where the JAX package
-    # runs XLA (sampler/metropolis.py::_sweep_scan, sampler/kawasaki.py::
-    # _exchange_scan): the float32 instances' operations at the float64 rate,
-    # their bytes in float64 (complex128 y, sa, w, a, c; float64 spins)
-    f64_sweep_bytes = 2 * K * h * c128 + 2 * K * N * f64b + 2 * K * c128 + N * h * c128 + N * c128 + 2 * K * i32b + 16
-    sweep_f64_bounds = {"": _bound_ms(K * N * h * SWEEP_OPS, f64_sweep_bytes, PEAK_F64_FLOPS),
-                        "_c": _bound_ms(K * N * h * SWEEP_OPS_C, f64_sweep_bytes + h * c128, PEAK_F64_FLOPS)}
-    sweep_f64_t_bounds = {"": _bound_ms(K * N * h * SWEEP_OPS + swap_ops, f64_sweep_bytes, PEAK_F64_FLOPS),
-                          "_c": _bound_ms(K * N * h * SWEEP_OPS_C + swap_ops, f64_sweep_bytes + h * c128,
-                                          PEAK_F64_FLOPS)}
+    # the exchange's float64 instances, where the JAX package runs XLA
+    # (sampler/kawasaki.py::_exchange_scan): the float32 instances'
+    # operations at the float64 rate, their bytes in float64 (complex128 y,
+    # sa, w, a, c; float64 spins); the sweep's are phase 16's
 
     def exchange_f64_bytes(hh, has_c, tempered):
         return (2 * HUB_K * hh * c128 + 2 * HUB_K * hn * f64b + 2 * HUB_K * c128 + hn * hh * c128 + hn * c128

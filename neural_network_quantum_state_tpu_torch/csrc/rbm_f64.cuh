@@ -9,10 +9,14 @@
 // port's plain float64 versions (ops/sweep.py sweep_plain, ops/exchange.py
 // exchange_plain) on the same uniforms. The log-cosh is the plain version's
 // stable split-plane form (ops/logcosh.py) with the library's double exp,
-// cos/sin, log and atan2: a sum of logs, so no product of cosh ratios can
-// overflow at any H or |Re w|, and the phase is the principal Arg of cosh y,
-// as the JAX package's and the plain version's, so ln psi jumps by
-// 2 pi i c_j where cosh(y_j) crosses the negative real axis.
+// cos/sin, log and atan2, and the phase is the principal Arg of cosh y, as
+// the JAX package's and the plain version's, so ln psi jumps by 2 pi i c_j
+// where cosh(y_j) crosses the negative real axis. The exchange sums these
+// terms per proposal, as logs, so that no product of cosh ratios can
+// overflow at any H or |Re w|. The sweep evaluates them once per sweep,
+// where it renews its factor state from y, and takes its proposals as
+// products of factors c_j + u_j e^{4 s w_ij} with a running power of two
+// (sweep_f64.cu).
 
 #pragma once
 

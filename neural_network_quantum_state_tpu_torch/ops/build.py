@@ -34,9 +34,9 @@ KERNELS = ("sweep", "energy", "exchange", "exchange_tempered", "sweep_energy", "
 # once for n_beta = 1 and once for n_beta > 1; the exchange kernel's
 # n_beta = 1 instances are exchange.cu, its tempered ones exchange_tempered.cu
 # (two sources, so that they build in parallel). sweep_f64 and exchange_f64
-# are the float64 instances of the sweep and the exchange (one per c and
-# n_beta class, y in shared memory: every H). chain_rate is the benchmark's
-# probe of their arithmetic.
+# are the float64 instances of the sweep (per R, c and n_beta class) and the
+# exchange (one per c and n_beta class, y in shared memory: every H).
+# chain_rate is the benchmark's probe of their arithmetic.
 MAX_HIDDEN = 512
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -114,12 +114,11 @@ def kernel_table_f64(work: Work) -> tuple[torch.Tensor, torch.Tensor]:
     ``F64_TILE_SITES`` sites by ``F64_TILE_UNITS`` hidden units, ordered
     [site pass][unit tile][s][unit][site] as (re, im) pairs, w zero-padded to
     whole tiles; with output weights c, Im w follows in the same tiles
-    ([site pass][unit tile][unit][site]). a'_i = a_i + sum_j w_ij for the RBM
-    family (c None), a_i + sum_j c_j Re w_ij with c (a zero without a
-    visible bias): the per-site factors e^{-2 s w_ij} of the kernel's
-    ratios, summed. Built on every call (the float64 path widens the
-    weights anew each step, so nothing would reuse it) and apart from
-    ``kernel_table``'s memo, which float64 energy calls leave as it is.
+    ([site pass][unit tile][unit][site]). a' is ``_site_term``: a_i +
+    sum_j w_ij for the RBM family (c None), a_i + sum_j c_j Re w_ij with c.
+    Built on every call (the float64 path widens the weights anew each step,
+    so nothing would reuse it) and apart from ``kernel_table``'s memo, which
+    float64 energy calls leave as it is.
     """
     w = work.w
     n, h = w.shape
@@ -132,13 +131,31 @@ def kernel_table_f64(work: Work) -> tuple[torch.Tensor, torch.Tensor]:
 
     g = torch.stack((tiles(torch.exp(4.0 * wp)), tiles(torch.exp(-4.0 * wp))), dim=2)
     parts = [torch.view_as_real(g).reshape(-1)]
-    a = work.a if work.a is not None else torch.zeros(n, dtype=w.dtype, device=w.device)
-    if work.c is None:
-        a_site = a + w.sum(1)
-    else:
+    if work.c is not None:
         parts.append(tiles(wp.imag).reshape(-1))
-        a_site = a + w.real.to(w.dtype) @ work.c
-    return torch.cat(parts), a_site.contiguous()
+    return torch.cat(parts), _site_term(work)
+
+
+def _site_term(work: Work) -> torch.Tensor:
+    """(N,) a_i + sum_j w_ij (c None), or a_i + sum_j c_j Re w_ij (a = 0
+    without a visible bias): the per-site factors e^{-2 s w_ij} of the
+    float64 kernels' ratios, summed."""
+    w = work.w
+    a = work.a if work.a is not None else torch.zeros(w.shape[0], dtype=w.dtype, device=w.device)
+    if work.c is None:
+        return (a + w.sum(1)).contiguous()
+    return (a + w.real.to(w.dtype) @ work.c).contiguous()
+
+
+def sweep_table_f64(work: Work) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the sweep kernel's float64 instances read of `work`
+    (complex128) besides w, a and c: G (N, 2, H) complex, e^{4 s w_ij} for
+    s = +1 (``[:, 0]``) and s = -1 (``[:, 1]``), so that a warp's lanes read
+    one site's row of one sign on consecutive hidden units; and the per-site
+    term a' of ``kernel_table_f64``. Built on every call, as that table is:
+    the float64 path widens the weights anew each step."""
+    w = work.w
+    return torch.stack((torch.exp(4.0 * w), torch.exp(-4.0 * w)), dim=1), _site_term(work)
 
 
 class Cache(NamedTuple):

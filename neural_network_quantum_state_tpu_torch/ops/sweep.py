@@ -153,11 +153,26 @@ def sweep_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniform
 sweep_plain.calls = 0
 
 
-def _kernel(name: str, symbol: str, n_pointers: int, row0: bool):
+# The float64 sweep kernel's range (csrc/sweep_f64.cu): its factors
+# |c + u e^{4 s w}|^2 < 8 e^{8 |Re w|}, multiplied in pairs, stay below
+# 2^1023 up to this |Re w|.
+F64_SWEEP_MAX_RE_W = 43.0
+
+
+def check_f64_range(work: Work) -> None:
+    """Raise where |Re w| passes the float64 sweep kernel's range."""
+    if work.w.numel() and float(work.w.real.abs().amax()) > F64_SWEEP_MAX_RE_W:
+        raise ValueError(f"sweep kernel, float64: |Re w| above {F64_SWEEP_MAX_RE_W}, where its pairs of factors "
+                         "|c + u e^(4 s w)|^2 leave the double range")
+
+
+def _kernel(name: str, symbol: str, n_pointers: int, row0: bool, n_tables: int = 0):
     """The C launch function: pointers, six ints, the stream and, for the
-    sweep's sources, the Philox counter's row offset ``row0``."""
+    sweep's sources, the Philox counter's row offset ``row0``, then
+    ``n_tables`` pointers (the float64 instances' table)."""
     fn = getattr(build.library(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * row0
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * row0
+                   + [ctypes.c_void_p] * n_tables)
     fn.restype = ctypes.c_int
     return fn
 
@@ -205,25 +220,29 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
         u_ptr, key_ptr = uniforms.data_ptr(), None
         swap_ptr = swap_uniforms.data_ptr() if n_beta > 1 else None
     build.check_inputs(kernel, dev, h, tensors, row0, k)
+    if f64:
+        check_f64_range(work)
     spins = torch.empty_like(cache.spins)
     y = torch.empty_like(cache.y)
     sa = torch.empty_like(cache.sa)
     stats = torch.empty((2, k), dtype=torch.int32, device=dev)
     symbol = {"sweep": "nqs_sweep_f32", "sweep_energy": "nqs_sweep_offdiag_f32"}[kernel]
-    pointers = list(weights)
-    if f64:  # its own source; y in shared memory, no table
+    pointers, after_row0 = list(weights), ()
+    if f64:  # its own source; its table of e^{4 s w} and per-site terms after row0
         kernel, symbol = "sweep_f64", "nqs_sweep_f64"
+        g, a_site = engine.sweep_table_f64(work)
+        after_row0 = (g.data_ptr(), a_site.data_ptr())
     elif kernel == "sweep":  # its instances with c read the energy kernel's table (rbm.cuh sweep_walker)
         table = engine.kernel_table(work.w) if work.c is not None else None
         pointers.append(None if table is None else table.data_ptr())
     with_row0 = kernel != "sweep_energy"
     rc = build.launch(
-        dev, _kernel(kernel, symbol, 12 + len(pointers) + len(extra), with_row0),
+        dev, _kernel(kernel, symbol, 12 + len(pointers) + len(extra), with_row0, len(after_row0)),
         *pointers, cache.spins.data_ptr(), cache.y.data_ptr(), cache.sa.data_ptr(),
         sched.data_ptr(), u_ptr, swap_ptr, key_ptr,
         spins.data_ptr(), y.data_ptr(), sa.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
         *(t.data_ptr() for t in extra), k, n, h, sched.shape[0], n_steps, n_beta,
-        torch.cuda.current_stream(dev).cuda_stream, *((row0,) if with_row0 else ()),
+        torch.cuda.current_stream(dev).cuda_stream, *((row0,) if with_row0 else ()), *after_row0,
     )
     build.check_launch(rc, f"{kernel} kernel")
     return Cache(spins=spins, y=y, sa=sa), stats

@@ -996,6 +996,96 @@ def test_float64_sweep_instance_on_stress_inputs(cuda, case, has_c):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+@pytest.mark.parametrize("n", [16, 72])
+def test_float64_sweep_instance_at_re_w_25(cuda, n, has_c):
+    """The float64 sweep on utils/f64_stress.py's "Re w 25" inputs (H = 128:
+    a flip of site 0 takes each unit's factor to about e^{200}, four of them
+    past the double range unless each pair is renormalised; without c the
+    flip decided by the uniforms), two sweeps on the Philox stream, against
+    the plain float64 sweep; the same weights moved past the kernel's range
+    raise before any launch."""
+    w, b, a, c, spins = f64_stress_inputs("Re w 25", has_c, seed=5, n=n, k=300)
+    work = Work(*(None if x is None else torch.as_tensor(x, device=cuda) for x in (w, b, a, c)))
+    cache, ln = engine.full_forward(work, torch.as_tensor(spins, device=cuda))
+    draws = PhiloxDraws(philox_key(make_generator(9, cuda)), 2 * n)
+    sched = torch.arange(n, dtype=torch.int32, device=cuda)
+    ck, lk, _ = sweep_ops.sweep_cuda(work, cache, sched, draws)
+    cp, lp, _ = sweep_ops.sweep_plain(work, cache, ln, sched, draws)
+    assert bool(torch.isfinite(ck.y).all())
+    _f64_states_agree(ck, lk, cp, lp, 1e-2)
+    launches = sweep_ops.sweep_cuda.launches_f64
+    past = work._replace(w=work.w + (sweep_ops.F64_SWEEP_MAX_RE_W + 1.0 - 25.0) * (work.w.real == 25.0))
+    with pytest.raises(ValueError, match="Re w"):  # past the kernel's range: raises, launches nothing
+        sweep_ops.sweep_cuda(past, cache, sched, draws)
+    assert sweep_ops.sweep_cuda.launches_f64 == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+@pytest.mark.parametrize("h", [384, 512])
+def test_float64_sweep_ladder_of_16_at_wide_h(cuda, h, has_c):
+    """The largest ladder, n_beta = 16 (blocks of 16 warps, each with its
+    walker's y and c_j in shared memory), at R = 12 and 16: two sweeps with
+    their swap phases on the Philox stream against the plain tempered
+    sweep, with the per-row counts of accepted flips and swaps."""
+    n, k, n_beta = 32, 512, 16
+    work, cache, ln, g = _f64_machine(cuda, n, h, k, has_c, 91 + h)
+    sched = torch.as_tensor(chain_checkerboard(n), device=cuda)
+    draws = PhiloxDraws(philox_key(g), 2 * n)
+    ck, lk, rows_k = sweep_ops.sweep_cuda(work, cache, sched, draws, n_beta, rows=True)
+    cp, lp, rows_p = sweep_ops.sweep_plain(work, cache, ln, sched, draws, n_beta, rows=True)
+    _f64_states_agree(ck, lk, cp, lp, 1e-2)
+    same = ~((ck.spins != cp.spins).any(1) | near_branch_cut(ck.y) | near_branch_cut(cp.y))
+    chains = same.reshape(-1, n_beta).all(1).repeat_interleave(n_beta)
+    assert torch.equal(rows_k[:, chains], rows_p[:, chains]) and float(rows_k[1].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+def test_float64_sweep_100_sweeps_in_one_launch(cuda, has_c):
+    """A warm-up's launch of 100 sweeps (n_steps = 100 N; the kernel renews
+    its factor state at every start of the schedule, so its drift stays
+    bounded by one sweep) against the plain float64 sweep on the same Philox
+    draws, and the carried y against a fresh forward pass of the final
+    spins."""
+    n, h, k = 32, 256, 256
+    work, cache, ln, g = _f64_machine(cuda, n, h, k, has_c, 71)
+    sched = torch.as_tensor(chain_checkerboard(n), device=cuda)
+    draws = PhiloxDraws(philox_key(g), 100 * n)
+    launches = sweep_ops.sweep_cuda.launches_f64
+    ck, lk, acc = sweep_ops.sweep_cuda(work, cache, sched, draws)
+    assert sweep_ops.sweep_cuda.launches_f64 == launches + 1
+    cp, lp, _ = sweep_ops.sweep_plain(work, cache, ln, sched, draws)
+    _f64_states_agree(ck, lk, cp, lp, 1e-2)
+    assert 0.0 < float(acc) < 100 * n * k
+    fresh, _ = engine.full_forward(work, ck.spins)
+    assert float((fresh.y - ck.y).abs().max()) <= 1e-10 * float(fresh.y.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+def test_float64_sweep_tempered_at_row0_with_n_beta_8(cuda, has_c):
+    """The float64 sweep's tempered instances at n_beta = 8 (blocks of one
+    ladder, H = 256: the R = 8 instance) on the Philox stream at row0 = K/2,
+    a walker mesh's shard, against the plain tempered sweep on the same
+    draws, with the per-row counts of accepted flips and swaps; another
+    offset moves the decisions."""
+    n, h, k, n_beta = 32, 256, 512, 8
+    work, cache, ln, g = _f64_machine(cuda, n, h, k, has_c, 81)
+    sched = torch.as_tensor(chain_checkerboard(n), device=cuda)
+    draws = PhiloxDraws(philox_key(g), 2 * n, row0=k // 2)
+    ck, lk, rows_k = sweep_ops.sweep_cuda(work, cache, sched, draws, n_beta, rows=True)
+    cp, lp, rows_p = sweep_ops.sweep_plain(work, cache, ln, sched, draws, n_beta, rows=True)
+    _f64_states_agree(ck, lk, cp, lp, 1e-2)
+    same = ~((ck.spins != cp.spins).any(1) | near_branch_cut(ck.y) | near_branch_cut(cp.y))
+    chains = same.reshape(-1, n_beta).all(1).repeat_interleave(n_beta)  # swaps couple the rows of a chain
+    assert torch.equal(rows_k[:, chains], rows_p[:, chains]) and float(rows_k[1].sum()) > 0
+    other = sweep_ops.sweep_cuda(work, cache, sched, draws._replace(row0=0), n_beta)[0]
+    assert not torch.equal(other.spins, ck.spins)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_beta", [1, 4])
 @pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
 @pytest.mark.parametrize("h", [16, 64, 80, 384])
