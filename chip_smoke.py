@@ -7,13 +7,17 @@ Phases, each printed with its seconds:
 1. a CUDA device must be present (else exit 1); print its name and power limit;
 2. build the CUDA kernels with nvcc (one process per source, in parallel:
    the exchange kernel's untempered and tempered instances are two
-   sources, the sweep's and the exchange's float64 instances two more);
-   print each instance's registers and spill bytes (the energy kernel's two
-   float64 instances, which serve every width, must not spill; the sweep's
-   float64 instances are one per R, c and tempered class, the exchange's
-   four, every width), and the SASS instructions per element of the sweep's,
-   the energy (float32 and float64), the exchange kernel's and the float64
-   sweep's hot loops (its R = 8 proposal round with its accept);
+   sources, the sweep's float64 instances a third, the exchange's float64
+   ones two more); print each instance's registers and spill bytes (the
+   energy kernel's two float64 instances, which serve every width, must not
+   spill; the sweep's float64 instances are one per R, c and tempered
+   class, the exchange's one per (G, U) of lanes_for, c and tempered
+   class), and the SASS instructions per element of the sweep's, the
+   energy (float32 and float64), the exchange kernel's and the float64
+   sweep's and exchange's hot loops (their proposal rounds with the
+   accept); the float64 exchange's RBM round must stay below the double
+   instructions per element that one library transcendental per unit
+   would add;
 3. at full width hold each kernel against its plain PyTorch version on the
    same inputs and time both with CUDA events: the sweep and energy kernels
    at the LITFI flagship's N=64, H=256, K=8192 (the sweep at n_beta = 1 and
@@ -59,12 +63,17 @@ Phases, each printed with its seconds:
    uniforms, n_beta = 1 and 8, 5 sweeps in one launch, with and without c;
    H = 16, 80, 384, 512; the sweep's stress inputs of utils/f64_stress.py,
    |Re w| = 25 among them, at N = 16 and 72, and at N = 16 a launch of 100
-   sweeps) and the exchange's float64
+   sweeps on the |Re w| = 25 one) and the exchange's float64
    instances against the plain float64
    (tempered) exchange at the Hubbard flagship's shape (n_beta = 1, 4 and 8,
    the three modes, with and without c, every sector kept; H = 16, 80,
-   384): decisions as the float32 gates, near-cut walkers counted with
-   them, y to 1e-12 of its largest |value| and ln psi to 1e-10 on the others;
+   384; the stress inputs on two rings of N/2 sites at N = 16 and 72, and
+   at N = 16 a launch of 100 sweeps on the |Re w| = 25 one): decisions as the
+   float32 gates,
+   near-cut walkers counted with them, y to 1e-12 of its largest |value|
+   and ln psi to 1e-10 on the others; weights past the float64 kernels'
+   range (|Re w| > 43) refused by the sweep, exchange and energy wrappers
+   with no launch;
 4. drive the LITFI flagship through the user's entry points (VMC.init,
    warm_up, run) and check that it ran through the sweep and energy
    kernels, never through a plain version, with finite energies: one sweep
@@ -144,11 +153,12 @@ Phases, each printed with its seconds:
    runs/RBMTrSymmLICH-L64NF4A2.5T0.95V9: 1 + 300 launches of the sweep's
    n_beta = 8 instance, 0 <= m1^2 <= m2 <= 1, m4 <= m2, the campaign's
    `binder=` grep); (b) the L=32 Hubbard trap (runs/RBMHB-L32U4V2) at the
-   recorded depth (5000 + 300 x 3): the energy within 1e-3 of the recorded
-   -0.1185681, the density summing to 10 within 1e-4 and within 0.05 of
-   the recorded profile at every site, OPDM(16,16) and OPDM(16,17) within
-   0.01 of the recorded row (1 + 301, 1 + 300, 1 + 16 x 300 exchange
-   launches), then -nbeta=4 at a cut depth through the tempered instance,
+   recorded depth (5000 + 300 x 3; the OPDM 5000 + 150 x 3): the energy
+   within 1e-3 of the recorded -0.1185681, the density summing to 10 within
+   1e-4 and within 0.05 of the recorded profile at every site, OPDM(16,16)
+   and OPDM(16,17) within 0.01 of the recorded row (1 + 301, 1 + 300,
+   1 + 16 x 150 exchange launches), then -nbeta=4 at a cut depth through
+   the tempered instance,
    every replica in its sector; (c) the deep-ordered Renyi increment run
    (runs/RBMTrSymmLICH-L64NF4A2.5T1.57V9, -l=32 -z2q=1 -init=neel, depth
    cut): S2 within 2e-3 of ln 2, no kernel (plain PyTorch glued sweeps);
@@ -183,8 +193,11 @@ Phases, each printed with its seconds:
    bytes from the build, the exchange's and the sweep's 5-sweep launches,
    the energy kernel's float64 instance, the exchange's tempered instance,
    the sweep's and the exchange's float64 instances and the chain-rate
-   probe; the float64 sweep's bound (the operations its form needs) beside
-   its RBM form's L1 floor and the time of its table;
+   probe; the float64 sweep's and exchange's bounds (the operations the
+   function needs) beside their RBM forms' floors (the operations they
+   issue, their reads through L1), the time of their table,
+   their wrappers' times with a fresh weight tensor a call (the table and
+   its range check built anew) and the float64 exchange's SASS per element;
 17. profile 5 more LITFI SR steps, 18. 5 more Hubbard SR steps, 19. 5 more
    FFNN flagship SR steps, 20. 3 more Hubbard minSR steps, 21. 3 more 2D
    dense SR steps, 22. 5 more tempered Hubbard SR steps, 22b. 5 more
@@ -206,6 +219,7 @@ another tree, say) and exits; it needs ``cuobjdump`` and no card.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -288,15 +302,29 @@ F64_FORM_OPS, F64_FORM_SMEM_BYTES, PEAK_SMEM_BYTES_S = 14, 16, 132 * 128 * 1.98e
 # inputs of utils/f64_stress.py (sweep), N = 16 and 72, K = 300.
 F64_Y_RTOL, F64_LNPSI_ATOL = 1e-12, 1e-10
 F64_SWEEP_WIDTHS, F64_EXCHANGE_WIDTHS = (16, 80, 384, 512), (16, 80, 384)
-F64_LONG_SWEEPS = 100  # the float64 sweep's launch of a warm-up's sweeps on the stress inputs
-# The float64 sweep's operations per (walker, proposal, hidden unit), what
-# its form needs (csrc/sweep_f64.cu), its bound's count: in the RBM family 12
-# (the complex multiply-add c + u G, 8, |.|^2, 3, the running product, 1),
-# with c 25 (the multiply-add 8, |.|^2 3, the log and its half 2, atan2 1,
-# the phase 3 and its wrap 4, the sum 4); and beside the bound the RBM
-# form's 16 bytes of G read through L1 at the shared-memory/L1 rate of
-# PEAK_SMEM_BYTES_S, a floor of this form, not of the function.
-F64_SWEEP_FORM_OPS, F64_SWEEP_FORM_OPS_C, F64_SWEEP_FORM_BYTES = 12, 25, 16
+# The float64 sweep's and exchange's launch of a warm-up's F64_LONG_SWEEPS
+# sweeps on the stress input of F64_LONG_CASE at N = 16, with and without
+# c: the drift of many accepted flips at the range's factors, |Re w| = 25
+# (the plain twin of such a launch takes about 1 s; the gpu tests' launches
+# of 100 sweeps run at the flagships' shapes).
+F64_LONG_SWEEPS, F64_LONG_CASE = 100, "Re w 25"
+# The float64 sweep's and exchange's operations per (walker, proposal,
+# hidden unit) that the function needs, their bounds' count: in the RBM
+# family 11 (the multiply-add c + u G with the state's c real, 7, |.|^2 3,
+# the running product 1), with c 24 for the sweep (the multiply-add 7,
+# |.|^2 3, the log and its half 2, atan2 1, the phase 3 and its wrap 4, the
+# sum 4) and 25 for the exchange (the difference of the two sites' Im w, 1).
+# Beside the bound, what the RBM forms issue on top (csrc/sweep_f64.cu,
+# csrc/exchange_f64.cuh): the sweep a power of two per pair of factors
+# (11.5), the exchange one per factor (12); and their 16 bytes of G or of
+# the bond table's row read through L1 at the shared-memory/L1 rate of
+# PEAK_SMEM_BYTES_S. Both are floors of the forms, not of the function.
+F64_SWEEP_OPS, F64_SWEEP_OPS_C, F64_EXCHANGE_OPS, F64_EXCHANGE_OPS_C = 11, 24, 11, 25
+F64_SWEEP_FORM_OPS, F64_EXCHANGE_FORM_OPS, F64_FORM_ROW_BYTES = 11.5, 12, 16
+# Past the float64 kernels' range (ops/engine.py F64_MAX_RE_W) the sweep,
+# exchange and energy wrappers raise and launch nothing: phase 3 moves the
+# "Re w 25" inputs' |Re w| = 25 to this far past it.
+F64_PAST_RANGE = 1.0
 # The train driver's runs (phase 15b): the LITFI flagship warm-started from
 # the recorded run, its resume, the same model in float64 at the N=64
 # anchor's walker count, and the Hubbard trap chain in float64.
@@ -309,18 +337,21 @@ DRIVER_TEMPERED_WARM, DRIVER_TEMPERED_STEPS = 50, 3  # both float64 models at n_
 # checkpoint under the build directory (the driver writes its files next to
 # -prefix, and runs/ holds the anchors): (a) the Binder production run
 # (scripts/binder_final_measure.sh:27-29) at full depth; (b) the L=32
-# Hubbard trap at full depth (logs/hubbard_trap_{energy,density,opdm}_eq.log),
+# Hubbard trap at full depth (logs/hubbard_trap_{energy,density,opdm}_eq.log;
+# the OPDM's iterations cut to half),
 # held to the recorded energy (the seeds read -0.1185681 and -0.11902, the
 # unequilibrated run +0.232), density and OPDM files, then tempered
 # (-nbeta=4) at a cut depth; (c) the deep-ordered Renyi run
 # (logs/renyi_z2q_N64_T157.log: S2 = ln 2 by the ansatz's symmetry), its
-# depth cut from 400 + 500; (d) the other modes at full width, small depth.
+# depth cut from 400 + 500 to 20 + 30, so that the run stays inside its
+# watchdog; (d) the other modes at full width, small depth.
 MEAS_BINDER_RUN, MEAS_HUB_RUN = "runs/RBMTrSymmLICH-L64NF4A2.5T0.95V9", "runs/RBMHB-L32U4V2"
 MEAS_HUB_ENERGY, MEAS_HUB_ENERGY_TOL = -0.1185681, 1e-3
 MEAS_SUM_N, MEAS_SUM_TOL, MEAS_DENSITY_TOL, MEAS_OPDM_TOL = 10.0, 1e-4, 0.05, 0.01
+MEAS_OPDM_ITERS = 150  # the OPDM's iterations, cut from the recorded 300 (16 launches each) for the watchdog
 MEAS_TEMPERED_WARM, MEAS_TEMPERED_ITERS = 500, 50
 MEAS_RENYI_RUN, MEAS_RENYI_TOL = "runs/RBMTrSymmLICH-L64NF4A2.5T1.57V9", 2e-3
-MEAS_RENYI_WARM, MEAS_RENYI_ITERS = 40, 60
+MEAS_RENYI_WARM, MEAS_RENYI_ITERS = 20, 30
 MEAS_FLAGSHIP, MEAS_FLAGSHIP2 = "runs/RBMTrSymmLICH-L64NF4A2.5T2V1", "runs/RBMTrSymmLICH-L64NF4A2.5T2V2"
 MEAS_SMALL_WARM, MEAS_SMALL_ITERS, MEAS_XX_ITERS, MEAS_F64_K = 100, 20, 2, 4096
 MEAS_PROFILE_ITERS = 5  # the profiled estimator iterations of (a) and (b) (phase 22b)
@@ -543,10 +574,11 @@ def _exact_estimators(dev, n_beta: int) -> dict:
 
 # the template parameters of each kernel after R: C (output weights c), T
 # (the sweep's tempered instance, n_beta > 1), M (the sweep's launch of
-# more than one sweep with c) and N (the float64 sweep's narrow tempered
-# instance, blocks of at most 8 warps), as the instances are named
+# more than one sweep with c) and N (the float64 sweep's and exchange's
+# narrow tempered instances, blocks of at most 8 warps), as the instances
+# are named
 TEMPLATE_BOOLS = {"sweep": "ctm", "energy": "c", "exchange": "ct", "exchange_tempered": "ct", "sweep_energy": "t",
-                  "chain_rate": "", "sweep_f64": "ctn", "exchange_f64": "ct"}
+                  "chain_rate": "", "sweep_f64": "ctn", "exchange_f64": "ctn", "exchange_f64_tempered": "ctn"}
 
 
 def _ptxas_table(name: str, lines) -> dict:
@@ -585,7 +617,7 @@ SASS_FP = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FRND", "MUFU")
 # with W in shared memory.
 SASS_EXCHANGE_G, SASS_EXCHANGE_U = 8, 8
 # The energy kernel's float64 instances (one per family, every R): their unit
-# loop, 8 hidden units (kRenorm in csrc/energy.cu) of each of a lane's 2
+# loop, 8 hidden units (kUnroll in csrc/energy.cu) of each of a lane's 2
 # sites, one 16-byte shared-memory load of the table an element;
 # double-precision opcodes.
 SASS_F64 = (("Lb0E", "energy float64 RBM"), ("Lb1E", "energy float64 has_c"))
@@ -596,6 +628,17 @@ SASS_FP64 = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX")
 # R loads of the G row), over its R hidden units of a lane.
 SASS_SWEEP_F64 = (("Lb0ELb0ELb0E", "sweep float64 RBM"), ("Lb0ELb1ELb0E", "sweep float64 RBM tempered"),
                   ("Lb1ELb0ELb0E", "sweep float64 has_c"))
+# The exchange's float64 instances of the Hubbard flagship (H = 64: G = 16,
+# U = 4): their proposal round (the smallest loop without a barrier with the
+# walker's butterfly over G lanes and U loads of the bond table's row), over
+# the U units of a lane. The form needs about 8 double instructions an
+# element, its accept about 7 more and a proposal's own about 16 (4 an
+# element); the library's exp, log, cos, sincos or atan2 of each unit would
+# add 11 to 40 more: the RBM round's gate.
+SASS_EXCHANGE_F64_G, SASS_EXCHANGE_F64_U = 16, 4
+SASS_EXCHANGE_F64 = (("Lb0ELb0ELb0E", "exchange float64 RBM"), ("Lb0ELb1ELb0E", "exchange float64 RBM tempered"),
+                     ("Lb1ELb0ELb0E", "exchange float64 has_c"))
+SASS_EXCHANGE_F64_DOUBLE_MAX = 36
 
 
 def _loops(ins):
@@ -642,6 +685,10 @@ def _sass_per_element(text: str) -> list[str]:
     the smallest loop without a barrier with five butterfly shuffles (the
     warp's product) and R loads of the G row, a proposal round with its
     accept, over its R units (calls: the accept's division's slow path).
+    The exchange's float64 instances at G = 16, U = 4: the smallest loop
+    without a barrier with the group's butterfly (at least 2 log2 G
+    shuffles) and U global loads (the bond table's row), a proposal round
+    with its accept, over its U units.
     Cold paths inside the loop count too (a library sincosf's slow
     reduction, the Philox refill, the words past the registers), so this
     bounds the issued instructions per element from above."""
@@ -697,6 +744,18 @@ def _sass_per_element(text: str) -> list[str]:
             continue
         lines.append(_per_element(f"{label} (R={SASS_R}, a proposal round with its accept)", min(loops, key=len),
                                   SASS_R))
+    g, u = SASS_EXCHANGE_F64_G, SASS_EXCHANGE_F64_U
+    for flags, label in SASS_EXCHANGE_F64:
+        names = [n for n in funcs if re.search(rf"exchange_kernel_f64ILi{g}ELi{u}E{flags}E", n)]
+        if not names:
+            continue
+        loops = [body for body in _loops(funcs[names[0]])
+                 if sum("SHFL.BFLY" in o for o in body) >= 2 * int(math.log2(g)) and sum("LDG" in o for o in body) >= u
+                 and not any("BAR" in o for o in body)]
+        if not loops:
+            lines.append(f"{label}: no proposal loop found")
+            continue
+        lines.append(_per_element(f"{label} (G={g}, U={u}, a proposal round with its accept)", min(loops, key=len), u))
     return lines
 
 
@@ -810,12 +869,13 @@ def main() -> int:
     )
     from neural_network_quantum_state_tpu_torch.ops.sweep import sweep_cuda, sweep_plain
     from neural_network_quantum_state_tpu_torch.ops.sweep_energy import sweeps_offdiag_cuda, sweeps_offdiag_plain
+    from neural_network_quantum_state_tpu_torch.sampler.kawasaki import two_ring_bonds
     from neural_network_quantum_state_tpu_torch.optim import solvers
     from neural_network_quantum_state_tpu_torch.optim.minres import sr_minres_solve
     from neural_network_quantum_state_tpu_torch.optim.sr import (
         LAMBDA_MIN, build_s_matrix, force_vector, lambda_schedule, sr_cg_solve, sr_dense_solve, sr_minsr_solve,
     )
-    from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_STRESS, F64_SWEEP_STRESS, f64_stress_inputs
+    from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_STRESS, f64_stress_inputs
 
     wrappers = {"sweep": sweep_cuda, "energy": offdiag_sum_cuda, "exchange": exchange_cuda,
                 "sweep_energy": sweeps_offdiag_cuda, "chain_rate": chain_cuda}
@@ -884,11 +944,32 @@ def main() -> int:
     _require(set(ptxas["sweep_f64"]) == want or not built["sweep_f64"].seconds,
              f"sweep_f64 instances {sorted(ptxas['sweep_f64'])}, expected R = 1..16 each with and without c and t, "
              "and R = 9..16 tn")
-    print(f"exchange_f64 instances (d; c: with c, t: tempered), every H: registers {ptxas['exchange_f64']}")
-    _require(set(ptxas["exchange_f64"]) == {"d", "cd", "td", "ctd"} or not built["exchange_f64"].seconds,
-             f"exchange_f64 instances {sorted(ptxas['exchange_f64'])}, expected d, cd, td and ctd")
-    for line in _sass_report([built[name].path for name in ("sweep", "energy", "exchange", "sweep_f64")]):
+    # the exchange's: one per (G, U) that lanes_for reaches, c, and n_beta class (two sources)
+    reached = [(16, u) for u in range(1, 9)] + [(32, u) for u in range(5, 17)]
+    for lib, t in (("exchange_f64", ""), ("exchange_f64_tempered", "t")):
+        print(f"{lib} instances (G x U, then c: with c, t: tempered, d), registers[+spill]: "
+              f"{_ptxas_summary(ptxas[lib])}")
+        want = {f"{g_}x{u_}{c}{t}d" for g_, u_ in reached for c in ("", "c")}
+        if t:  # and the RBM family's narrow tempered ones at G = 32 above U = 8
+            want |= {f"32x{u_}tnd" for u_ in range(9, 17)}
+        _require(set(ptxas[lib]) == want or not built[lib].seconds,
+                 f"{lib} instances {sorted(ptxas[lib])}, expected the (G, U) of lanes_f64 each with and without c, "
+                 "and the narrow tempered ones")
+    t_sass = time.perf_counter()
+    sass_lines = _sass_report([built[name].path for name in
+                               ("sweep", "energy", "exchange", "sweep_f64", "exchange_f64", "exchange_f64_tempered")])
+    print(f"SASS report: {time.perf_counter() - t_sass:.1f} s")
+    for line in sass_lines:
         print(f"SASS per element: {line}")
+    # the float64 exchange's RBM-family round issues no library transcendental per unit: its double
+    # instructions per element stay below what one exp, log, cos, sincos or atan2 of it would add
+    x_rbm = [line for line in sass_lines if "exchange float64 RBM (" in line]
+    if x_rbm:
+        dbl = float(re.search(r"double ([\d.]+)", x_rbm[0]).group(1))
+        calls = int(re.search(r"calls (\d+)", x_rbm[0]).group(1)) if "calls" in x_rbm[0] else 0
+        _require(dbl <= SASS_EXCHANGE_F64_DOUBLE_MAX and calls <= 1,
+                 f"the float64 exchange's RBM round: {x_rbm[0]} (at most {SASS_EXCHANGE_F64_DOUBLE_MAX} double "
+                 "instructions an element and one call, the division's slow path)")
 
     _enter("3 kernels vs plain", t0)
     dev = torch.device("cuda")
@@ -974,7 +1055,7 @@ def main() -> int:
     staged_seen_t = set()  # the same for the tempered instance
 
     def exchange_vs_plain(label, w_, c_, ln_, bonds_, uniforms, mismatch_max, cut, n_beta=1, swaps=None,
-                          tols=(EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL)):
+                          tols=(EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL), n_unit_=None):
         """Kernel vs plain exchange rounds on the same uniforms (an
         ExchangeDraws, or the (u_sel, u_acc) pair; for n_beta > 1 the
         tempered instance against the plain tempered exchange, in sweeps of
@@ -982,7 +1063,9 @@ def main() -> int:
         pair); the sectors kept, per flavor half, in every walker row (the
         walkers start with the same particle numbers, so a row holds them
         whichever replica's configuration it ends with); `tols` the y and
-        ln psi tolerances. Returns (share, ln_err, acceptance)."""
+        ln psi tolerances; `n_unit_` at n_beta = 1 the kernel's sweep (its
+        float64 instances renew their state after each). Returns (share,
+        ln_err, acceptance)."""
         args = (uniforms,) if isinstance(uniforms, ExchangeDraws) else uniforms
         k_, n_ = c_.spins.shape
         if c_.spins.dtype == torch.float32:  # the float32 instances' two W branches
@@ -994,7 +1077,7 @@ def main() -> int:
             cp, lp, rows_p = tempered_exchange_plain(w_, c_, ln_, bonds_, *args, **kw)
             acc_p = rows_p[0].sum()
         else:
-            ck, lk, rows_k = exchange_cuda(w_, c_, bonds_, *args)
+            ck, lk, rows_k = exchange_cuda(w_, c_, bonds_, *args, n_unit=n_unit_)
             cp, lp, acc_p = exchange_plain(w_, c_, ln_, bonds_, *args)
         acc_k = rows_k[0].sum()
         share_, ln_err_, _ = _compare(label, ck, lk, cp, lp, mismatch_max, *tols, failures, cut=cut)
@@ -1185,6 +1268,7 @@ def main() -> int:
             two_d[lab + clab] = _compare(f"sweep{clab} on the {lab} schedule, 2 sweeps", ck, lk, cp, lp,
                                          SWEEP_MISMATCH_MAX, SWEEP_Y_ATOL, SWEEP_LNPSI_ATOL, failures, cut=bool(clab))[:2]
 
+    _enter("3b float64 kernels vs plain", t0)
     # the energy kernel's float64 instance against the plain float64 sum
     def widened(w_, c_):
         w64 = engine.Work(*(None if t is None else t.to(torch.complex128) for t in w_))
@@ -1266,7 +1350,7 @@ def main() -> int:
                 sweep64[(f" H={wh}{clab}", nb, "philox")] = sweep64_vs_plain(
                     f" H={wh}{clab} n_beta={nb} philox", *w64c, wsched, PhiloxDraws(philox_key(g), 2 * WIDTH_N), nb,
                     WIDTH_MISMATCH_MAX)
-    for case in F64_SWEEP_STRESS:
+    for case in F64_STRESS:
         for sn in F64_STRESS_N:
             for clab in ("", " with c"):
                 w_, b_, a_, c_, s_ = f64_stress_inputs(case, bool(clab), seed=sn, n=sn, k=F64_STRESS_K)
@@ -1275,17 +1359,16 @@ def main() -> int:
                     f" {case}, N={sn}{clab} philox", w64, *engine.full_forward(w64, torch.as_tensor(s_, device=dev)),
                     torch.arange(sn, dtype=torch.int32, device=dev), PhiloxDraws(philox_key(g), sn), 1,
                     F64_STRESS_NEAR_MAX)
-    # a warm-up's launch of F64_LONG_SWEEPS sweeps on the stress inputs (N = 16): the factor state renewed
+    # a warm-up's launch of F64_LONG_SWEEPS sweeps on F64_LONG_CASE (N = 16): the factor state renewed
     # at every start of the schedule, its drift bounded by one sweep
-    for case in F64_SWEEP_STRESS:
-        sn = F64_STRESS_N[0]
-        for clab in ("", " with c"):
-            w_, b_, a_, c_, s_ = f64_stress_inputs(case, bool(clab), seed=sn, n=sn, k=F64_STRESS_K)
-            w64 = engine.Work(*(None if x is None else torch.as_tensor(x, device=dev) for x in (w_, b_, a_, c_)))
-            sweep64_vs_plain(
-                f" {case}, N={sn}{clab} {F64_LONG_SWEEPS} sweeps in one launch", w64,
-                *engine.full_forward(w64, torch.as_tensor(s_, device=dev)), torch.arange(sn, dtype=torch.int32, device=dev),
-                PhiloxDraws(philox_key(g), F64_LONG_SWEEPS * sn), 1, F64_STRESS_NEAR_MAX)
+    sn = F64_STRESS_N[0]
+    for clab in ("", " with c"):
+        w_, b_, a_, c_, s_ = f64_stress_inputs(F64_LONG_CASE, bool(clab), seed=sn, n=sn, k=F64_STRESS_K)
+        w64 = engine.Work(*(None if x is None else torch.as_tensor(x, device=dev) for x in (w_, b_, a_, c_)))
+        sweep64_vs_plain(
+            f" {F64_LONG_CASE}, N={sn}{clab} {F64_LONG_SWEEPS} sweeps in one launch", w64,
+            *engine.full_forward(w64, torch.as_tensor(s_, device=dev)), torch.arange(sn, dtype=torch.int32, device=dev),
+            PhiloxDraws(philox_key(g), F64_LONG_SWEEPS * sn), 1, F64_STRESS_NEAR_MAX)
     # the exchange at the Hubbard flagship's shapes, widened, and at H = 16, 80, 384
     h64_cases = {"": widened(hwork, hcache), " with c": widened(hfwork, hfcache)}
     x64_sel, x64_acc = uniform_block(g, (n_unit, HUB_K), torch.float64), uniform_block(g, (n_unit, HUB_K), torch.float64)
@@ -1310,7 +1393,46 @@ def main() -> int:
                     f"H={wh} exchange float64{clab} n_beta={nb} philox", *w64c, wb,
                     ExchangeDraws(philox_key(g), 2 * WIDTH_N), WIDTH_MISMATCH_MAX, bool(clab), nb, None,
                     f64_tols(w64c[1]))[:2]
+    # the stress inputs on two rings of N/2 sites, two sweeps of N proposals, and at N = 16 for
+    # F64_LONG_CASE a warm-up's launch of F64_LONG_SWEEPS sweeps: the state renewed from y after
+    # every sweep, its drift bounded by one
+    for case in F64_STRESS:
+        for sn in F64_STRESS_N:
+            for clab in ("", " with c"):
+                w_, b_, a_, c_, s_ = f64_stress_inputs(case, bool(clab), seed=sn, n=sn, k=F64_STRESS_K)
+                w64 = engine.Work(*(None if x is None else torch.as_tensor(x, device=dev) for x in (w_, b_, a_, c_)))
+                c64_, l64_ = engine.full_forward(w64, torch.as_tensor(s_, device=dev))
+                sb = torch.as_tensor(two_ring_bonds(sn // 2), device=dev)
+                long_ = sn == F64_STRESS_N[0] and case == F64_LONG_CASE
+                for sweeps in (2, F64_LONG_SWEEPS) if long_ else (2,):
+                    exchange64[(f" {case}, N={sn}{clab}", 1, f"{sweeps} sweeps")] = exchange_vs_plain(
+                        f"exchange float64 {case}, N={sn}{clab} {sweeps} sweeps in one launch", w64, c64_, l64_, sb,
+                        ExchangeDraws(philox_key(g), sweeps * sn), F64_STRESS_NEAR_MAX, bool(clab), 1, None,
+                        f64_tols(c64_), sn)[:2]
+    # past the float64 kernels' range the sweep, exchange and energy wrappers raise and launch nothing
+    w_, b_, a_, c_, s_ = f64_stress_inputs("Re w 25", False, seed=1, n=16, k=64)
+    w64 = engine.Work(*(None if x is None else torch.as_tensor(x, device=dev) for x in (w_, b_, a_, c_)))
+    w_past = w64._replace(w=w64.w + (engine.F64_MAX_RE_W + F64_PAST_RANGE - 25.0) * (w64.w.real == 25.0))
+    c_past = engine.full_forward(w_past, torch.as_tensor(s_, device=dev))[0]
+    past_counts = lambda: (sweep_cuda.launches_f64, exchange_cuda.launches_f64, offdiag_sum_cuda.launches_f64)  # noqa: E731
+    before = past_counts()
+    refused = []
+    for name, call in (("sweep", lambda: sweep_cuda(w_past, c_past, torch.arange(16, dtype=torch.int32, device=dev),
+                                                    PhiloxDraws(philox_key(g), 16))),
+                       ("exchange", lambda: exchange_cuda(w_past, c_past, torch.as_tensor(two_ring_bonds(8), device=dev),
+                                                          ExchangeDraws(philox_key(g), 16))),
+                       ("energy", lambda: offdiag_sum_cuda(w_past, c_past))):
+        try:
+            call()
+        except ValueError:
+            refused.append(name)
+    torch.cuda.synchronize()
+    print(f"float64 weights at |Re w| = {engine.F64_MAX_RE_W + F64_PAST_RANGE} (past the range): refused by "
+          f"{refused}; launches {past_counts()} against {before} before")
+    if refused != ["sweep", "exchange", "energy"] or past_counts() != before:
+        failures.append(f"float64 weights past the range: refused by {refused}, launches {past_counts()} / {before}")
 
+    _enter("3c row0, probe and times", t0)
     # every sweep and exchange instance on its Philox stream at row0 = K/2,
     # as a walker mesh's shard launches (the counter's walker row offset by
     # the shard's first global row), against its plain version on the same
@@ -2019,7 +2141,7 @@ def main() -> int:
     grep = re.findall(r"binder=[0-9.-]*", text)  # the campaign script's grep
     _require(len(grep) == 1 and math.isfinite(float(grep[0].split("=")[1])), f"measure binder: grep {grep}")
 
-    # (b) the L=32 Hubbard trap at the recorded depth: energy, density, OPDM
+    # (b) the L=32 Hubbard trap at the recorded depth: energy, density, OPDM (at half of it)
     hub_argv = ["-model=hubbard", "-U=4", "-t=1", f"-trap={HUB_TRAP}", "-ansatz=rbm", f"-L={2 * HUB_L}",
                 f"-nf={HUB_H}", f"-ns={HUB_K}", f"-npar={HUB_PARTICLES},{HUB_PARTICLES}", "-nms=3", "-fused=1"]
     hub_prefix = copy_run(MEAS_HUB_RUN)
@@ -2036,8 +2158,9 @@ def main() -> int:
     d_err = float(np.abs(np.c_[occ[:HUB_L], occ[HUB_L:]] - recorded_density).max())
     print(f"measure Hubbard density: sum n = {occ.sum():.6f}; max |n - recorded| {d_err:.4f} (bar {MEAS_DENSITY_TOL})")
     _require(abs(occ.sum() - MEAS_SUM_N) < MEAS_SUM_TOL and d_err < MEAS_DENSITY_TOL, "measure Hubbard density")
-    row, _ = drive_measure("Hubbard OPDM", hub_argv + full + ["-what=opdm", "-site=16", "-seed=5"],
-                           expect(exchange=1 + 16 * 300), 16 * 300)
+    opdm = ["-nwarm=5000", f"-niter={MEAS_OPDM_ITERS}", f"-prefix={hub_prefix}"]
+    row, _ = drive_measure("Hubbard OPDM", hub_argv + opdm + ["-what=opdm", "-site=16", "-seed=5"],
+                           expect(exchange=1 + 16 * MEAS_OPDM_ITERS), 16 * MEAS_OPDM_ITERS)
     o_err = max(abs(row[m].real - recorded_opdm[m, 0]) for m in (0, 1))
     print(f"measure Hubbard OPDM: (16,16) {row[0].real:.6f}, (16,17) {row[1].real:.6f}, recorded "
           f"{recorded_opdm[0, 0]:.6f}, {recorded_opdm[1, 0]:.6f}; max difference {o_err:.5f} (bar {MEAS_OPDM_TOL})")
@@ -2273,18 +2396,18 @@ def main() -> int:
     _enter("16 kernel device times", t0)
     # the instance each timed call runs: R = ceil(H/32) (exchange: G x U), then c and t
     hub_g = kernel_lanes(HUB_H)
+    hub_g64 = kernel_lanes(HUB_H, torch.float64)
     r_of = {lib: f"{hub_g}x{-(-HUB_H // hub_g)}" for lib in ("exchange", "exchange_tempered")}
+    r_of |= {lib: f"{hub_g64}x{-(-HUB_H // hub_g64)}" for lib in ("exchange_f64", "exchange_f64_tempered")}
 
     def instance(name, tempered=False, multi=False):
         base = name.removesuffix("_c")
-        # the energy kernel's float64 instance is in energy's library, the
-        # exchange's float64 tempered one in exchange_f64's
-        lib = {"energy_f64": "energy", "exchange_f64_tempered": "exchange_f64",
-               "chain_rate_energy": "chain_rate"}.get(base, base)
+        # the energy kernel's float64 instance is in energy's library
+        lib = {"energy_f64": "energy", "chain_rate_energy": "chain_rate"}.get(base, base)
         f64 = base in ("energy_f64", "sweep_f64", "exchange_f64", "exchange_f64_tempered")
         tempered = tempered or base in ("exchange_tempered", "exchange_f64_tempered")
-        # the probe: its body; the float64 instances but the sweep's: one for every R
-        r = ("" if f64 and base != "sweep_f64"
+        # the probe: its body; the energy's float64 instance: one for every R
+        r = ("" if base == "energy_f64"
              else {"chain_rate": 0, "chain_rate_energy": 1}.get(base, r_of.get(lib, (h + 31) // 32)))
         c = name.endswith("_c")
         key = (f"{r}" + ("c" if c else "") + ("t" if tempered and "t" in TEMPLATE_BOOLS[lib] else "")
@@ -2326,22 +2449,86 @@ def main() -> int:
     # and the table's time
     f64_sweep_bytes = (2 * K * h * c128 + 2 * K * N * f64b + 2 * K * c128 + 3 * N * h * c128 + 2 * N * c128
                        + 2 * K * i32b + 16)
-    sweep_f64_ops = {"": K * N * h * F64_SWEEP_FORM_OPS, "_c": K * N * h * F64_SWEEP_FORM_OPS_C}
+    sweep_f64_ops = {"": K * N * h * F64_SWEEP_OPS, "_c": K * N * h * F64_SWEEP_OPS_C}
     sweep_f64_bounds = {"": _bound_ms(sweep_f64_ops[""], f64_sweep_bytes, PEAK_F64_FLOPS),
                         "_c": _bound_ms(sweep_f64_ops["_c"], f64_sweep_bytes + h * c128, PEAK_F64_FLOPS)}
     sweep_f64_t_bounds = {"": _bound_ms(sweep_f64_ops[""] + swap_ops, f64_sweep_bytes, PEAK_F64_FLOPS),
                           "_c": _bound_ms(sweep_f64_ops["_c"] + swap_ops, f64_sweep_bytes + h * c128,
                                           PEAK_F64_FLOPS)}
-    sweep_f64_l1_floor = 1e3 * K * N * h * F64_SWEEP_FORM_BYTES / PEAK_SMEM_BYTES_S
-    sweep_f64_table_ms = _time_ms(torch, lambda: engine.sweep_table_f64(f64_cases[""][0]), 20)
+    sweep_f64_form_floor = {"operations": 1e3 * K * N * h * F64_SWEEP_FORM_OPS / PEAK_F64_FLOPS,
+                            "l1": 1e3 * K * N * h * F64_FORM_ROW_BYTES / PEAK_SMEM_BYTES_S}
     for c_ in ("", "_c"):
         d_ms = device_ms[f"sweep_f64{c_}"]
         print(f"sweep_f64{c_}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'}, bound "
-              f"{sweep_f64_bounds[c_][0]:.4f} ms ({sweep_f64_bounds[c_][1]}: the form's "
-              f"{F64_SWEEP_FORM_OPS_C if c_ else F64_SWEEP_FORM_OPS} double operations an element)"
-              + (f"; the form's L1 floor {sweep_f64_l1_floor:.4f} ms by its {F64_SWEEP_FORM_BYTES} bytes of G "
-                 "an element" if not c_ else ""))
-    print(f"sweep_f64: its table (engine.sweep_table_f64) {sweep_f64_table_ms:.4f} ms per call, in the wrapper's time")
+              f"{sweep_f64_bounds[c_][0]:.4f} ms ({sweep_f64_bounds[c_][1]}: the "
+              f"{F64_SWEEP_OPS_C if c_ else F64_SWEEP_OPS} double operations an element the function needs)"
+              + (f"; the form's floors: {sweep_f64_form_floor['operations']:.4f} ms by its {F64_SWEEP_FORM_OPS} "
+                 f"operations an element (a power of two per pair of factors), {sweep_f64_form_floor['l1']:.4f} ms "
+                 f"by its {F64_FORM_ROW_BYTES} bytes of G an element through L1" if not c_ else ""))
+
+    # the exchange's float64 instances, where the JAX package runs XLA
+    # (sampler/kawasaki.py::_exchange_scan): the operations their form needs
+    # at the float64 rate, their bytes in float64 (complex128 y, sa, w, a, c
+    # and the bond table E with a'; float64 spins), the table row's L1 floor
+    # beside them; the sweep's and the exchange's wrappers with a fresh
+    # weight tensor a call (the table and its range check built anew, as on
+    # the training paths' first call of a step) beside those on the same
+    # weights (phase 3, the memo's)
+    def exchange_f64_bytes(hh, has_c, tempered):
+        return (2 * HUB_K * hh * c128 + 2 * HUB_K * hn * f64b + 2 * HUB_K * c128 + hn * hh * c128 + hn * c128
+                + 2 * n_bonds * hh * c128 + hn * c128 + 2 * n_bonds * i32b + (hn + 1 + 2 * n_bonds) * i32b
+                + HUB_K * i32b + 16 + (hh * c128 if has_c else 0) + (HUB_K * i32b if tempered else 0))
+
+    x64_ops = {"": HUB_K * n_unit * (HUB_H * F64_EXCHANGE_OPS + n_bonds * EXCHANGE_OPS_BOND),
+               "_c": HUB_K * n_unit * (FFNN_HUB_H * F64_EXCHANGE_OPS_C + n_bonds * EXCHANGE_OPS_BOND)}
+    swap_x_ops = 2 * HUB_K * SWAP_OPS
+    exchange_f64_bounds = {
+        t_ + c_: _bound_ms(x64_ops[c_] + (swap_x_ops if t_ else 0),
+                           exchange_f64_bytes(FFNN_HUB_H if c_ else HUB_H, bool(c_), bool(t_)), PEAK_F64_FLOPS)
+        for t_ in ("", "_tempered") for c_ in ("", "_c")}
+    exchange_f64_form_floor = {
+        "operations": 1e3 * HUB_K * n_unit * (HUB_H * F64_EXCHANGE_FORM_OPS + n_bonds * EXCHANGE_OPS_BOND)
+        / PEAK_F64_FLOPS,
+        "l1": 1e3 * HUB_K * n_unit * HUB_H * F64_FORM_ROW_BYTES / PEAK_SMEM_BYTES_S}
+
+    def fresh_weights(work_):
+        """A call's weights: a new w tensor each time, the other parameters shared."""
+        works = itertools.cycle([work_._replace(w=work_.w.clone()) for _ in range(23)])
+        return lambda: next(works)
+
+    fresh_s, fresh_x, fresh_xc = (fresh_weights(f64_cases[""][0]), fresh_weights(h64_cases[""][0]),
+                                  fresh_weights(h64_cases[" with c"][0]))
+    fresh_ms = {
+        "sweep_f64": _time_ms(torch, lambda: sweep_cuda(fresh_s(), f64_cases[""][1], sched, philox_draws), 20),
+        "exchange_f64": _time_ms(torch, lambda: exchange_cuda(fresh_x(), h64_cases[""][1], bonds, exchange_draws), 20),
+        "exchange_f64_c": _time_ms(torch, lambda: exchange_cuda(fresh_xc(), h64_cases[" with c"][1], bonds,
+                                                                 exchange_draws), 20),
+        "exchange_f64_tempered": _time_ms(torch, lambda: exchange_cuda(fresh_x(), h64_cases[""][1], bonds,
+                                                                        exchange_draws, n_beta=TEMPERED_NBETA,
+                                                                        n_unit=n_unit), 20),
+    }
+    for name, f_ms in fresh_ms.items():
+        print(f"{name}: wrapper {f_ms:.4f} ms per call with a fresh weight tensor, {timing.get(name, (None,))[0]} ms "
+              "on the same weights (CUDA events)")
+    # their tables with the range check, as a fresh weight tensor builds them (the same weights reuse them)
+    table_ms = {"sweep_f64": _time_ms(torch, lambda: engine.sweep_table_f64(fresh_s()), 20),
+                "exchange_f64": _time_ms(torch, lambda: engine.exchange_table_f64(fresh_x(), bonds), 20)}
+    for name, t_ms in table_ms.items():
+        print(f"{name}: its table and range check (engine.{name.removesuffix('_f64')}_table_f64) {t_ms:.4f} ms "
+              "per call with a fresh weight tensor, in the wrapper's time then (CUDA events)")
+    for name in ("exchange_f64", "exchange_f64_c", "exchange_f64_tempered", "exchange_f64_tempered_c"):
+        d_ms, bkey = device_ms[name], name.removeprefix("exchange_f64")
+        print(f"{name}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'}, bound "
+              f"{exchange_f64_bounds[bkey][0]:.4f} ms ({exchange_f64_bounds[bkey][1]}: the "
+              f"{F64_EXCHANGE_OPS_C if bkey.endswith('_c') else F64_EXCHANGE_OPS} double operations an element the "
+              "function needs)"
+              + ("" if bkey.endswith("_c") else
+                 f"; the form's floors: {exchange_f64_form_floor['operations']:.4f} ms by its {F64_EXCHANGE_FORM_OPS} "
+                 f"operations an element (a power of two per factor), {exchange_f64_form_floor['l1']:.4f} ms by its "
+                 f"{F64_FORM_ROW_BYTES} bytes of E an element through L1"))
+    for line in sass_lines:
+        if "exchange float64" in line:
+            print(f"SASS per element: {line}")
 
     _enter("17 LITFI step profile", t0)
     _profile_steps(torch, vmc, params, state, SR_STEPS)
@@ -2514,8 +2701,7 @@ def main() -> int:
     # JAX package runs XLA (sampler/kawasaki.py::tempered_exchange_sweeps): the
     # untempered instance's operations and bytes, the per-row swap counts
     # written, and SWAP_OPS per walker row and swap phase; headline n_beta = 4
-    # at one sweep on its Philox stream
-    swap_x_ops = 2 * HUB_K * SWAP_OPS
+    # at one sweep on its Philox stream (swap_x_ops: phase 16's)
 
     def tempered_bound(hh, ops, uniforms, has_c, sweeps=1):
         # the swap counts out, the swap uniforms in on caller uniforms, c in
@@ -2563,24 +2749,6 @@ def main() -> int:
                   **tempered_entry(" with c", exchange_c_ops, FFNN_HUB_H)},
     })
 
-    # the exchange's float64 instances, where the JAX package runs XLA
-    # (sampler/kawasaki.py::_exchange_scan): the float32 instances'
-    # operations at the float64 rate, their bytes in float64 (complex128 y,
-    # sa, w, a, c; float64 spins); the sweep's are phase 16's
-
-    def exchange_f64_bytes(hh, has_c, tempered):
-        return (2 * HUB_K * hh * c128 + 2 * HUB_K * hn * f64b + 2 * HUB_K * c128 + hn * hh * c128 + hn * c128
-                + 2 * n_bonds * i32b + (hn + 1 + 2 * n_bonds) * i32b + HUB_K * i32b + 16
-                + (hh * c128 if has_c else 0) + (HUB_K * i32b if tempered else 0))
-
-    exchange_f64_bounds = {
-        "": _bound_ms(exchange_ops, exchange_f64_bytes(HUB_H, False, False), PEAK_F64_FLOPS),
-        "_c": _bound_ms(exchange_c_ops, exchange_f64_bytes(FFNN_HUB_H, True, False), PEAK_F64_FLOPS),
-        "_tempered": _bound_ms(exchange_ops + swap_x_ops, exchange_f64_bytes(HUB_H, False, True), PEAK_F64_FLOPS),
-        "_tempered_c": _bound_ms(exchange_c_ops + swap_x_ops, exchange_f64_bytes(FFNN_HUB_H, True, True),
-                                 PEAK_F64_FLOPS),
-    }
-
     def f64_state_entry(name, err, bound, extra=None):
         """A float64 sweep or exchange instance's numbers: its errors (the
         headline mode), device, wrapper and plain times, bound, registers."""
@@ -2607,13 +2775,15 @@ def main() -> int:
                                    if "H=" in k[0] and k[0].endswith(" with c") == bool(clab)},
             "stress_max_abs_err": {k[0].strip(): v[1] for k, v in sweep64.items()
                                    if "N=" in k[0] and k[0].endswith(" with c") == bool(clab)},
+            **({"form_floor_ms": sweep_f64_form_floor} if not clab else {}),
         })
 
     kernels.append({
         "name": "sweep_f64", "route": "cuda", "source": "neural_network_quantum_state_tpu_torch/csrc/sweep_f64.cu",
         "replaces": replaces["sweep"], "instance_of": "sweep",
         "launches": sum(p.get("sweep_f64", 0) for p in path_launches.values()),
-        "row0": row0_entry("sweep_f64"),
+        "row0": row0_entry("sweep_f64"), "wrapper_fresh_weights_ms": fresh_ms["sweep_f64"],
+        "table_fresh_weights_ms": table_ms["sweep_f64"],
         **sweep64_entry("", ""), "has_c": sweep64_entry(" with c", "_c"),
     })
 
@@ -2631,6 +2801,10 @@ def main() -> int:
                 f"nbeta{CHECK_NBETA}_mismatch_share": exchange64[(clab, CHECK_NBETA, "philox")][0]} if tempered else {}),
             "widths_max_abs_err": {k[0].strip() + f" n_beta={k[1]}": v[1] for k, v in exchange64.items()
                                    if "H=" in k[0] and k[1] == nb and k[0].endswith(" with c") == bool(clab)},
+            **({"stress_max_abs_err": {f"{k[0].strip()} {k[2]}": v[1] for k, v in exchange64.items()
+                                       if "N=" in k[0] and k[0].endswith(" with c") == bool(clab)}} if nb == 1 else {}),
+            **({"wrapper_fresh_weights_ms": fresh_ms[name]} if name in fresh_ms else {}),
+            **({"form_floor_ms": exchange_f64_form_floor} if not clab else {}),
         })
 
     kernels.append({
@@ -2638,9 +2812,11 @@ def main() -> int:
         "replaces": replaces["exchange"], "instance_of": "exchange",
         # launches: every float64 instance's, over every path (the tempered ones also below)
         "launches": sum(p.get("exchange_f64", 0) for p in path_launches.values()),
-        "row0": row0_entry("exchange_f64"),
+        "row0": row0_entry("exchange_f64"), "table_fresh_weights_ms": table_ms["exchange_f64"],
+        "sass": [line for line in sass_lines if "exchange float64" in line],
         **exchange64_entry("", "", False), "has_c": exchange64_entry(" with c", "_c", False),
-        "tempered": {"launches": sum(p.get("exchange_f64_tempered", 0) for p in path_launches.values()),
+        "tempered": {"source": "neural_network_quantum_state_tpu_torch/csrc/exchange_f64_tempered.cu",
+                     "launches": sum(p.get("exchange_f64_tempered", 0) for p in path_launches.values()),
                      **exchange64_entry("", "", True), "has_c": exchange64_entry(" with c", "_c", True)},
     })
 

@@ -106,9 +106,14 @@ cudaError_t dispatch(const void* wt, const void* a, const void* c, const void* s
 //
 // RBM family (C = false): the ratio of site i is e^{-2 s (a_i + sum_j w_ij)}
 // prod_j (c_j + u_j G_ij) / prod_j D_j; each product keeps its own power of
-// two (renorm every kRenorm = 8 factors, |factor| <= 1 + e^{4|Re w|}, so
-// no overflow for |Re w| < 22 at any H), and one exp and sincos per site close
-// it. FFNN family (C = true): c_j Log cosh does not factor, so each element
+// two (renorm every kRenorm = 4 factors: |factor| <= 1 + e^{4|Re w|}, and
+// four of them times a product in [1, 2) stay below 2^1023 for every
+// |Re w| <= 43, the range of ops/engine.py::check_f64_range, at any H), and
+// one exp and sincos per site close it. The exponent's large parts cancel
+// exactly (-2 s Re a'_i against k ln 2, ln 2 in two parts), and then the
+// rounding error of a'_i (a second per-site term) enters, so that a large
+// a' (|Re w| = 25 at every unit of a site puts it near 6400) costs no
+// relative error of order |a'| 2^-52. FFNN family (C = true): c_j Log cosh does not factor, so each element
 // takes ln|c_j + u_j G_ij| and Arg(c_j + u_j G_ij) (the library's double log
 // and atan2; no exp) and the principal branch of the flipped unit,
 // Im Log cosh(y') = wrap(v - 2 s Im w_ij + Arg(c_j + u_j G_ij)) into
@@ -139,10 +144,12 @@ namespace f64 {
 constexpr int kWarps = 16;   // walkers of a block: they share every tile
 constexpr int kSites = 64;   // sites of a pass: two per lane
 constexpr int kUnits = 32;   // hidden units of a tile: one per lane in the state phase
-constexpr int kRenorm = 8;   // factors between renormalisations of a product
+constexpr int kRenorm = 4;   // factors between renormalisations of a product
+constexpr int kUnroll = 8;   // units of a tile in one pass of the unrolled unit loop (a multiple of kRenorm)
 constexpr int kTileG = 2 * kUnits * kSites;  // double2 entries of a tile: both orientations
 constexpr int kTileW = kUnits * kSites;      // doubles of Im w in a tile (C)
-constexpr double kLn2 = 0.6931471805599453;
+// ln 2 in two parts: kLn2Hi has 32 significant bits, so k kLn2Hi is exact for |k| < 2^20
+constexpr double kLn2Hi = 6.93147180369123816490e-01, kLn2Lo = 1.90821492927058770002e-10;
 constexpr double kTwoPi = 6.283185307179586;
 constexpr double kInvTwoPi = 0.15915494309189535;
 
@@ -221,9 +228,9 @@ __device__ __forceinline__ void unit_state(double2 yv, double2 cj, bool valid, b
 
 template <bool C>
 __global__ void __launch_bounds__(32 * kWarps, 1)
-offdiag_kernel_f64(const double2* __restrict__ tab, const double2* __restrict__ a, const double2* __restrict__ c,
-                   const double* __restrict__ spins, const double2* __restrict__ y, double2* __restrict__ out, int K,
-                   int N, int H) {
+offdiag_kernel_f64(const double2* __restrict__ tab, const double2* __restrict__ a, const double2* __restrict__ a_lo,
+                   const double2* __restrict__ c, const double* __restrict__ spins, const double2* __restrict__ y,
+                   double2* __restrict__ out, int K, int N, int H) {
   extern __shared__ __align__(16) double s_f64[];
   double2* s_tile = reinterpret_cast<double2*>(s_f64);  // [2 buffers][kTileG]
   double* s_wim = s_f64 + 2 * 2 * kTileG;                // C: [2 buffers][kTileW]
@@ -288,9 +295,9 @@ offdiag_kernel_f64(const double2* __restrict__ tab, const double2* __restrict__ 
         const double2* tile = s_tile + (it & 1) * kTileG;
         const double* tw = s_wim + (it & 1) * kTileW;
 #pragma unroll 1
-        for (int j0 = 0; j0 < kUnits; j0 += kRenorm) {
+        for (int j0 = 0; j0 < kUnits; j0 += kUnroll) {
 #pragma unroll
-          for (int jj = j0; jj < j0 + kRenorm; ++jj) {
+          for (int jj = j0; jj < j0 + kUnroll; ++jj) {
             const double* e = st + jj * state_doubles<C>();
             const double2 u = *reinterpret_cast<const double2*>(e);
             const double cc = e[2];
@@ -309,10 +316,12 @@ offdiag_kernel_f64(const double2* __restrict__ tab, const double2* __restrict__ 
                 acc[q] = cmul(acc[q], m);
               }
             }
-          }
-          if constexpr (!C) {
-            renorm(acc[0], ex[0]);
-            renorm(acc[1], ex[1]);
+            if constexpr (!C) {
+              if ((jj - j0) % kRenorm == kRenorm - 1) {
+                renorm(acc[0], ex[0]);
+                renorm(acc[1], ex[1]);
+              }
+            }
           }
         }
       }
@@ -342,16 +351,20 @@ offdiag_kernel_f64(const double2* __restrict__ tab, const double2* __restrict__ 
     for (int q = 0; q < 2; ++q) {
       const int i = p * kSites + q * 32 + lane;
       if (i >= N) continue;
-      const double2 av = a[i];  // a_i + sum_j w_ij, or with C a_i + sum_j c_j Re w_ij
+      const double2 av = a[i], al = a_lo[i];  // a_i + sum_j w_ij, or with C a_i + sum_j c_j Re w_ij, in two parts
       double zr = -2.0 * sg[q] * av.x, zi = -2.0 * sg[q] * av.y;
       double2 mant = make_double2(1.0, 0.0);
       if constexpr (C) {
         zr += acc[q].x + dacc.x;
         zi += acc[q].y + dacc.y;
       } else {
-        zr = fma(static_cast<double>(ex[q] - dex), kLn2, zr);
+        // the exponent's large parts first: -2 s Re a' and k ln 2 (exact, k < 2^20) cancel exactly
+        const double kk = static_cast<double>(ex[q] - dex);
+        zr = fma(kk, kLn2Lo, fma(kk, kLn2Hi, zr));
         mant = cmul(acc[q], dacc);
       }
+      zr = fma(-2.0 * sg[q], al.x, zr);
+      zi = fma(-2.0 * sg[q], al.y, zi);
       const double mag = exp(zr);
       double sn, cs;
       sincos(zi, &sn, &cs);
@@ -369,15 +382,16 @@ offdiag_kernel_f64(const double2* __restrict__ tab, const double2* __restrict__ 
 }
 
 template <bool C>
-cudaError_t launch_f64(const void* tab, const void* a, const void* c, const void* spins, const void* y, void* out,
-                       int K, int N, int H, void* stream) {
+cudaError_t launch_f64(const void* tab, const void* a, const void* a_lo, const void* c, const void* spins,
+                       const void* y, void* out, int K, int N, int H, void* stream) {
   // over 48 KB of dynamic shared memory must be allowed (per device, so on every launch)
   const cudaError_t attr = cudaFuncSetAttribute(
       offdiag_kernel_f64<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes<C>()));
   if (attr != cudaSuccess) return attr;
   offdiag_kernel_f64<C><<<(K + kWarps - 1) / kWarps, 32 * kWarps, smem_bytes<C>(), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double2*>(tab), static_cast<const double2*>(a), static_cast<const double2*>(c),
-      static_cast<const double*>(spins), static_cast<const double2*>(y), static_cast<double2*>(out), K, N, H);
+      static_cast<const double2*>(tab), static_cast<const double2*>(a), static_cast<const double2*>(a_lo),
+      static_cast<const double2*>(c), static_cast<const double*>(spins), static_cast<const double2*>(y),
+      static_cast<double2*>(out), K, N, H);
   return cudaGetLastError();
 }
 
@@ -400,11 +414,13 @@ extern "C" int nqs_offdiag_f32(const void* wt, const void* a, const void* c, con
 // float64 table (e^{4 s w} in tiles of 64 sites x 32 hidden units, both
 // orientations, zero-padded; with c then Im w in the same tiles), a (N,) the
 // per-site term a_i + sum_j w_ij (c null) or a_i + sum_j c_j Re w_ij, c (H,)
-// or null, y (K, H), out (K,) complex128; spins (K, N) double.
-// 1 <= H <= 512. Returns the cudaError_t of the launch.
+// or null, y (K, H), out (K,) complex128; spins (K, N) double; after the
+// stream a_lo (N,), the rounding error of the per-site term
+// (ops/engine.py::_site_term_lo). 1 <= H <= 512. Returns the cudaError_t of
+// the launch.
 extern "C" int nqs_offdiag_f64_tiled(const void* tab, const void* a, const void* c, const void* spins, const void* y,
-                                     void* out, int K, int N, int H, void* stream) {
-  if (K <= 0 || N <= 0 || H < 1 || H > 32 * nqs::kMaxR) return cudaErrorInvalidValue;
-  if (c != nullptr) return f64::launch_f64<true>(tab, a, c, spins, y, out, K, N, H, stream);
-  return f64::launch_f64<false>(tab, a, c, spins, y, out, K, N, H, stream);
+                                     void* out, int K, int N, int H, void* stream, const void* a_lo) {
+  if (K <= 0 || N <= 0 || H < 1 || H > 32 * nqs::kMaxR || a_lo == nullptr) return cudaErrorInvalidValue;
+  if (c != nullptr) return f64::launch_f64<true>(tab, a, a_lo, c, spins, y, out, K, N, H, stream);
+  return f64::launch_f64<false>(tab, a, a_lo, c, spins, y, out, K, N, H, stream);
 }

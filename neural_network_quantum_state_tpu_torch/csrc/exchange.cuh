@@ -389,19 +389,20 @@ struct ExchangeDraws {
 // block synchronises (every thread, idle walkers too), and each walker of a
 // pair whose swap is accepted takes its partner's row. Every lane of a
 // walker reads the same values and decides alike; its leader counts an
-// accepted swap at the lower row.
-template <int G>
-__device__ __forceinline__ void exchange_swap_phase(const ExchangeArgs& p, const ExchangeDraws<G>& draws, bool valid,
-                                                    bool leader, int first, int s, int parity, int& row, float ln0,
-                                                    float* buf, int* s_swap) {
+// accepted swap at the lower row. In the instances' real type (float, or
+// double for exchange_f64.cu: exp and fmin resolve to its overloads).
+template <int G, class A = ExchangeArgs, class Real = typename ExchangeDraws<G, A>::Real>
+__device__ __forceinline__ void exchange_swap_phase(const A& p, const ExchangeDraws<G, A>& draws, bool valid,
+                                                    bool leader, int first, int s, int parity, int& row, Real ln0,
+                                                    Real* buf, int* s_swap) {
   if (valid && leader) buf[row - first] = ln0;
   __syncthreads();
   if (!valid) return;
   const int lower = nqs::swap_lower(row, p.n_beta, parity);
   if (lower < 0) return;
-  const float dbeta = 1.0f / static_cast<float>(p.n_beta);
-  const float dln = buf[lower + 1 - first] - buf[lower - first];
-  if (draws.swap(p, s, parity, lower) < expf(2.0f * dbeta * fminf(dln, 0.0f))) {
+  const Real dbeta = Real(1) / static_cast<Real>(p.n_beta);
+  const Real dln = buf[lower + 1 - first] - buf[lower - first];
+  if (draws.swap(p, s, parity, lower) < exp(Real(2) * dbeta * fmin(dln, Real(0)))) {
     if (row == lower) {
       if (leader) s_swap[lower - first] += 1;
       row = lower + 1;

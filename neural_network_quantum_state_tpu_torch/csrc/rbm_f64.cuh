@@ -1,8 +1,8 @@
 // Device code shared by the float64 instances of the sweep and exchange
 // kernels (sweep_f64.cu, exchange_f64.cu), Hopper: the log-cosh terms in
-// double, warp sums of doubles, the flip uniforms of the sweep's Philox
-// stream widened to double, and the replica-exchange phase of one-warp
-// walkers.
+// double, group sums and products of doubles, the flip uniforms of the
+// sweep's Philox stream widened to double, the replica-exchange phase of
+// one-warp walkers, and the parts of the factor form that both kernels run.
 //
 // The JAX package runs a float64 machine's sampler in XLA (its Pallas
 // kernels are float32 only); these instances make the same decisions as the
@@ -11,12 +11,13 @@
 // stable split-plane form (ops/logcosh.py) with the library's double exp,
 // cos/sin, log and atan2, and the phase is the principal Arg of cosh y, as
 // the JAX package's and the plain version's, so ln psi jumps by 2 pi i c_j
-// where cosh(y_j) crosses the negative real axis. The exchange sums these
-// terms per proposal, as logs, so that no product of cosh ratios can
-// overflow at any H or |Re w|. The sweep evaluates them once per sweep,
-// where it renews its factor state from y, and takes its proposals as
-// products of factors c_j + u_j e^{4 s w_ij} with a running power of two
-// (sweep_f64.cu).
+// where cosh(y_j) crosses the negative real axis. Both kernels evaluate
+// them only where they renew their factor state from y (unit_state, once a
+// sweep), and take their proposals as products of factors c_j + u_j E_j
+// with running powers of two (the exact test accept_ratio): E_j =
+// e^{4 s w_ij} for a flip of site i (sweep_f64.cu), e^{4 s (w_ij - w_kj)}
+// for the pair flip of a bond (i, k) (exchange_f64.cu), both from the
+// table of ops/engine.py::sweep_table_f64.
 
 #pragma once
 
@@ -26,6 +27,15 @@ namespace nqs {
 namespace d {
 
 constexpr double kLn2 = 0.6931471805599453;
+constexpr double kTwoPi = 6.283185307179586;
+constexpr double kInvTwoPi = 0.15915494309189535;
+constexpr double kInvLn2 = 1.4426950408889634;
+// ln 2 in two parts: kLn2Hi has 32 significant bits, so k kLn2Hi is exact for |k| < 2^20
+constexpr double kLn2Hi = 6.93147180369123816490e-01, kLn2Lo = 1.90821492927058770002e-10;
+// The tempered test's float pre-test decides where the log2 of its two sides
+// lie this far apart: near a decision |log2 u / beta| <= 24 * 16, where
+// __log2f (2 ulp), the float arguments and the float sum err by at most 2e-4.
+constexpr float kLog2Gap = 4e-3f;
 
 // Re ln cosh(x + iv) from cos v alone (ops/logcosh.py logcosh_re_cos):
 // 4 e^{-2|x|} |cosh(x + iv)|^2 = (1 - e)^2 + 4 e cos^2 v, e = e^{-2|x|}, a
@@ -144,6 +154,125 @@ __device__ __forceinline__ void swap_phase(const Draws& draws, int n_beta, bool 
 // replica_betas).
 __device__ __forceinline__ double row_beta(int row, int n_beta) {
   return static_cast<double>(n_beta - row % n_beta) / static_cast<double>(n_beta);
+}
+
+// The biased exponent field of x, and its clamp to [1, 2045], so that
+// 2^(1023 - e) and its inverse are normal doubles.
+__device__ __forceinline__ int exponent_field(double x) { return (__double2hiint(x) >> 20) & 0x7ff; }
+__device__ __forceinline__ int clamp_exponent(int e) { return min(max(e, 1), 2045); }
+__device__ __forceinline__ int biased_exponent(double x) { return clamp_exponent(exponent_field(x)); }
+
+// 2^(1023 - e) for a biased exponent e in [1, 2045] (exact).
+__device__ __forceinline__ double pow2_down(int e) { return __hiloint2double((2046 - e) << 20, 0); }
+
+// 2^k for 0 <= k <= 1023 (exact).
+__device__ __forceinline__ double pow2_up(int k) { return __hiloint2double((1023 + k) << 20, 0); }
+
+// m 2^e with m >= 0 brought into [1, 2) by a power of two (0 stays 0).
+__device__ __forceinline__ void renorm(double& m, int& e) {
+  const int b = biased_exponent(m);
+  m *= pow2_down(b);
+  e += b - 1023;
+}
+
+// renorm for 0 <= m < 2^1023: m's exponent field needs no mask and no upper
+// clamp.
+__device__ __forceinline__ void renorm_pair(double& m, int& e) {
+  const int b = max(__double2hiint(m) >> 20, 1);
+  m *= pow2_down(b);
+  e += b - 1023;
+}
+
+// The sum over the G lanes of a walker (lane groups of G in the warp), on
+// each of them: the butterfly pairs add the same two numbers in either
+// order, so every lane of the group holds the same bits.
+template <int G>
+__device__ __forceinline__ double group_sum(double v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off, G);
+  return v;
+}
+
+// The product of m 2^e over the G lanes of a walker, on each of them, for m
+// in [1, 2) (a product of 32 such stays below 2^32); every lane holds the
+// same bits, as in group_sum.
+template <int G>
+__device__ __forceinline__ void group_product(double& m, int& e) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const double mo = __shfl_xor_sync(kFull, m, off, G);
+    const int eo = __shfl_xor_sync(kFull, e, off, G);
+    m *= mo;
+    e += eo;
+  }
+}
+
+// e^f as (m, k), e^f = m 2^k with m in [2^-1/2, 2^1/2]: k = rint(f / ln 2)
+// and m = e^{f - k ln 2} with ln 2 in two parts (exact for |k| < 2^20). The
+// kernels' per-site factors e^{-4 s Re a'_i}.
+__device__ __forceinline__ double2 exp_split(double f) {
+  const double k = rint(f * kInvLn2);
+  return make_double2(exp(fma(-k, kLn2Lo, fma(-k, kLn2Hi, f))), k);
+}
+
+// One unit's renewed state from its y = x + iv, by the stable functions
+// above: u = e^{-2 max(x, 0)} e^{-2iv}, c = e^{-2 max(-x, 0)}, |D|^2 =
+// (1 - e)^2 + 4 e cos^2 v (e = e^{-2|x|}, logcosh_re's sum of two terms
+// >= 0), and with logs ln|D| = 0.5 ln(re^2 + im^2) of logcosh_ri's planes
+// (ln cosh y - |x| + ln 2) and its principal Arg cosh y = atan2(im, re).
+// Not inlined: a renewal runs once a sweep, and inlined copies of the
+// library's exp, sincos, log and atan2 in each of the instances would
+// lengthen the build far more than the calls cost.
+struct UnitState {
+  double2 u;
+  double c, d2, lnd, arg;
+};
+
+static __device__ __noinline__ UnitState unit_state(double2 yv, bool logs) {
+  const double ax = fabs(yv.x), e = exp(-2.0 * ax);
+  double sv, cv;
+  sincos(yv.y, &sv, &cv);
+  const bool pos = yv.x >= 0.0;
+  const double us = pos ? e : 1.0, ome = 1.0 - e;
+  UnitState out;
+  out.u = make_double2(us * ((cv - sv) * (cv + sv)), -us * (2.0 * sv * cv));
+  out.c = pos ? 1.0 : e;
+  out.d2 = ome * ome + 4.0 * e * cv * cv;
+  out.lnd = out.arg = 0.0;
+  if (logs) {
+    const double re = (1.0 + e) * cv, im = ome * sv * (pos ? 1.0 : -1.0);
+    out.lnd = 0.5 * log(re * re + im * im);
+    out.arg = atan2(im, re);
+  }
+  return out;
+}
+
+// A unit's state (u, c) after an accepted move to (c, u E): u E, and both
+// brought into [1, 2) in their larger part by a power of two, whose biased
+// exponent is returned (the carried product or sum corrects by it).
+__device__ __forceinline__ int move_state(double2& u, double& c, double2 e) {
+  const double ux = fma(u.x, e.x, -u.y * e.y), uy = fma(u.x, e.y, u.y * e.x);
+  const int b = clamp_exponent(max(exponent_field(c), max(exponent_field(ux), exponent_field(uy))));
+  const double down = pow2_down(b);
+  u = make_double2(ux * down, uy * down);
+  c *= down;
+  return b;
+}
+
+// The RBM family's test u < exp(2 beta min(dln, 0)) with |psi'/psi|^2 =
+// z 2^ez (z > 0 normal, or 0): u^{1/beta} < z 2^ez, as uu 2^-ez < z, exact
+// where it is computed. A tempered row (T) first compares the logs in float
+// (MUFU), which decides where they lie kLog2Gap apart, and takes u^{1/beta}
+// (the library's double log and exp of the uniform) only where they do not.
+template <bool T>
+__device__ __forceinline__ bool accept_ratio(double u, double z, int ez, double inv_beta) {
+  const float gap = T ? __log2f(static_cast<float>(z)) + static_cast<float>(ez) -
+                            __log2f(static_cast<float>(u)) * static_cast<float>(inv_beta)
+                      : 0.0f;
+  if (T && gap > kLog2Gap) return true;
+  if (T && gap < -kLog2Gap) return false;
+  const double uu = !T || inv_beta == 1.0 ? u : exp(log(u) * inv_beta);  // u^{1/beta}
+  return z > 0.0 && (ez > 0 || (ez >= -1022 ? uu * pow2_up(-ez) < z : uu == 0.0 && ldexp(z, ez) > 0.0));
 }
 
 }  // namespace d

@@ -74,30 +74,24 @@
 // (G and one factor for |Re w| up to 88); ops/sweep.py refuses larger
 // weights (F64_SWEEP_MAX_RE_W).
 //
-// Bound on an H100: this form's operations per (walker, proposal, hidden
-// unit), 12 in the RBM family (the complex multiply-add 8, |.|^2 3, the
-// product 1) and 25 with c (the multiply-add 8, |.|^2 3, the log and its
-// half 2, atan2 1, the phase 3 and its wrap 4, the sum 4), at the card's
-// float64 rate outside the tensor cores (34 TFLOP/s), against 32 bytes of y
-// per (walker, hidden unit) read and written once per call: bound by
-// operations. The 16 bytes of G per element read from L1 are the form's own
-// floor beside it (PERF.md).
+// Bound on an H100: the operations per (walker, proposal, hidden unit) the
+// function needs, 11 in the RBM family (the multiply-add c + u G with the
+// state's c real 7, |.|^2 3, the product 1) and 24 with c (the multiply-add
+// 7, |.|^2 3, the log and its half 2, atan2 1, the phase 3 and its wrap 4,
+// the sum 4), at the card's float64 rate outside the tensor cores (34
+// TFLOP/s), against 32 bytes of y per (walker, hidden unit) read and written
+// once per call: bound by operations. This form's power of two per pair of
+// factors (11.5 an element) and its 16 bytes of G per element read from L1
+// are its own floors beside it (PERF.md).
 
 #include "rbm_f64.cuh"
 
 namespace {
 
 constexpr int kRenorm = 4;  // factors |D_j|^2 of a renewal's product between renormalisations
-constexpr double kTwoPi = 6.283185307179586;
-constexpr double kInvTwoPi = 0.15915494309189535;
-constexpr double kInvLn2 = 1.4426950408889634;
-// ln 2 in two parts: kLn2Hi has 32 significant bits, so k kLn2Hi is exact for |k| < 2^20
-constexpr double kLn2Hi = 6.93147180369123816490e-01, kLn2Lo = 1.90821492927058770002e-10;
 constexpr size_t kMaxSmem = 232448;  // the shared memory a block can use on an H100 (227 KB)
-// The tempered test's float pre-test decides where the log2 of its two sides
-// lie this far apart: near a decision |log2 u / beta| <= 24 * 16, where
-// __log2f (2 ulp), the float arguments and the float sum err by at most 2e-4.
-constexpr float kLog2Gap = 4e-3f;
+
+using namespace nqs::d;
 
 struct SweepArgsF64 {
   const double2* w;       // (N, H)
@@ -111,78 +105,6 @@ struct SweepArgsF64 {
   const double2* g;       // (N, 2, H): e^{4 s w_ij}, s = +1 then -1
   const double2* a_site;  // (N,): a_i + sum_j w_ij, or with c a_i + sum_j c_j Re w_ij
 };
-
-// The biased exponent field of x, and its clamp to [1, 2045], so that
-// 2^(1023 - e) and its inverse are normal doubles.
-__device__ __forceinline__ int exponent_field(double x) { return (__double2hiint(x) >> 20) & 0x7ff; }
-__device__ __forceinline__ int clamp_exponent(int e) { return min(max(e, 1), 2045); }
-__device__ __forceinline__ int biased_exponent(double x) { return clamp_exponent(exponent_field(x)); }
-
-// 2^(1023 - e) for a biased exponent e in [1, 2045] (exact).
-__device__ __forceinline__ double pow2_down(int e) { return __hiloint2double((2046 - e) << 20, 0); }
-
-// m 2^e with m >= 0 brought into [1, 2) by a power of two (0 stays 0).
-__device__ __forceinline__ void renorm(double& m, int& e) {
-  const int b = biased_exponent(m);
-  m *= pow2_down(b);
-  e += b - 1023;
-}
-
-// renorm for 0 <= m < 2^1023: m's exponent field needs no mask and no upper
-// clamp.
-__device__ __forceinline__ void renorm_pair(double& m, int& e) {
-  const int b = max(__double2hiint(m) >> 20, 1);
-  m *= pow2_down(b);
-  e += b - 1023;
-}
-
-// The product of m 2^e over the warp, on every lane, for m in [1, 2) (a
-// product of 32 such stays below 2^32). The butterfly pairs multiply the
-// same two numbers in either order, so every lane holds the same bits.
-__device__ __forceinline__ void warp_product(double& m, int& e) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const double mo = __shfl_xor_sync(nqs::kFull, m, off);
-    const int eo = __shfl_xor_sync(nqs::kFull, e, off);
-    m *= mo;
-    e += eo;
-  }
-}
-
-// 2^k for 0 <= k <= 1023 (exact).
-__device__ __forceinline__ double pow2_up(int k) { return __hiloint2double((1023 + k) << 20, 0); }
-
-// One unit's renewed state from its y = x + iv, by the stable functions of
-// rbm_f64.cuh: u = e^{-2 max(x, 0)} e^{-2iv}, c = e^{-2 max(-x, 0)}, |D|^2 =
-// (1 - e)^2 + 4 e cos^2 v (e = e^{-2|x|}, logcosh_re's sum of two terms
-// >= 0), and with logs ln|D| = 0.5 ln(re^2 + im^2) of logcosh_ri's planes
-// (ln cosh y - |x| + ln 2) and its principal Arg cosh y = atan2(im, re).
-// Not inlined: a renewal runs once a sweep, and R inlined copies of the
-// library's exp, sincos, log and atan2 in each of the instances would
-// lengthen the build far more than the calls cost.
-struct UnitState {
-  double2 u;
-  double c, d2, lnd, arg;
-};
-
-__device__ __noinline__ UnitState unit_state(double2 yv, bool logs) {
-  const double ax = fabs(yv.x), e = exp(-2.0 * ax);
-  double sv, cv;
-  sincos(yv.y, &sv, &cv);
-  const bool pos = yv.x >= 0.0;
-  const double us = pos ? e : 1.0, ome = 1.0 - e;
-  UnitState out;
-  out.u = make_double2(us * ((cv - sv) * (cv + sv)), -us * (2.0 * sv * cv));
-  out.c = pos ? 1.0 : e;
-  out.d2 = ome * ome + 4.0 * e * cv * cv;
-  out.lnd = out.arg = 0.0;
-  if (logs) {
-    const double re = (1.0 + e) * cv, im = ome * sv * (pos ? 1.0 : -1.0);
-    out.lnd = 0.5 * log(re * re + im * im);
-    out.arg = atan2(im, re);
-  }
-  return out;
-}
 
 // A lane's hidden units: the state of each (u_j, c_j) and, over them,
 // without c the product of |D_j|^2, carried as its inverse dm 2^de, with c
@@ -303,11 +225,7 @@ struct Units {
       const double2 yv = s_y[j], wv = wrow[j], gv = grow[j];
       const double ny = yv.y - two_s * wv.y;
       s_y[j] = make_double2(yv.x - two_s * wv.x, ny);
-      const double ux = fma(u[r].x, gv.x, -u[r].y * gv.y), uy = fma(u[r].x, gv.y, u[r].y * gv.x);
-      const int e = clamp_exponent(max(exponent_field(c[r]), max(exponent_field(ux), exponent_field(uy))));
-      const double down = pow2_down(e);
-      u[r] = make_double2(ux * down, uy * down);
-      c[r] *= down;
+      const int e = move_state(u[r], c[r], gv);
       if constexpr (C) {
         shift = fma(s_c[j].x, static_cast<double>(e - 1023), shift);
       } else {
@@ -378,12 +296,9 @@ sweep_kernel_f64(SweepArgsF64 p, const double2* __restrict__ c, const double* __
   if constexpr (C) {
     for (int j = threadIdx.x; j < H; j += blockDim.x) s_c[j] = c[j];
   } else {
-    // e^{-4 s Re a'_i} = m 2^k for s = +1 and -1: k = rint(f / ln 2) and
-    // m = e^{f - k ln 2} with ln 2 in two parts (exact for |k| < 2^20)
+    // e^{-4 s Re a'_i} = m 2^k for s = +1 and -1 (exp_split)
     for (int n = threadIdx.x; n < 2 * p.N; n += blockDim.x) {
-      const double f = (n & 1 ? 4.0 : -4.0) * p.a_site[n >> 1].x;
-      const double kk = rint(f * kInvLn2);
-      s_site[n] = make_double2(exp(fma(-kk, kLn2Lo, fma(-kk, kLn2Hi, f))), kk);
+      s_site[n] = exp_split((n & 1 ? 4.0 : -4.0) * p.a_site[n >> 1].x);
     }
   }
   double2 sa = make_double2(0.0, 0.0);
@@ -430,22 +345,12 @@ sweep_kernel_f64(SweepArgsF64 p, const double2* __restrict__ c, const double* __
       } else {
         // |psi'/psi|^2 = e^{-4 s Re a'_i} prod_j |c_j + u_j G_ij|^2 / |D_j|^2 = z 2^ez, z in [2^-1/2,
         // 2^32.5): u^{1/beta} < z 2^ez as uu 2^-ez < z, exact where it is computed
-        warp_product(z, ez);
+        group_product<32>(z, ez);
         const double2 f = s_site[2 * site + sign];
         z *= f.x;
         ez += static_cast<int>(f.y);
-        // a tempered row first compares the logs in float, which decides where they lie kLog2Gap apart
-        const float gap = T ? __log2f(static_cast<float>(z)) + static_cast<float>(ez) -
-                                  __log2f(static_cast<float>(u)) * static_cast<float>(inv_beta)
-                            : 0.0f;
-        if (T && gap > kLog2Gap) {
-          accept = true;
-        } else if (T && gap < -kLog2Gap) {
-          accept = false;
-        } else {
-          const double uu = !T || inv_beta == 1.0 ? u : exp(log(u) * inv_beta);  // u^{1/beta}
-          accept = z > 0.0 && (ez > 0 || (ez >= -1022 ? uu * pow2_up(-ez) < z : uu == 0.0 && ldexp(z, ez) > 0.0));
-        }
+        // a tempered row compares u^{1/beta}, first the logs in float
+        accept = accept_ratio<T>(u, z, ez, inv_beta);
       }
       if (accept) {
         st.accept(s_y, grow, wrow, s_c, two_s, H, lane);

@@ -26,17 +26,18 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 KERNELS = ("sweep", "energy", "exchange", "exchange_tempered", "sweep_energy", "chain_rate", "sweep_f64",
-           "exchange_f64")
+           "exchange_f64", "exchange_f64_tempered")
 # The float32 kernels instantiate R = ceil(H/32) = 1..16 words of hidden
 # units per lane (the exchange: G lanes of U units) and mask the tail, so
 # they take any 1 <= H <= MAX_HIDDEN; sweep, energy and exchange do so once
 # without and once with output weights c, and the sweep and the megakernel
 # once for n_beta = 1 and once for n_beta > 1; the exchange kernel's
 # n_beta = 1 instances are exchange.cu, its tempered ones exchange_tempered.cu
-# (two sources, so that they build in parallel). sweep_f64 and exchange_f64
-# are the float64 instances of the sweep (per R, c and n_beta class) and the
-# exchange (one per c and n_beta class, y in shared memory: every H).
-# chain_rate is the benchmark's probe of their arithmetic.
+# (two sources, so that they build in parallel). sweep_f64 is the float64
+# instances of the sweep (per R, c and n_beta class), exchange_f64 and
+# exchange_f64_tempered those of the exchange (per G x U and c, as the
+# float32 ones, n_beta = 1 and n_beta > 1). chain_rate is the benchmark's
+# probe of their arithmetic.
 MAX_HIDDEN = 512
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -8,9 +8,9 @@ or for float64 tensors (``energy_dtype=torch.float64``) its float64
 instance, which the JAX package sends to XLA (its Pallas kernel is float32
 only); any other dtype raises. The float32 instances read the weights
 through the table ``engine.kernel_table``, the float64 instance through
-``engine.kernel_table_f64`` (e^{4 s w} and the per-site sums of w). A CPU
-tensor goes to ``offdiag_sum_plain``, the chunked PyTorch computation, in
-any dtype.
+``engine.kernel_table_f64`` (e^{4 s w} and the per-site sums of w, in two
+parts). A CPU tensor goes to ``offdiag_sum_plain``, the chunked PyTorch
+computation, in any dtype.
 
 Replaces ``neural_network_quantum_state_tpu/ops/pallas_energy.py``.
 """
@@ -66,8 +66,10 @@ INSTANCES = {torch.float32: ("nqs_offdiag_f32", torch.complex64), torch.float64:
 
 
 def _kernel(symbol: str):
+    """The C launch function: six pointers, three ints, the stream, and for
+    the float64 instance the low part of its per-site term."""
     fn = getattr(build.library("energy"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * (1 + (symbol != "nqs_offdiag_f32"))
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,7 +79,8 @@ def offdiag_sum_cuda(work: Work, cache: Cache) -> torch.Tensor:
     (``launches``) or float64 (``launches_f64``, of which those with output
     weights c also in ``launches_f64_c``); returns (K,) complex of that
     precision. ln psi(s) is recomputed in the kernel from y, so no ln
-    psi argument is taken. Any other dtype raises."""
+    psi argument is taken. Any other dtype raises, and so do float64 weights
+    past the float64 kernels' range (``engine.check_f64_range``)."""
     k, n = cache.spins.shape
     h = work.w.shape[1]
     dev = cache.spins.device
@@ -91,13 +94,14 @@ def offdiag_sum_cuda(work: Work, cache: Cache) -> torch.Tensor:
     })
     if cache.spins.dtype == torch.float32:
         ptrs = (engine.kernel_table(work.w).data_ptr(), *weights[1:])
-    else:  # its own table, and a shifted by the per-site sums of w
-        table, a_site = engine.kernel_table_f64(work)
+    else:  # its own table, and a shifted by the per-site sums of w in two parts, inside its range
+        engine.check_f64_range(work.w, "energy kernel, float64")
+        table, a_site, a_lo = engine.kernel_table_f64(work)
         ptrs = (table.data_ptr(), a_site.data_ptr(), weights[2])
     out = torch.empty(k, dtype=cdt, device=dev)
     rc = build.launch(
         dev, _kernel(symbol), *ptrs, cache.spins.data_ptr(), cache.y.data_ptr(), out.data_ptr(), k, n, h,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, *(() if cache.spins.dtype == torch.float32 else (a_lo.data_ptr(),)),
     )
     build.check_launch(rc, f"energy kernel ({symbol})")
     if cache.spins.dtype == torch.float32:

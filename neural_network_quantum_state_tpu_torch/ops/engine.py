@@ -61,19 +61,39 @@ def kernel_weights(work: Work, dtype: torch.dtype = torch.complex64) -> tuple[di
     return entries, (work.w.data_ptr(), a.data_ptr(), c_ptr)
 
 
-# The last table of kernel_table on each device, for each thread: device ->
-# (w, w's version counter, table). Thread-local, so that the concurrent grid
-# points of drivers/train.py -gridmesh keep their own tables on one card
-# instead of replacing each other's on every launch.
-_table_memos = threading.local()
+# This thread's memos of the kernels' inputs, by name: device -> (the key
+# tensors with their version counters, the value, the key's other parts).
+# Thread-local, so that the concurrent grid points of drivers/train.py
+# -gridmesh keep their own tables on one card instead of replacing each
+# other's on every launch.
+_memos = threading.local()
 
 
-def _table_memo() -> dict:
-    """This thread's memo of kernel_table."""
-    memo = getattr(_table_memos, "memo", None)
-    if memo is None:
-        memo = _table_memos.memo = {}
-    return memo
+def memo(name: str) -> dict:
+    """This thread's memo ``name``: device -> its last entry."""
+    entries = getattr(_memos, name, None)
+    if entries is None:
+        entries = {}
+        setattr(_memos, name, entries)
+    return entries
+
+
+def memoised(name: str, tensors: tuple, build, *extra):
+    """``build()`` of the tensors (some None, the first one not) and the
+    hashable ``extra``, kept per device and thread in ``memo(name)`` with the
+    tensors and their version counters: the same tensors, not updated in
+    place since, with an equal ``extra`` return the kept value; anything
+    else builds anew and replaces it."""
+    entries = memo(name)
+    key = tuple((t, None if t is None else t._version) for t in tensors)
+    device = tensors[0].device
+    last = entries.get(device)
+    if (last is not None and last[2] == extra
+            and all(a is b and va == vb for (a, va), (b, vb) in zip(last[0], key))):
+        return last[1]
+    value = build()
+    entries[device] = (key, value, extra)
+    return value
 
 
 def kernel_table(w: torch.Tensor) -> torch.Tensor:
@@ -85,20 +105,17 @@ def kernel_table(w: torch.Tensor) -> torch.Tensor:
     addition from cos/sin(2 Im w), as the JAX energy kernel's XLA caller
     tabulates them (``pallas_energy.py``'s c2w/s2w).
 
-    Built once per weight tensor: each thread keeps the last table on w's
-    device with its w and w's version counter, so the sweeps of one ``Work``
-    share one build, the shards of a mesh on other devices and concurrent
-    grid points keep theirs, and a new w, or an in-place update of this one,
-    makes a new table.
+    Built once per weight tensor (``memoised``): each thread keeps the last
+    table on w's device with its w and w's version counter, so the sweeps
+    of one ``Work`` share one build, the shards of a mesh on other devices
+    and concurrent grid points keep theirs, and a new w, or an in-place
+    update of this one, makes a new table.
     """
-    memo = _table_memo()
-    last = memo.get(w.device)
-    if last is not None and last[0] is w and last[1] == w._version:
-        return last[2]
-    two = 2.0 * w.imag
-    table = torch.stack((w.real, w.imag, torch.cos(two), torch.sin(two)), dim=-1)
-    memo[w.device] = (w, w._version, table)
-    return table
+    def build():
+        two = 2.0 * w.imag
+        return torch.stack((w.real, w.imag, torch.cos(two), torch.sin(two)), dim=-1)
+
+    return memoised("kernel_table", (w,), build)
 
 
 # The float64 energy instance's tiles: sites of a pass, hidden units of a tile
@@ -106,19 +123,21 @@ def kernel_table(w: torch.Tensor) -> torch.Tensor:
 F64_TILE_SITES, F64_TILE_UNITS = 64, 32
 
 
-def kernel_table_f64(work: Work) -> tuple[torch.Tensor, torch.Tensor]:
+def kernel_table_f64(work: Work) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """What the energy kernel's float64 instance reads of `work` (complex128):
-    a flat float64 table and the per-site term a'.
+    a flat float64 table and the per-site term a' in two parts.
 
     The table holds e^{4 s w_ij} for s = +1 and -1 in tiles of
     ``F64_TILE_SITES`` sites by ``F64_TILE_UNITS`` hidden units, ordered
     [site pass][unit tile][s][unit][site] as (re, im) pairs, w zero-padded to
     whole tiles; with output weights c, Im w follows in the same tiles
     ([site pass][unit tile][unit][site]). a' is ``_site_term``: a_i +
-    sum_j w_ij for the RBM family (c None), a_i + sum_j c_j Re w_ij with c.
-    Built on every call (the float64 path widens the weights anew each step,
-    so nothing would reuse it) and apart from ``kernel_table``'s memo, which
-    float64 energy calls leave as it is.
+    sum_j w_ij for the RBM family (c None), a_i + sum_j c_j Re w_ij with c,
+    and after it the rounding error of its last addition (``_site_term_lo``),
+    which the kernel adds once the large parts of its exponent have
+    cancelled. Built on every call (the float64 path widens the weights anew
+    each step, so nothing would reuse it) and apart from ``kernel_table``'s
+    memo, which float64 energy calls leave as it is.
     """
     w = work.w
     n, h = w.shape
@@ -133,29 +152,91 @@ def kernel_table_f64(work: Work) -> tuple[torch.Tensor, torch.Tensor]:
     parts = [torch.view_as_real(g).reshape(-1)]
     if work.c is not None:
         parts.append(tiles(wp.imag).reshape(-1))
-    return torch.cat(parts), _site_term(work)
+    hi, lo = _site_term_lo(work)
+    return torch.cat(parts), hi, lo
 
 
 def _site_term(work: Work) -> torch.Tensor:
     """(N,) a_i + sum_j w_ij (c None), or a_i + sum_j c_j Re w_ij (a = 0
     without a visible bias): the per-site factors e^{-2 s w_ij} of the
-    float64 kernels' ratios, summed."""
+    float64 kernels' ratios, summed: the ``hi`` of ``_site_term_lo``."""
+    w = work.w
+    s = w.sum(1) if work.c is None else w.real.to(w.dtype) @ work.c
+    return (s if work.a is None else work.a + s).contiguous()
+
+
+def _site_term_lo(work: Work) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_site_term`` as (hi, lo), lo the exact rounding error of its
+    addition a + s (Knuth's two-sum, per part), so that hi + lo carries
+    a_i + s_i to the rounding of s_i alone: where |a'| is large (|Re w| = 25
+    at every unit of a site puts it near 6400), e^{-2 s a'} would otherwise
+    err by 2 |a'| 2^-53 relative."""
     w = work.w
     a = work.a if work.a is not None else torch.zeros(w.shape[0], dtype=w.dtype, device=w.device)
-    if work.c is None:
-        return (a + w.sum(1)).contiguous()
-    return (a + w.real.to(w.dtype) @ work.c).contiguous()
+    s = w.sum(1) if work.c is None else w.real.to(w.dtype) @ work.c
+    hi = a + s
+    bb = hi - a
+    return hi.contiguous(), ((a - (hi - bb)) + (s - bb)).contiguous()
+
+
+# The float64 kernels' range (csrc/sweep_f64.cu, exchange_f64.cu, energy.cu's
+# float64 instance): their products of factors c + u e^{4 s w} stay inside
+# the double range for every |Re w| up to this, and check_f64_range refuses
+# weights past it before any of them launches.
+F64_MAX_RE_W = 43.0
+
+
+def check_f64_range(w: torch.Tensor, what: str = "float64 kernels") -> None:
+    """Raise ``ValueError`` where |Re w| passes ``F64_MAX_RE_W``, the range
+    of the float64 kernels' products (one host sync). Checked once per
+    weight tensor: this thread keeps the last weights that passed on each
+    device, with their version counter (``memoised``)."""
+
+    def check():
+        if w.numel() and float(w.real.abs().amax()) > F64_MAX_RE_W:
+            raise ValueError(f"{what}: |Re w| above {F64_MAX_RE_W}, where the float64 kernels' products of factors "
+                             "|c + u e^(4 s w)|^2 leave the double range")
+        return True
+
+    memoised("f64_range", (w,), check)
 
 
 def sweep_table_f64(work: Work) -> tuple[torch.Tensor, torch.Tensor]:
-    """What the sweep kernel's float64 instances read of `work`
-    (complex128) besides w, a and c: G (N, 2, H) complex, e^{4 s w_ij} for
-    s = +1 (``[:, 0]``) and s = -1 (``[:, 1]``), so that a warp's lanes read
-    one site's row of one sign on consecutive hidden units; and the per-site
-    term a' of ``kernel_table_f64``. Built on every call, as that table is:
-    the float64 path widens the weights anew each step."""
+    """What the sweep kernel's float64 instances read of `work` (complex128)
+    besides w, a and c: G (N, 2, H) complex, e^{4 s w_ij} for s = +1
+    (``[:, 0]``) and s = -1 (``[:, 1]``), so that a warp's lanes read one
+    site's row of one sign on consecutive hidden units; and the per-site
+    term a' of ``kernel_table_f64``. Checks the weights' range first
+    (``check_f64_range``), and builds both once per (w, a, c)
+    (``memoised``), so the calls of one ``Work`` (a warm-up's chunks, a
+    measurement's iterations) share one build and one range check."""
     w = work.w
-    return torch.stack((torch.exp(4.0 * w), torch.exp(-4.0 * w)), dim=1), _site_term(work)
+
+    def build():
+        check_f64_range(w)
+        return torch.stack((torch.exp(4.0 * w), torch.exp(-4.0 * w)), dim=1), _site_term(work)
+
+    return memoised("sweep_table_f64", (w, work.a, work.c), build)
+
+
+def exchange_table_f64(work: Work, bonds: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the exchange kernel's float64 instances read of `work`
+    (complex128) and the (B, 2) `bonds` besides w, a and c: E (B, 2, H)
+    complex, e^{4 s (w_ij - w_kj)} of each bond (i, k) for s = s_i = +1
+    (``[:, 0]``) and -1 (``[:, 1]``), one row per proposal for a walker's
+    lanes to read on consecutive hidden units; and the per-site term a' of
+    ``kernel_table_f64``. Checks the weights' range first
+    (``check_f64_range``), and builds both once per (w, a, c, bonds), as
+    ``sweep_table_f64`` does."""
+    w = work.w
+
+    def build():
+        check_f64_range(w)
+        ends = bonds.to(device=w.device, dtype=torch.long)
+        d = w[ends[:, 0]] - w[ends[:, 1]]
+        return torch.stack((torch.exp(4.0 * d), torch.exp(-4.0 * d)), dim=1), _site_term(work)
+
+    return memoised("exchange_table_f64", (w, work.a, work.c, bonds), build)
 
 
 class Cache(NamedTuple):

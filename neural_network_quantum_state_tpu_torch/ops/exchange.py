@@ -37,7 +37,6 @@ Replaces ``neural_network_quantum_state_tpu/ops/pallas_exchange.py``.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -176,25 +175,11 @@ def tempered_exchange_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, bonds
     return cache, lnpsi, counts
 
 
-# The last incidence table on each device, for each thread: device ->
-# (bonds, bonds' version counter, n, (ptr, idx)), as ops/engine.py's
-# kernel_table keeps its tables.
-_incidence_memos = threading.local()
-
-
 def kernel_incidence(bonds: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``incidence_table`` of `bonds`, built once per bond tensor (this
-    thread's last table on the bonds' device is kept with its bonds and
-    their version counter)."""
-    memo = getattr(_incidence_memos, "memo", None)
-    if memo is None:
-        memo = _incidence_memos.memo = {}
-    last = memo.get(bonds.device)
-    if last is not None and last[0] is bonds and last[1] == bonds._version and last[2] == n:
-        return last[3]
-    table = incidence_table(bonds, n)
-    memo[bonds.device] = (bonds, bonds._version, n, table)
-    return table
+    """``incidence_table`` of `bonds`, built once per bond tensor and n
+    (``engine.memoised``: this thread's last table on the bonds' device is
+    kept with its bonds and their version counter)."""
+    return engine.memoised("kernel_incidence", (bonds,), lambda: incidence_table(bonds, n), n)
 
 
 # The kernel's sources by (dtype, tempered): the library and its C launch function.
@@ -202,17 +187,20 @@ SOURCES = {
     (torch.float32, False): ("exchange", "nqs_exchange_f32"),
     (torch.float32, True): ("exchange_tempered", "nqs_exchange_f32"),
     (torch.float64, False): ("exchange_f64", "nqs_exchange_f64"),
-    (torch.float64, True): ("exchange_f64", "nqs_exchange_f64"),
+    (torch.float64, True): ("exchange_f64_tempered", "nqs_exchange_f64"),
 }
 
 
 def _launcher(dtype: torch.dtype, tempered: bool):
     """The C launch function of the instances for ``dtype`` (float32 or
     float64) and n_beta > 1 (``tempered``); all share one interface
-    (``csrc/exchange.cuh`` NQS_EXCHANGE_PARAMS)."""
+    (``csrc/exchange.cuh`` NQS_EXCHANGE_PARAMS), the float64 one followed by
+    its table's two pointers."""
     name, symbol = SOURCES[dtype, tempered]
     fn = getattr(build.library(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int]
+    # the float64 instances read the table of engine.exchange_table_f64 after row0
+    tables = [ctypes.c_void_p] * 2 if dtype == torch.float64 else []
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int] + tables
     fn.restype = ctypes.c_int
     return fn
 
@@ -225,10 +213,15 @@ def _library():
     return lib
 
 
-def kernel_lanes(h: int) -> int:
-    """The kernel's lanes per walker G at H hidden units (it chooses: 8 at
-    H <= 64, 16 at H <= 128, else 32; measured at the Hubbard flagship,
+def kernel_lanes(h: int, dtype: torch.dtype = torch.float32) -> int:
+    """The kernel's lanes per walker G at H hidden units, as it chooses: the
+    float32 instances 8 at H <= 64, 16 at H <= 128, else 32; the float64
+    ones 16 at H <= 128, else 32 (both measured at the Hubbard flagship,
     PERF.md)."""
+    if dtype == torch.float64:
+        lib = build.library("exchange_f64")
+        lib.nqs_exchange_f64_lanes.argtypes = [ctypes.c_int]
+        return lib.nqs_exchange_f64_lanes(h)
     return _library().nqs_exchange_lanes(h)
 
 
@@ -247,7 +240,11 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=No
     (n_beta = 1) or ``csrc/exchange_tempered.cu`` (counted in ``launches``,
     the tempered ones also in ``launches_tempered``), float64 walkers
     ``csrc/exchange_f64.cu`` (caller uniforms in float64 too; counted in
-    ``launches_f64``, the tempered ones also in ``launches_f64_tempered``).
+    ``launches_f64``, the tempered ones also in ``launches_f64_tempered``),
+    which read ``engine.exchange_table_f64`` (built, and the weights' range
+    checked, once per weight and bond tensor; weights past
+    ``engine.F64_MAX_RE_W`` raise before any launch) and renew their factor
+    state from y every ``n_unit`` proposals.
 
     `bonds` is a contiguous (B, 2) int32 tensor on the walkers' device with
     1 <= B <= N and entries in [0, N) (the kernel traps on an entry out of
@@ -255,7 +252,7 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=No
     or the (n_steps, K) selection block beside ``u_acc`` (and for n_beta > 1
     the (n_sweeps, 2, K) ``swap_uniforms``). n_beta > 1 runs the tempered
     instance: sweeps of ``n_unit`` proposals, each followed by its two swap
-    phases. The complex ln psi of the final states is recomputed once from
+    phases (n_unit None: the whole call one sweep). The complex ln psi of the final states is recomputed once from
     the final cache with the plain log-cosh, as in ``ops.sweep.sweep_cuda``.
     """
     k, n = cache.spins.shape
@@ -294,6 +291,8 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=No
         uniforms = (u_sel.data_ptr(), u_acc.data_ptr(), swap_uniforms.data_ptr() if n_beta > 1 else None, None)
     row0 = u_sel.row0 if philox else 0
     build.check_inputs("exchange", dev, h, tensors, row0, k)
+    # the float64 instances' table of e^{4 s (w_i - w_k)} per bond and per-site terms, inside their range
+    tables = [t.data_ptr() for t in engine.exchange_table_f64(work, bonds)] if rdt == torch.float64 else []
     ptr, idx = kernel_incidence(bonds, n)
     spins = torch.empty_like(cache.spins)
     y = torch.empty_like(cache.y)
@@ -303,8 +302,9 @@ def exchange_cuda(work: Work, cache: Cache, bonds: torch.Tensor, u_sel, u_acc=No
         dev, _launcher(rdt, n_beta > 1), *weights, bonds.data_ptr(), ptr.data_ptr(), idx.data_ptr(),
         cache.spins.data_ptr(), cache.y.data_ptr(), cache.sa.data_ptr(), *uniforms,
         spins.data_ptr(), y.data_ptr(), sa.data_ptr(), counts[0].data_ptr(),
-        counts[1].data_ptr() if n_beta > 1 else None, k, n, h, b, n_steps, n_steps // n_sweeps, n_beta,
-        torch.cuda.current_stream(dev).cuda_stream, row0,
+        counts[1].data_ptr() if n_beta > 1 else None, k, n, h, b, n_steps,
+        n_steps // n_sweeps if n_unit is None or n_beta > 1 else n_unit, n_beta,
+        torch.cuda.current_stream(dev).cuda_stream, row0, *tables,
     )
     build.check_launch(rc, "exchange kernel")
     if rdt == torch.float32:

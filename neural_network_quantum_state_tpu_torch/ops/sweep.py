@@ -153,19 +153,6 @@ def sweep_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniform
 sweep_plain.calls = 0
 
 
-# The float64 sweep kernel's range (csrc/sweep_f64.cu): its factors
-# |c + u e^{4 s w}|^2 < 8 e^{8 |Re w|}, multiplied in pairs, stay below
-# 2^1023 up to this |Re w|.
-F64_SWEEP_MAX_RE_W = 43.0
-
-
-def check_f64_range(work: Work) -> None:
-    """Raise where |Re w| passes the float64 sweep kernel's range."""
-    if work.w.numel() and float(work.w.real.abs().amax()) > F64_SWEEP_MAX_RE_W:
-        raise ValueError(f"sweep kernel, float64: |Re w| above {F64_SWEEP_MAX_RE_W}, where its pairs of factors "
-                         "|c + u e^(4 s w)|^2 leave the double range")
-
-
 def _kernel(name: str, symbol: str, n_pointers: int, row0: bool, n_tables: int = 0):
     """The C launch function: pointers, six ints, the stream and, for the
     sweep's sources, the Philox counter's row offset ``row0``, then
@@ -220,15 +207,13 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
         u_ptr, key_ptr = uniforms.data_ptr(), None
         swap_ptr = swap_uniforms.data_ptr() if n_beta > 1 else None
     build.check_inputs(kernel, dev, h, tensors, row0, k)
-    if f64:
-        check_f64_range(work)
     spins = torch.empty_like(cache.spins)
     y = torch.empty_like(cache.y)
     sa = torch.empty_like(cache.sa)
     stats = torch.empty((2, k), dtype=torch.int32, device=dev)
     symbol = {"sweep": "nqs_sweep_f32", "sweep_energy": "nqs_sweep_offdiag_f32"}[kernel]
     pointers, after_row0 = list(weights), ()
-    if f64:  # its own source; its table of e^{4 s w} and per-site terms after row0
+    if f64:  # its own source; its table of e^{4 s w} and per-site terms (range checked) after row0
         kernel, symbol = "sweep_f64", "nqs_sweep_f64"
         g, a_site = engine.sweep_table_f64(work)
         after_row0 = (g.data_ptr(), a_site.data_ptr())

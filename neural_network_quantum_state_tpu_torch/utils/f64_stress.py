@@ -1,9 +1,10 @@
 """Inputs that stress the arithmetic of the float64 instances of the energy
-kernel (``csrc/energy.cu``, ``ops/energy.py::offdiag_sum_cuda``) and of
-the sweep kernel (``csrc/sweep_f64.cu``): large |Re w|, products that leave
-the double range, units near a zero of cosh. Made from a numpy seed; their
-tests and ``chip_smoke.py`` hold the instances to the plain float64
-versions on them."""
+kernel (``csrc/energy.cu``, ``ops/energy.py::offdiag_sum_cuda``), the sweep
+kernel (``csrc/sweep_f64.cu``) and the exchange kernel
+(``csrc/exchange_f64.cu``): large |Re w|, products that leave the double
+range, units near a zero of cosh. Made from a numpy seed; their tests and
+``chip_smoke.py`` hold the instances to the plain float64 versions on
+them."""
 
 from __future__ import annotations
 
@@ -11,9 +12,8 @@ import math
 
 import numpy as np
 
-# The cases of f64_stress_inputs: the energy instance's, and the sweep's.
-F64_STRESS = ("scale 0.4", "large Re w", "overflow", "near a zero of cosh")
-F64_SWEEP_STRESS = (*F64_STRESS, "Re w 25")
+# The cases of f64_stress_inputs, every float64 kernel's.
+F64_STRESS = ("scale 0.4", "large Re w", "overflow", "near a zero of cosh", "Re w 25")
 
 
 def f64_stress_inputs(case: str, has_c: bool, seed: int = 0, n: int = 16, k: int = 64):

@@ -9,14 +9,15 @@ directory, each with one part of ``csrc/energy.cu``'s float64 instance
 ``scripts/kernel_ab.py energy --no-gate`` on them beside the package's own
 source ("change"): alternated rounds of device time on the LITFI
 flagship's inputs, the registers, and each build's error against the plain
-sum. Every variant but ``renorm4`` computes wrong sums, and is timed all the
-same: what it saves of the change's time bounds what the part costs.
+sum. Every variant computes wrong sums on some inputs, and is timed all
+the same: what it saves of the change's time bounds what the part costs.
 
 - ``no_state``: the per-tile state phase (``unit_state``: exp, sincos and
   expm1 per walker and unit) not run;
 - ``no_barriers``: the two block barriers of a tile removed;
 - ``no_y_loads``: the next tile's y and c_j not loaded;
-- ``renorm4``: the products renormalised every 4 factors in place of 8.
+- ``renorm8``: the products renormalised every 8 factors in place of 4
+  (right only for |Re w| below about 22).
 
 With no VARIANT, all of them. Exits as ``kernel_ab.py`` does.
 """
@@ -35,7 +36,7 @@ VARIANTS = {
     "no_state": [("if (live) unit_state<C>(", "if (false) unit_state<C>(")],
     "no_barriers": [("__syncthreads();", "")],
     "no_y_loads": [("if (it + 1 < total) unit_in(it + 1, yv, cj);", "")],
-    "renorm4": [("constexpr int kRenorm = 8;", "constexpr int kRenorm = 4;")],
+    "renorm8": [("constexpr int kRenorm = 4;", "constexpr int kRenorm = 8;")],
 }
 
 

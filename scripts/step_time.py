@@ -8,10 +8,11 @@ seeds and depths (the LITFI flagship ``RBMTrSymm(64, alpha=4)`` on
 ``LITFIChain(64)``, K=8192, CG, 100 warm-up sweeps + 20 steps; the Hubbard
 flagship ``RBM(64, 64)`` on the L=32 trap, K=4096, 500 + 20; the LITFI
 flagship tempered at n_beta=4; ``FFNNTrSymm(64, alpha=4)`` on the LITFI
-chain). The step time is the host clock between ``VMC.run``'s callbacks,
+chain), and the Hubbard flagship in float64 (the float64 exchange
+instances; 100 + 20, as phase 15b's float64 trap warms up). The step time is the host clock between ``VMC.run``'s callbacks,
 synchronised at the end, the mean after the first step, as ``chip_smoke.py``
 prints it. ``--paths`` keeps the named paths only (``LITFI``, ``Hubbard``,
-``tempered LITFI``, ``FFNN LITFI``; all by default). ``--mesh N`` also times
+``tempered LITFI``, ``FFNN LITFI``, ``float64 Hubbard``; all by default). ``--mesh N`` also times
 the LITFI flagship on ``make_mesh(N)``, N shards round-robin over the
 visible cards (where the tree has ``parallel/``).
 
@@ -60,7 +61,8 @@ def main(argv=None) -> int:
 
     print(f"{args.label}: package from {Path(pkg.__file__).parent}")
     t0 = time.perf_counter()
-    build.build(["sweep", "energy", "exchange", "exchange_tempered"])
+    build.build([name for name in ("sweep", "energy", "exchange", "exchange_tempered", "exchange_f64")
+                 if name in build.KERNELS])
     print(f"{args.label}: kernels built or found in {time.perf_counter() - t0:.1f} s")
 
     litfi = LITFIChain(n_sites=N, h=-0.5, j=0.866, alpha=2.5, pbc=True)
@@ -68,8 +70,8 @@ def main(argv=None) -> int:
     hubbard = HubbardChain(n_sites=2 * HUB_L, u=4.0, t=1.0, n_up=HUB_PARTICLES, n_down=HUB_PARTICLES, pbc=True,
                            v=hub_v)
 
-    def cfg(k, seed, **kw):
-        return VMCConfig(n_walkers=k, learning_rate=1e-2, solver="cg", use_fused_sweeps=True, seed=seed, **kw)
+    def cfg(k, seed, fused=True, **kw):  # a float64 machine samples with use_fused_sweeps off, as the train driver
+        return VMCConfig(n_walkers=k, learning_rate=1e-2, solver="cg", use_fused_sweeps=fused, seed=seed, **kw)
 
     paths = {
         "LITFI": (lambda **m: VMC(RBMTrSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32), litfi, cfg(K, 3), **m),
@@ -80,6 +82,8 @@ def main(argv=None) -> int:
                                            cfg(K, 5, n_beta=4), **m), WARM),
         "FFNN LITFI": (lambda **m: VMC(FFNNTrSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32), litfi, cfg(K, 3),
                                        **m), WARM),
+        "float64 Hubbard": (lambda **m: VMC(RBM(n_inputs=2 * HUB_L, n_hiddens=HUB_H, dtype=torch.float64), hubbard,
+                                            cfg(HUB_K, 11, fused=False), **m), WARM),
     }
     keep = args.paths.split(",") if args.paths else list(paths)
     runs = [(name, make, warm, {}) for name, (make, warm) in paths.items() if name in keep]

@@ -31,10 +31,11 @@ from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_STRESS, 
 
 from test_torch_energy import _np, _setup
 
+LN2_HI, LN2_LO = 6.93147180369123816490e-01, 1.90821492927058770002e-10  # csrc/energy.cu
 RTOL = 1e-12  # the instance's bar against the plain float64 sum (chip_smoke.py F64_ENERGY_RTOL)
 NEAR_CUT_MAX = 1e-2  # with c: the largest share of walkers counted apart at the cut (BRANCH_CUT_TOL_F64)
 LN_DOUBLE_MAX = math.log(np.finfo(np.float64).max)
-TILE_SITES, TILE_UNITS, RENORM = engine.F64_TILE_SITES, engine.F64_TILE_UNITS, 8
+TILE_SITES, TILE_UNITS, RENORM = engine.F64_TILE_SITES, engine.F64_TILE_UNITS, 4  # csrc/energy.cu f64::kRenorm
 
 
 def _renorm(p, ex):
@@ -47,7 +48,7 @@ def _renorm(p, ex):
     return np.ldexp(p.real, 1023 - eb) + 1j * np.ldexp(p.imag, 1023 - eb), ex + eb - 1023
 
 
-def kernel_model(table, a_site, c, spins, y):
+def kernel_model(table, a_site, a_lo, c, spins, y):
     """The float64 instance's sum per walker, in its order of operations
     (its fused multiply-adds as plain products and sums). Returns (sum,
     largest ln|prod_j factor| of any (walker, site) without the running
@@ -102,19 +103,22 @@ def kernel_model(table, a_site, c, spins, y):
                     ph -= 2.0 * math.pi * np.rint(ph / (2.0 * math.pi))
                     acc = acc + cpad[j] * (0.5 * np.log(np.abs(m) ** 2) + 1j * ph)
         z = -2.0 * s[:, valid] * a_site[sites[valid]][None, :]
-        if c is None:
-            ratio = acc[:, valid] / dm[:, None] * np.exp(z + (ex[:, valid] - dex[:, None]) * math.log(2.0))
+        z_lo = -2.0 * s[:, valid] * a_lo[sites[valid]][None, :]
+        if c is None:  # -2 s Re a' and k ln 2 first (ln 2 in two parts), then a''s rounding error
+            kk = (ex[:, valid] - dex[:, None]).astype(float)
+            zr = ((z.real + kk * LN2_HI) + kk * LN2_LO) + z_lo.real
+            ratio = acc[:, valid] / dm[:, None] * np.exp(zr + 1j * (z.imag + z_lo.imag))
         else:
-            ratio = np.exp(acc[:, valid] + walker_term[:, None] + z)
+            ratio = np.exp(acc[:, valid] + walker_term[:, None] + z + z_lo)
         total += ratio.sum(1)
         ln_unscaled = max(ln_unscaled, float(ln_m[:, valid].max()))
     return total, ln_unscaled
 
 
 def _model(work, cache):
-    table, a_site = engine.kernel_table_f64(work)
+    table, a_site, a_lo = engine.kernel_table_f64(work)
     c = None if work.c is None else work.c.numpy()
-    return kernel_model(table.numpy(), a_site.numpy(), c, cache.spins.numpy(), cache.y.numpy())
+    return kernel_model(table.numpy(), a_site.numpy(), a_lo.numpy(), c, cache.spins.numpy(), cache.y.numpy())
 
 
 def _jax_work(w, b, a, c):
@@ -185,10 +189,10 @@ def test_kernel_table_f64_layout_and_memo(has_c):
     table's memo, which the float64 table leaves as it is."""
     w, b, a, c, _ = f64_stress_inputs("large Re w", has_c, seed=3, n=70)
     work = Work(*(None if x is None else torch.as_tensor(x) for x in (w, b, a, c)))
-    f32_memo = dict(engine._table_memo())  # device -> this thread's float32 table memo entry
-    table, a_site = engine.kernel_table_f64(work)
-    assert engine._table_memo().keys() == f32_memo.keys()
-    assert all(engine._table_memo()[d] is entry for d, entry in f32_memo.items())
+    f32_memo = dict(engine.memo("kernel_table"))  # device -> this thread's float32 table memo entry
+    table, a_site, a_lo = engine.kernel_table_f64(work)
+    assert engine.memo("kernel_table").keys() == f32_memo.keys()
+    assert all(engine.memo("kernel_table")[d] is entry for d, entry in f32_memo.items())
     n, h = w.shape
     n_pass, n_tile = -(-n // TILE_SITES), -(-h // TILE_UNITS)
     n_g = n_pass * n_tile * 2 * TILE_UNITS * TILE_SITES
@@ -203,3 +207,6 @@ def test_kernel_table_f64_layout_and_memo(has_c):
     assert (g[-1, :, :, :, n % TILE_SITES:] == 1.0).all()  # padded sites: w = 0
     shift = w.real @ c if has_c else w.sum(1)
     np.testing.assert_allclose(a_site.numpy(), (0.0 if a is None else a) + shift, rtol=1e-13)
+    for part in ("real", "imag"):  # the rounding error of a', at most half an ulp of it
+        hi, lo = getattr(a_site.numpy(), part), getattr(a_lo.numpy(), part)
+        assert (np.abs(lo) <= 0.5 * np.spacing(np.abs(hi))).all() and (hi + lo == hi).all()

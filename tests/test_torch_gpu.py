@@ -1015,7 +1015,7 @@ def test_float64_sweep_instance_at_re_w_25(cuda, n, has_c):
     assert bool(torch.isfinite(ck.y).all())
     _f64_states_agree(ck, lk, cp, lp, 1e-2)
     launches = sweep_ops.sweep_cuda.launches_f64
-    past = work._replace(w=work.w + (sweep_ops.F64_SWEEP_MAX_RE_W + 1.0 - 25.0) * (work.w.real == 25.0))
+    past = work._replace(w=work.w + (engine.F64_MAX_RE_W + 1.0 - 25.0) * (work.w.real == 25.0))
     with pytest.raises(ValueError, match="Re w"):  # past the kernel's range: raises, launches nothing
         sweep_ops.sweep_cuda(past, cache, sched, draws)
     assert sweep_ops.sweep_cuda.launches_f64 == launches
@@ -1112,6 +1112,100 @@ def test_float64_exchange_instance_matches_plain(cuda, h, has_c, n_beta):
         _f64_states_agree(ck, lk, cp, lp, 1e-2)
         up, dn = _sector_counts(ck.spins, l)
         assert bool((up == 5).all()) and bool((dn == 5).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 72])
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+@pytest.mark.parametrize("case", F64_STRESS)
+def test_float64_exchange_instance_on_stress_inputs(cuda, case, has_c, n):
+    """The float64 exchange on utils/f64_stress.py's inputs (large |Re w|,
+    H = 512 at G = 32, units near a zero of cosh, |Re w| = 25 at site 0,
+    whose factors leave the double range four at a time) on two rings of
+    N/2 sites: two sweeps of N proposals on the Philox stream against the
+    plain float64 exchange, every walker row in its sectors."""
+    w, b, a, c, spins = f64_stress_inputs(case, has_c, seed=7, n=n, k=300)
+    work = Work(*(None if x is None else torch.as_tensor(x, device=cuda) for x in (w, b, a, c)))
+    cache, ln = engine.full_forward(work, torch.as_tensor(spins, device=cuda))
+    bonds = torch.as_tensor(kawasaki.two_ring_bonds(n // 2), device=cuda)
+    draws = ExchangeDraws(philox_key(make_generator(9, cuda)), 2 * n)
+    ck, lk, counts = exchange_ops.exchange_cuda(work, cache, bonds, draws, n_unit=n)
+    cp, lp, _ = exchange_ops.tempered_exchange_plain(work, cache, ln, bonds, draws, None, 1, n)
+    assert bool(torch.isfinite(ck.y).all()) and 0 < float(counts[0].sum()) < 2 * n * 300
+    _f64_states_agree(ck, lk, cp, lp, 1e-2)
+    for up, want in zip(_sector_counts(ck.spins, n // 2), _sector_counts(cache.spins, n // 2)):
+        assert torch.equal(up, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+def test_float64_exchange_100_sweeps_in_one_launch(cuda, has_c):
+    """A warm-up's launch of 100 sweeps at the L = 32 flagship's shape
+    (N = 64 = B, H = 64: G = 16, U = 4), the state renewed from y after
+    every sweep of n_unit = 64 proposals, against the plain float64 exchange
+    on the same Philox draws, and the carried y against a fresh forward
+    pass of the final spins."""
+    l, h, k = 32, 64, 256
+    work, _, _, g = _f64_machine(cuda, 2 * l, h, k, has_c, 73)
+    ham = HubbardChain(n_sites=2 * l, n_up=5, n_down=5)
+    cache, ln = engine.full_forward(work, ham.init_spins(g, k, torch.float64))
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    draws = ExchangeDraws(philox_key(g), 100 * 2 * l)
+    launches = exchange_ops.exchange_cuda.launches_f64
+    ck, lk, counts = exchange_ops.exchange_cuda(work, cache, bonds, draws, n_unit=2 * l)
+    assert exchange_ops.exchange_cuda.launches_f64 == launches + 1
+    cp, lp, _ = exchange_ops.tempered_exchange_plain(work, cache, ln, bonds, draws, None, 1, 2 * l)
+    _f64_states_agree(ck, lk, cp, lp, 1e-2)
+    assert 0.0 < float(counts[0].sum()) < 100 * 2 * l * k
+    fresh, _ = engine.full_forward(work, ck.spins)
+    assert float((fresh.y - ck.y).abs().max()) <= 1e-10 * float(fresh.y.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "c"])
+def test_float64_exchange_tempered_at_row0_with_n_beta_8(cuda, has_c):
+    """The float64 exchange's tempered instances at n_beta = 8 on the
+    Philox stream at row0 = K/2, a walker mesh's shard, two sweeps with
+    their swap phases, against the plain tempered exchange on the same
+    draws, with the per-row counts of accepted proposals and swaps."""
+    l, h, k, n_beta = 32, 64, 512, 8
+    work, _, _, g = _f64_machine(cuda, 2 * l, h, k, has_c, 83)
+    ham = HubbardChain(n_sites=2 * l, n_up=5, n_down=5)
+    cache, ln = engine.full_forward(work, ham.init_spins(g, k, torch.float64))
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    draws = ExchangeDraws(philox_key(g), 2 * 2 * l, row0=k // 2)
+    ck, lk, rows_k = exchange_ops.exchange_cuda(work, cache, bonds, draws, None, n_beta, 2 * l)
+    cp, lp, rows_p = exchange_ops.tempered_exchange_plain(work, cache, ln, bonds, draws, None, n_beta, 2 * l)
+    _f64_states_agree(ck, lk, cp, lp, 1e-2)
+    same = ~((ck.spins != cp.spins).any(1) | near_branch_cut(ck.y) | near_branch_cut(cp.y))
+    chains = same.reshape(-1, n_beta).all(1).repeat_interleave(n_beta)  # swaps couple the rows of a chain
+    assert torch.equal(rows_k[:, chains], rows_p[:, chains]) and float(rows_k[1].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["exchange", "energy"])
+def test_float64_wrappers_refuse_weights_past_the_range_on_card(cuda, kernel):
+    """The float64 exchange and energy wrappers on "Re w 25" inputs moved
+    past the float64 kernels' range (engine.F64_MAX_RE_W): a ValueError,
+    and no launch; the inputs at |Re w| = 25 run."""
+    w, b, a, c, spins = f64_stress_inputs("Re w 25", False, seed=5, n=16, k=64)
+    work = Work(*(None if x is None else torch.as_tensor(x, device=cuda) for x in (w, b, a, c)))
+    cache, _ = engine.full_forward(work, torch.as_tensor(spins, device=cuda))
+    bonds = torch.as_tensor(kawasaki.two_ring_bonds(8), device=cuda)
+    draws = ExchangeDraws(philox_key(make_generator(3, cuda)), 16)
+
+    def run(work_):
+        if kernel == "exchange":
+            return exchange_ops.exchange_cuda(work_, cache, bonds, draws)
+        return energy.offdiag_sum_cuda(work_, cache)
+
+    run(work)
+    launches = (exchange_ops.exchange_cuda.launches_f64, energy.offdiag_sum_cuda.launches_f64)
+    past = work._replace(w=work.w + (engine.F64_MAX_RE_W + 1.0 - 25.0) * (work.w.real == 25.0))
+    with pytest.raises(ValueError, match="Re w"):
+        run(past)
+    torch.cuda.synchronize()
+    assert (exchange_ops.exchange_cuda.launches_f64, energy.offdiag_sum_cuda.launches_f64) == launches
 
 
 @pytest.mark.gpu

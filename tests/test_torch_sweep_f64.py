@@ -41,13 +41,13 @@ from neural_network_quantum_state_tpu.ops import engine as jengine
 from neural_network_quantum_state_tpu.ops.cplx import C
 from neural_network_quantum_state_tpu.sampler import metropolis as jmetropolis
 from neural_network_quantum_state_tpu.sampler import tempering as jtempering
-from neural_network_quantum_state_tpu_torch import sweep_f64_ab
+from neural_network_quantum_state_tpu_torch import f64_ab
 from neural_network_quantum_state_tpu_torch.ops import engine
 from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
 from neural_network_quantum_state_tpu_torch.ops.engine import Work
 from neural_network_quantum_state_tpu_torch.ops.logcosh import BRANCH_CUT_TOL_F64
 from neural_network_quantum_state_tpu_torch.sampler import chain_checkerboard
-from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_SWEEP_STRESS, f64_stress_inputs
+from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_STRESS, f64_stress_inputs
 
 from test_torch_energy import _np, _setup
 
@@ -318,7 +318,7 @@ def test_model_matches_plain_and_jax_on_machines(kind, n, rng):
 
 
 @pytest.mark.parametrize("has_c", [False, True], ids=["rbm", "with_c"])
-@pytest.mark.parametrize("case", F64_SWEEP_STRESS)
+@pytest.mark.parametrize("case", F64_STRESS)
 def test_model_matches_plain_and_jax_on_stress_inputs(case, has_c):
     """utils/f64_stress.py's inputs, two sweeps: large |Re w|, a site whose
     unscaled product of factors leaves the double range, units near a zero
@@ -388,9 +388,9 @@ def test_sweep_table_f64_layout(has_c):
     term of kernel_table_f64; built apart from the float32 table's memo."""
     w, b, a, c, _ = f64_stress_inputs("large Re w", has_c, seed=3, n=70)
     work = Work(*(None if x is None else torch.as_tensor(x) for x in (w, b, a, c)))
-    f32_memo = dict(engine._table_memo())
+    f32_memo = dict(engine.memo("kernel_table"))
     g, a_site = engine.sweep_table_f64(work)
-    assert engine._table_memo().keys() == f32_memo.keys()
+    assert engine.memo("kernel_table").keys() == f32_memo.keys()
     n, h = w.shape
     assert g.shape == (n, 2, h) and g.dtype == torch.complex128 and g.is_contiguous()
     for i, j in ((0, 0), (5, 17), (n - 1, h - 1), (65, 40)):
@@ -403,7 +403,7 @@ def test_sweep_table_f64_layout(has_c):
 def test_sweep_f64_ab_needs_a_cuda_device(monkeypatch, capsys):
     """The A/B entry point refuses to run without a CUDA device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert sweep_f64_ab.main([]) == 1
+    assert f64_ab.main([]) == 1
     assert "CUDA" in capsys.readouterr().err
 
 
@@ -427,20 +427,20 @@ def test_sweep_f64_ab_reads_the_instances_registers():
         "ptxas info    : Function properties: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 64 registers, used 1 barriers",
     ])
-    assert sweep_f64_ab.registers(log) == {"8cd": "128+60B", "12td": "128+104B", "16tnd": "254", "td": "64"}
+    assert f64_ab.registers(log) == {"8cd": "128+60B", "12td": "128+104B", "16tnd": "254", "td": "64"}
 
 
 def test_float64_sweep_kernel_refuses_weights_past_its_range():
     """The float64 kernel's wrapper checks |Re w| against the range of the
-    kernel's pairs of factors (F64_SWEEP_MAX_RE_W) before it launches: the
+    float64 kernels' products (engine.F64_MAX_RE_W) before it launches: the
     stress inputs at |Re w| = 25 pass, one weight past the range raises; the
     plain sweep takes such weights."""
     w, b, a, c, spins = f64_stress_inputs("Re w 25", False, seed=2, k=8)
-    sweep_ops.check_f64_range(Work(*(None if x is None else torch.as_tensor(x) for x in (w, b, a, c))))
-    w.real[3, 5] = sweep_ops.F64_SWEEP_MAX_RE_W + 1.0
+    engine.check_f64_range(torch.as_tensor(w))
+    w.real[3, 5] = engine.F64_MAX_RE_W + 1.0
     work = Work(*(None if x is None else torch.as_tensor(x) for x in (w, b, a, c)))
     with pytest.raises(ValueError, match="Re w"):
-        sweep_ops.check_f64_range(work)
+        engine.check_f64_range(work.w)
     cache, ln = engine.full_forward(work, torch.as_tensor(spins))
     sched = torch.arange(spins.shape[1])
     u = torch.as_tensor(np.random.default_rng(1).random((spins.shape[1], spins.shape[0])))
