@@ -15,16 +15,21 @@ Phases, each printed with its seconds:
    class), and the SASS instructions per element of the sweep's, the
    energy (float32 and float64), the exchange kernel's and the float64
    sweep's and exchange's hot loops (their proposal rounds with the
-   accept); the float64 exchange's RBM round must stay below the double
-   instructions per element that one library transcendental per unit
-   would add;
+   accept) and of the megakernel's proposal round and energy loop; the
+   float64 exchange's RBM round must stay below the double instructions per
+   element that one library transcendental per unit would add, and the
+   megakernel's two loops at n_beta = 1 at 0.05 MUFU an element (its factor
+   form takes no transcendental per element);
 3. at full width hold each kernel against its plain PyTorch version on the
    same inputs and time both with CUDA events: the sweep and energy kernels
    at the LITFI flagship's N=64, H=256, K=8192 (the sweep at n_beta = 1 and
    at n_beta = 8, with its in-kernel replica exchange), the fused
    sweep + energy megakernel at that shape against the sweep kernel followed
    by the energy kernel on the same uniforms and against its plain version
-   (n_beta = 1 and 8), the exchange kernel at the Hubbard flagship's N=64,
+   (n_beta = 1 and 8), and on the stress inputs of utils/f32_stress.py
+   (|Re w| = 20, a unit near a zero of cosh, large |Re y|; N = 16, K = 512)
+   against its plain version in float64, with its refusal of |Re w| = 20.5
+   before any launch, the exchange kernel at the Hubbard flagship's N=64,
    H=64, K=4096, B=64 (one sweep of 64 proposals on its Philox stream, the
    training paths' mode, and on caller uniforms, and 5 sweeps in one launch
    on the stream); the instances with output weights c (the FFNN family) of
@@ -117,7 +122,8 @@ Phases, each printed with its seconds:
    2 sampling rounds per step, 100 warm-up sweeps and 10 steps, through
    the sweep and energy kernels' instances with c;
 13. the megakernel A/B (``megakernel_ab``, n_beta = 1 and 8): its
-   cross-check and the time of each arm;
+   cross-check and the time of each arm (the wrappers, CUDA events; the
+   kernels' device times are phase 16's);
 14. drive the tempered Hubbard flagship (n_beta = 4, the collapse
    escalation's default: 1024 chains of 4 replicas, 500 warm-up sweeps, 20
    SR steps) the same way: each sampler call one launch of the exchange
@@ -231,7 +237,7 @@ import sys
 import threading
 import time
 
-LIMIT_S = 300
+LIMIT_S = 600  # the watchdog: half the 1200 s a run of this script may take, the build included
 N, ALPHA, K = 64, 4, 8192  # RBMTrSymm(n_inputs=64, alpha=4): H = 256, V = 261
 SR_STEPS, WARM_SWEEPS = 20, 100
 # Hubbard flagship: the L=32 trap chain, RBM(n_inputs=64, n_hiddens=64)
@@ -259,21 +265,36 @@ TEMPERED_NBETA, CHECK_NBETA = 4, 8  # the tempered flagship's ladder; the phase-
 WIDTHS, WIDTH_N, WIDTH_K = (16, 80, 384), 32, 512
 WIDTH_MISMATCH_MAX = 1e-2  # at K=512 one near-tie is 2e-3 of the walkers
 OFFDIAG_RTOL = 1e-5  # megakernel vs the two kernels / plain, on walkers with the same decisions
+# The megakernel on utils/f32_stress.py's inputs (|Re w| = 20, a unit near a
+# zero of cosh, large |Re y|) at N = 16, K = WIDTH_K, n_beta 1 and 8, held to
+# the plain megakernel in float64 from the same state (the plain float32
+# version's dln loses about 3e-4 there): decisions within WIDTH_MISMATCH_MAX,
+# y within SWEEP_Y_ATOL of its largest |value| (float32's ulp at |y| = 45 is
+# 4e-6), its sums within OFFDIAG_RTOL of the plain float64 sum on its own
+# final state; past the range (ops/engine.py F32_MAX_RE_W) by
+# F32_PAST_RANGE the wrapper raises and launches nothing.
+F32_STRESS_N, F32_PAST_RANGE = 16, 0.5
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
-# Operations per (walker, proposal or site, hidden unit), counting exp, sin,
-# cos, log and atan2 as one each: y' (4), |x| and exp (3), sin/cos (2),
-# 1+-e (2), the planes (2-3), |.|^2 (3), log and scaling (4), sum (1-4).
-SWEEP_OPS, ENERGY_OPS = 20, 25
-# With output weights c: the atan2 of the second plane and the two products
-# of Re(c l) per (walker, proposal, hidden unit); the four products of the
-# complex rotation c (l' - l) per (walker, site, hidden unit).
-SWEEP_OPS_C, ENERGY_OPS_C = SWEEP_OPS + 3, ENERGY_OPS + 4
-# The exchange proposal: 22 per hidden unit (y' takes a second W row), and
-# 2 per bond for the active mask (a product and a compare); the count and
-# pick over the mask (a popcount per 32 bonds) are left out.
-EXCHANGE_OPS_HIDDEN, EXCHANGE_OPS_BOND = 22, 2
-EXCHANGE_OPS_HIDDEN_C = EXCHANGE_OPS_HIDDEN + 3  # as SWEEP_OPS_C
+# Operations per (walker, proposal or site, hidden unit) that each function
+# needs, one count per function whatever implements it (float32 or float64,
+# log-cosh or factor form), counting the factor form's, which needs no
+# transcendental per element: the sweep 11 (the multiply-add c + u G with the
+# state's c real 7, |.|^2 3, the running product 1), with output weights c
+# 24 (the multiply-add 7, |.|^2 3, the log and its half 2, atan2 1, the
+# phase 3 and its wrap 4, the sum c.re ln|.| - c.im phase 4); the
+# off-diagonal sum 13 (the multiply-add 7, the complex product 6), with c 28
+# (the sweep's 20 before its sum, and the complex sum c (ln|.| + i phase) 8).
+# (The float32 log-cosh kernels' own forms issue about 20 and 25, 23 and 29
+# with c.)
+SWEEP_OPS, SWEEP_OPS_C, ENERGY_OPS, ENERGY_OPS_C = 11, 24, 13, 28
+# The exchange proposal: 11 per hidden unit as the sweep (the factor of a
+# pair flip, e^{4 s (w_i - w_k)}, is one table entry), 25 with c (the
+# difference of the two sites' Im w, 1, more), and 2 per bond for the active
+# mask (a product and a compare); the count and pick over the mask (a
+# popcount per 32 bonds) are left out. (The float32 log-cosh form does
+# about 22.)
+EXCHANGE_OPS_HIDDEN, EXCHANGE_OPS_HIDDEN_C, EXCHANGE_OPS_BOND = 11, 25, 2
 EXCHANGE_MULTI_SWEEPS = 5  # the sweeps of the one-launch comparison
 # A replica-exchange phase per walker row: the difference of Re ln psi, the
 # beta-scaled min, the exp, the compare and the select.
@@ -308,18 +329,13 @@ F64_SWEEP_WIDTHS, F64_EXCHANGE_WIDTHS = (16, 80, 384, 512), (16, 80, 384)
 # (the plain twin of such a launch takes about 1 s; the gpu tests' launches
 # of 100 sweeps run at the flagships' shapes).
 F64_LONG_SWEEPS, F64_LONG_CASE = 100, "Re w 25"
-# The float64 sweep's and exchange's operations per (walker, proposal,
-# hidden unit) that the function needs, their bounds' count: in the RBM
-# family 11 (the multiply-add c + u G with the state's c real, 7, |.|^2 3,
-# the running product 1), with c 24 for the sweep (the multiply-add 7,
-# |.|^2 3, the log and its half 2, atan2 1, the phase 3 and its wrap 4, the
-# sum 4) and 25 for the exchange (the difference of the two sites' Im w, 1).
+# The float64 sweep's and exchange's bounds count SWEEP_OPS(_C) and
+# EXCHANGE_OPS_HIDDEN(_C), the functions' own counts.
 # Beside the bound, what the RBM forms issue on top (csrc/sweep_f64.cu,
 # csrc/exchange_f64.cuh): the sweep a power of two per pair of factors
 # (11.5), the exchange one per factor (12); and their 16 bytes of G or of
 # the bond table's row read through L1 at the shared-memory/L1 rate of
 # PEAK_SMEM_BYTES_S. Both are floors of the forms, not of the function.
-F64_SWEEP_OPS, F64_SWEEP_OPS_C, F64_EXCHANGE_OPS, F64_EXCHANGE_OPS_C = 11, 24, 11, 25
 F64_SWEEP_FORM_OPS, F64_EXCHANGE_FORM_OPS, F64_FORM_ROW_BYTES = 11.5, 12, 16
 # Past the float64 kernels' range (ops/engine.py F64_MAX_RE_W) the sweep,
 # exchange and energy wrappers raise and launch nothing: phase 3 moves the
@@ -639,6 +655,16 @@ SASS_EXCHANGE_F64_G, SASS_EXCHANGE_F64_U = 16, 4
 SASS_EXCHANGE_F64 = (("Lb0ELb0ELb0E", "exchange float64 RBM"), ("Lb0ELb1ELb0E", "exchange float64 RBM tempered"),
                      ("Lb1ELb0ELb0E", "exchange float64 has_c"))
 SASS_EXCHANGE_F64_DOUBLE_MAX = 36
+# The megakernel's 32-lane R = 8 instances (H = 256; n_beta = 1, then
+# tempered): its proposal round with its accept (the smallest loop without a
+# barrier with R to 4R - 1 global loads, the G row and on an accept the G and
+# w rows, and the warp's butterfly), over its R units, and its energy loop
+# (at least 4R global loads, the G rows of a group of 4 sites, and the
+# reduce-scatter's shuffles), over 4R elements. Its factor form takes no transcendental per element: at n_beta
+# = 1 at most SASS_MEGA_MUFU_MAX MUFU an element in either loop (a tempered
+# proposal takes three lg2 for its test).
+SASS_MEGA = (("0", "megakernel"), ("1", "megakernel tempered"))
+SASS_MEGA_MUFU_MAX = 0.05
 
 
 def _loops(ins):
@@ -744,6 +770,18 @@ def _sass_per_element(text: str) -> list[str]:
             continue
         lines.append(_per_element(f"{label} (R={SASS_R}, a proposal round with its accept)", min(loops, key=len),
                                   SASS_R))
+    for flag, label in SASS_MEGA:
+        names = [n for n in funcs if re.search(rf"sweep_energy_kernelILi32ELi{SASS_R}ELb{flag}E", n)]
+        if not names:
+            continue
+        loops = [(body, sum("LDG" in o for o in body)) for body in _loops(funcs[names[0]])
+                 if not any("BAR" in o for o in body)]
+        rounds = [b for b, n_ldg in loops if SASS_R <= n_ldg < 4 * SASS_R and sum("SHFL.BFLY" in o for o in b) >= 5]
+        sites = [b for b, n_ldg in loops if n_ldg >= 4 * SASS_R and sum("SHFL" in o for o in b) >= 9]
+        lines.append(_per_element(f"{label} sweep (R={SASS_R}, a proposal round with its accept)", min(rounds, key=len),
+                                  SASS_R) if rounds else f"{label} sweep: no proposal loop found")
+        lines.append(_per_element(f"{label} energy (R={SASS_R}, a group of 4 sites)", min(sites, key=len),
+                                  4 * SASS_R) if sites else f"{label} energy: no site loop found")
     g, u = SASS_EXCHANGE_F64_G, SASS_EXCHANGE_F64_U
     for flags, label in SASS_EXCHANGE_F64:
         names = [n for n in funcs if re.search(rf"exchange_kernel_f64ILi{g}ELi{u}E{flags}E", n)]
@@ -875,6 +913,7 @@ def main() -> int:
     from neural_network_quantum_state_tpu_torch.optim.sr import (
         LAMBDA_MIN, build_s_matrix, force_vector, lambda_schedule, sr_cg_solve, sr_dense_solve, sr_minsr_solve,
     )
+    from neural_network_quantum_state_tpu_torch.utils.f32_stress import F32_STRESS, f32_stress_inputs
     from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_STRESS, f64_stress_inputs
 
     wrappers = {"sweep": sweep_cuda, "energy": offdiag_sum_cuda, "exchange": exchange_cuda,
@@ -956,8 +995,8 @@ def main() -> int:
                  f"{lib} instances {sorted(ptxas[lib])}, expected the (G, U) of lanes_f64 each with and without c, "
                  "and the narrow tempered ones")
     t_sass = time.perf_counter()
-    sass_lines = _sass_report([built[name].path for name in
-                               ("sweep", "energy", "exchange", "sweep_f64", "exchange_f64", "exchange_f64_tempered")])
+    sass_lines = _sass_report([built[name].path for name in ("sweep", "energy", "exchange", "sweep_energy", "sweep_f64",
+                                                             "exchange_f64", "exchange_f64_tempered")])
     print(f"SASS report: {time.perf_counter() - t_sass:.1f} s")
     for line in sass_lines:
         print(f"SASS per element: {line}")
@@ -970,6 +1009,13 @@ def main() -> int:
         _require(dbl <= SASS_EXCHANGE_F64_DOUBLE_MAX and calls <= 1,
                  f"the float64 exchange's RBM round: {x_rbm[0]} (at most {SASS_EXCHANGE_F64_DOUBLE_MAX} double "
                  "instructions an element and one call, the division's slow path)")
+
+    # the megakernel's factor form at n_beta = 1: no transcendental per element in its proposal or energy loop
+    mega_sass = [line for line in sass_lines if re.search(r"megakernel (sweep|energy) \(", line)]
+    for line in mega_sass:
+        mufu = float(re.search(r"MUFU ([\d.]+)", line).group(1))
+        _require(mufu <= SASS_MEGA_MUFU_MAX, f"{line} (at most {SASS_MEGA_MUFU_MAX} MUFU an element)")
+    _require(len(mega_sass) == 2, f"the megakernel's SASS loops: {mega_sass or 'none found'}")
 
     _enter("3 kernels vs plain", t0)
     dev = torch.device("cuda")
@@ -1039,6 +1085,58 @@ def main() -> int:
             failures.append(f"sweep_energy n_beta={nb}: offdiag {rel2:.3e} / {rel_p:.3e}")
         mega[nb] = {"mismatch_vs_kernels": share2, "offdiag_rel_vs_kernels": rel2, "mismatch_share": share_p,
                     "max_abs_err": ln_p, "offdiag_rel_err": rel_p}
+
+    # the megakernel on the stress inputs against the plain megakernel in float64, and its refusal past the range
+    def widened(w_, c_):
+        w64 = engine.Work(*(None if t is None else t.to(torch.complex128) for t in w_))
+        c64 = engine.Cache(c_.spins.double(), c_.y.to(torch.complex128), c_.sa.to(torch.complex128))
+        return w64, c64, engine.cache_log_psi(w64, c64)
+
+    mega_stress = {}
+    ssched = torch.as_tensor(LITFIChain(n_sites=F32_STRESS_N).schedule())
+    sg = make_generator(4321, dev)  # its own stream: the later checks draw their inputs from g as before
+    for case in F32_STRESS:
+        sw_, sb_, sa_, ss_ = f32_stress_inputs(case, seed=17, n=F32_STRESS_N, k=WIDTH_K)
+        swork = engine.Work(*(torch.as_tensor(x, dtype=torch.complex64, device=dev) for x in (sw_, sb_, sa_)))
+        scache, _ = engine.full_forward(swork, torch.as_tensor(ss_, dtype=torch.float32, device=dev))
+        w64, c64, l64 = widened(swork, scache)
+        for nb in (1, CHECK_NBETA):
+            su = uniform_block(sg, (F32_STRESS_N, WIDTH_K))
+            sus = uniform_block(sg, (1, 2, WIDTH_K)) if nb > 1 else None
+            cm, _, am, om = sweeps_offdiag_cuda(swork, scache, ssched, su, nb, sus)
+            cp, _, _, _ = sweeps_offdiag_plain(w64, c64, l64, ssched, su.double(), nb,
+                                               None if sus is None else sus.double())
+            same = (cm.spins.double() == cp.spins).all(1)
+            s_share = 1.0 - float(same.double().mean())
+            y_rel = float((cm.y[same].to(torch.complex128) - cp.y[same]).abs().max() / cp.y.abs().max())
+            fw, fc, fl = widened(swork, cm)
+            want = offdiag_sum_plain(fw, fc, fl)
+            o_rel = float((om.to(torch.complex128) - want).abs().max() / want.abs().max())
+            finite = bool(torch.isfinite(om).all())
+            print(f"sweep_energy {case} n_beta={nb} (N={F32_STRESS_N}, K={WIDTH_K}) vs plain float64: other decisions "
+                  f"{s_share:.2e} (max {WIDTH_MISMATCH_MAX:.0e}), y {y_rel:.3e} of max|y| (tol {SWEEP_Y_ATOL:.0e}); "
+                  f"offdiag vs the float64 sum on its state {o_rel:.3e} (tol {OFFDIAG_RTOL:.0e}); accepted "
+                  f"{float(am):.0f}, finite {finite}")
+            if not (s_share <= WIDTH_MISMATCH_MAX and y_rel <= SWEEP_Y_ATOL and o_rel <= OFFDIAG_RTOL and finite
+                    and float(am) > 0):
+                failures.append(f"sweep_energy {case} n_beta={nb}: decisions {s_share:.2e}, y {y_rel:.3e}, "
+                                f"offdiag {o_rel:.3e}, finite {finite}")
+            mega_stress[f"{case} n_beta={nb}"] = {"mismatch_share": s_share, "y_rel_err": y_rel, "offdiag_rel_err": o_rel}
+        if case == "Re w 20":
+            before = sweeps_offdiag_cuda.launches
+            past = swork._replace(w=swork.w + F32_PAST_RANGE * (swork.w.real == engine.F32_MAX_RE_W))
+            try:
+                sweeps_offdiag_cuda(past, scache, ssched, su)
+                refused = False
+            except ValueError as exc:
+                refused = "Re w" in str(exc)
+            torch.cuda.synchronize()
+            no_launch = sweeps_offdiag_cuda.launches == before
+            print(f"sweep_energy: |Re w| = {engine.F32_MAX_RE_W + F32_PAST_RANGE} refused {refused}, "
+                  f"no launch {no_launch}")
+            if not (refused and no_launch):
+                failures.append(f"sweep_energy: |Re w| past the range: refused {refused}, no launch {no_launch}")
+            mega_stress["refused_past_range"] = refused and no_launch
 
     # the exchange kernel at the Hubbard flagship's shapes: one sweep on the
     # kernel's Philox stream (the training paths' mode) and on caller
@@ -2399,6 +2497,7 @@ def main() -> int:
     hub_g64 = kernel_lanes(HUB_H, torch.float64)
     r_of = {lib: f"{hub_g}x{-(-HUB_H // hub_g)}" for lib in ("exchange", "exchange_tempered")}
     r_of |= {lib: f"{hub_g64}x{-(-HUB_H // hub_g64)}" for lib in ("exchange_f64", "exchange_f64_tempered")}
+    r_of["sweep_energy"] = f"32x{(h + 31) // 32}"  # lanes x words: one warp a walker above H = 128
 
     def instance(name, tempered=False, multi=False):
         base = name.removesuffix("_c")
@@ -2449,7 +2548,7 @@ def main() -> int:
     # and the table's time
     f64_sweep_bytes = (2 * K * h * c128 + 2 * K * N * f64b + 2 * K * c128 + 3 * N * h * c128 + 2 * N * c128
                        + 2 * K * i32b + 16)
-    sweep_f64_ops = {"": K * N * h * F64_SWEEP_OPS, "_c": K * N * h * F64_SWEEP_OPS_C}
+    sweep_f64_ops = {"": K * N * h * SWEEP_OPS, "_c": K * N * h * SWEEP_OPS_C}
     sweep_f64_bounds = {"": _bound_ms(sweep_f64_ops[""], f64_sweep_bytes, PEAK_F64_FLOPS),
                         "_c": _bound_ms(sweep_f64_ops["_c"], f64_sweep_bytes + h * c128, PEAK_F64_FLOPS)}
     sweep_f64_t_bounds = {"": _bound_ms(sweep_f64_ops[""] + swap_ops, f64_sweep_bytes, PEAK_F64_FLOPS),
@@ -2461,7 +2560,7 @@ def main() -> int:
         d_ms = device_ms[f"sweep_f64{c_}"]
         print(f"sweep_f64{c_}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'}, bound "
               f"{sweep_f64_bounds[c_][0]:.4f} ms ({sweep_f64_bounds[c_][1]}: the "
-              f"{F64_SWEEP_OPS_C if c_ else F64_SWEEP_OPS} double operations an element the function needs)"
+              f"{SWEEP_OPS_C if c_ else SWEEP_OPS} double operations an element the function needs)"
               + (f"; the form's floors: {sweep_f64_form_floor['operations']:.4f} ms by its {F64_SWEEP_FORM_OPS} "
                  f"operations an element (a power of two per pair of factors), {sweep_f64_form_floor['l1']:.4f} ms "
                  f"by its {F64_FORM_ROW_BYTES} bytes of G an element through L1" if not c_ else ""))
@@ -2479,8 +2578,8 @@ def main() -> int:
                 + 2 * n_bonds * hh * c128 + hn * c128 + 2 * n_bonds * i32b + (hn + 1 + 2 * n_bonds) * i32b
                 + HUB_K * i32b + 16 + (hh * c128 if has_c else 0) + (HUB_K * i32b if tempered else 0))
 
-    x64_ops = {"": HUB_K * n_unit * (HUB_H * F64_EXCHANGE_OPS + n_bonds * EXCHANGE_OPS_BOND),
-               "_c": HUB_K * n_unit * (FFNN_HUB_H * F64_EXCHANGE_OPS_C + n_bonds * EXCHANGE_OPS_BOND)}
+    x64_ops = {"": HUB_K * n_unit * (HUB_H * EXCHANGE_OPS_HIDDEN + n_bonds * EXCHANGE_OPS_BOND),
+               "_c": HUB_K * n_unit * (FFNN_HUB_H * EXCHANGE_OPS_HIDDEN_C + n_bonds * EXCHANGE_OPS_BOND)}
     swap_x_ops = 2 * HUB_K * SWAP_OPS
     exchange_f64_bounds = {
         t_ + c_: _bound_ms(x64_ops[c_] + (swap_x_ops if t_ else 0),
@@ -2520,7 +2619,7 @@ def main() -> int:
         d_ms, bkey = device_ms[name], name.removeprefix("exchange_f64")
         print(f"{name}: kernel {'not measured' if d_ms is None else f'{d_ms:.4f} ms'}, bound "
               f"{exchange_f64_bounds[bkey][0]:.4f} ms ({exchange_f64_bounds[bkey][1]}: the "
-              f"{F64_EXCHANGE_OPS_C if bkey.endswith('_c') else F64_EXCHANGE_OPS} double operations an element the "
+              f"{EXCHANGE_OPS_HIDDEN_C if bkey.endswith('_c') else EXCHANGE_OPS_HIDDEN} double operations an element the "
               "function needs)"
               + ("" if bkey.endswith("_c") else
                  f"; the form's floors: {exchange_f64_form_floor['operations']:.4f} ms by its {F64_EXCHANGE_FORM_OPS} "
@@ -2599,7 +2698,7 @@ def main() -> int:
                      "multi_sweep": {"sweeps": EXCHANGE_MULTI_SWEEPS, "max_abs_err": xm_ln_err, "mismatch_share": xm_share,
                                      "kernel_ms": multi_ms["exchange"], "bound_ms": exchange_m_bound[0]},
                      "lanes": hub_g, "w_in_shared_memory": stages_w(hn, HUB_H, n_bonds, False)},
-        "sweep_energy": {"tolerance": SWEEP_LNPSI_ATOL, "offdiag_tolerance": OFFDIAG_RTOL, **mega[1],
+        "sweep_energy": {"tolerance": SWEEP_LNPSI_ATOL, "offdiag_tolerance": OFFDIAG_RTOL, **mega[1], "stress": mega_stress,
                          f"nbeta{CHECK_NBETA}": mega[CHECK_NBETA], f"nbeta{CHECK_NBETA}_bound_ms": sweep_energy_t_bound[0],
                          "ab": {f"nbeta{nb}": {k: r[k] for k in ("two_kernel_ms", "megakernel_ms", "speedup")}
                                 for nb, r in ab.items()}},

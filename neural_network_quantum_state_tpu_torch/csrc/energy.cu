@@ -27,12 +27,14 @@
 // sincos of the 4 sites at once (library expf/sincosf: the phase sum may be
 // large).
 //
-// Bound on an H100: K*N*H evaluations of the complex ln cosh (about 25 float
-// operations each counting exp, log and atan2 as one, 4 more with c: the
-// products of the rotation c (l' - l)) against 16 bytes of y per (walker,
-// hidden unit) read once, so the kernel is bound by operations (K*N*H*25 /
-// 67 TFLOP/s); what it issues is about 45 floating-point and MUFU
-// instructions per element, 20 of them the polynomial atan2 (PERF.md). For
+// Bound on an H100: the 13 float operations per (walker, site, hidden unit)
+// that the function needs (a complex multiply-add and a complex product; 28
+// with c; chip_smoke.py counts them, the same for every form of it) against
+// 16 bytes of y per (walker, hidden unit) read once, so the kernel is bound
+// by operations; this log-cosh form evaluates the complex ln cosh (about 25
+// float operations counting exp, log and atan2 as one) and issues about 45
+// floating-point and MUFU instructions per element, 20 of them the
+// polynomial atan2 (PERF.md). For
 // C = true the block copies c into shared memory once (rbm.cuh load_c).
 
 #include "rbm.cuh"

@@ -22,11 +22,13 @@
 // (n_steps, K) tensors; the plain PyTorch version takes the same numbers
 // either way, so both make the same decisions.
 //
-// Bound on an H100: about 22 float operations per (walker, proposal, hidden
-// unit) (25 with c) and 2 per (walker, proposal, bond), against 16 bytes of y
-// per (walker, hidden unit) read and written once per call and a 16-byte key:
-// bound by operations (0.006 ms at the Hubbard flagship's N = 64, H = 64,
-// K = 4096, 64 proposals), and in practice by the serial chain of one
+// Bound on an H100: the 11 float operations per (walker, proposal, hidden
+// unit) that the function needs (25 with c; chip_smoke.py counts them, the
+// same for every form of it; this log-cosh form does about 22) and 2 per
+// (walker, proposal, bond), against 16 bytes of y per (walker, hidden unit)
+// read and written once per call and a 16-byte key: bound by operations
+// (0.003 ms at the Hubbard flagship's N = 64, H = 64, K = 4096, 64
+// proposals), and in practice by the serial chain of one
 // proposal (draw, pick, two W rows, log-cosh, hidden sum, accept, mask
 // update) and the instructions that the walker's lanes issue for it, with
 // few resident warps to hide the chain (PERF.md). The TPU kernel turns every

@@ -2,11 +2,11 @@
 // log-cosh arithmetic, warp sums, the hidden-unit layout, the Philox4x32-10
 // draws, the replica-exchange pairs and swap uniforms, the Metropolis sweep
 // of one walker with its replica-exchange phases, and the off-diagonal
-// local-energy sum of one walker. sweep.cu, energy.cu and
-// sweep_energy.cu run the same functions, so the fused kernel makes the
-// decisions and sums of the two kernels it fuses with the same arithmetic;
+// local-energy sum of one walker. sweep.cu and energy.cu run them;
 // exchange.cu runs the arithmetic and the Philox generator with a layout of
-// its own (several walkers per warp).
+// its own (several walkers per warp); sweep_energy.cu (the megakernel, in
+// the factor form of its own) takes the draws, the row layout and the swap
+// phases.
 //
 // ln psi = sum_j c_j ln cosh(y_j) + sa. The RBM family has c = 1: the
 // instances with C = false read no c and sum Re ln cosh alone. The FFNN
@@ -30,7 +30,7 @@
 // the exchange kernel's instances with c turn theirs the same way from a
 // table in shared memory, or take both by sincos_fast where W is not staged.
 //
-// Layout (sweep, energy, megakernel): one warp per walker. Lane l keeps hidden units j = r*32 + l,
+// Layout (sweep, energy): one warp per walker. Lane l keeps hidden units j = r*32 + l,
 // r < R = ceil(H/32), in registers. Rows of W and y have stride H; the lanes
 // of the last word with j >= H (the tail) load nothing, store nothing and add
 // exactly 0 to every hidden sum, so any 1 <= H <= 32*R runs without padding.
@@ -60,7 +60,7 @@ constexpr int sweep_block_warps(bool T) { return T ? kMaxWarps : kWarps; }
 constexpr int min_blocks(int regs, int kW) { return 65536 / (regs * 32 * kW); }
 // The caps, measured on the card at K = 8192 one-warp walkers (PERF.md
 // §6): the sweep's RBM instances take 64 registers for R <= 8 (32 warps per SM, 1.94 waves) and 128 above; the sweep's
-// instances with c, the energy kernel and the megakernel take 128 at every R
+// instances with c and the energy kernel take 128 at every R
 // (16 warps per SM, 3.88 waves): their per-unit chains are long enough that
 // the spills of a 64 cap cost more than the residency it buys. An 85 cap
 // (24 warps per SM, 2.59 waves) lost for all of them.

@@ -28,11 +28,12 @@
 // warp writes its state to the row it holds. Idle warps past K stay in the
 // block's barriers.
 //
-// Bound on an H100: about 20 float operations per (walker, step, hidden unit)
-// (about 23 with c: the atan2 and the two products of Re(c l)), against 16
-// bytes of y per (walker, hidden unit) read and written once per call, so the
-// kernel is bound by operations (K*n_steps*H*20 / 67 TFLOP/s), and in
-// practice by the instructions it issues. C = false takes Re ln cosh by the
+// Bound on an H100: the 11 float operations per (walker, step, hidden unit)
+// that the function needs (24 with c; chip_smoke.py counts them, the same for
+// every form of it), against 16 bytes of y per (walker, hidden unit) read and
+// written once per call, so the kernel is bound by operations, and in
+// practice by the instructions this log-cosh form issues (about 20 float
+// operations an element, 23 with c). C = false takes Re ln cosh by the
 // one-cos form with ex2/lg2 on the special-function unit and a reduced
 // polynomial cos; C = true keeps cos/sin(Im y) per unit and rotates them by
 // the energy kernel's table of cos/sin(2 Im w), with the polynomial atan2

@@ -1,13 +1,13 @@
 """A/B of the fused sweep + energy megakernel against the sweep kernel
 followed by the energy kernel, on one CUDA device.
 
-    python -m neural_network_quantum_state_tpu_torch.megakernel_ab [--n-beta 1 8] [--reps 50]
+    python -m neural_network_quantum_state_tpu_torch.megakernel_ab [--n-beta 1 8] [--alpha 4] [--reps 50]
 
 The shape of the JAX package's ``scripts/bench_megakernel_ab.py``:
-``RBMTrSymm(64, alpha=4)`` (H=256), ``LITFIChain(64, h=-0.5, j=0.866,
-alpha=2.5, pbc=True)`` with its Neel start, K=8192 walkers, one sweep per
-call (nms=1), ``reps`` chained calls per arm; float32, random weights from
-``seed``.
+``RBMTrSymm(64, alpha=4)`` (H=256; ``--alpha 1`` and ``8`` give H = 64 and
+512), ``LITFIChain(64, h=-0.5, j=0.866, alpha=2.5, pbc=True)`` with its Neel
+start, K=8192 walkers, one sweep per call (nms=1), ``reps`` chained calls
+per arm; float32, random weights from ``seed``.
 
 - Arm A (two kernels): ``ops.sweep.sweep_cuda``, then
   ``ops.energy.offdiag_sum_cuda`` on the new state.
@@ -54,10 +54,11 @@ def _chain_ms(arm, cache, blocks) -> float:
     return start.elapsed_time(end) / len(blocks)
 
 
-def run_ab(n_beta: int, reps: int = REPS, seed: int = 0) -> dict:
-    """Cross-check and time both arms at n_beta; returns the numbers."""
+def run_ab(n_beta: int, reps: int = REPS, seed: int = 0, alpha: int = ALPHA) -> dict:
+    """Cross-check and time both arms at n_beta and H = alpha N; returns the
+    numbers."""
     dev = torch.device("cuda")
-    machine = RBMTrSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32)
+    machine = RBMTrSymm(n_inputs=N, alpha=alpha, dtype=torch.float32)
     ham = LITFIChain(n_sites=N, h=-0.5, j=0.866, alpha=2.5, pbc=True)
     g = make_generator(seed, dev)
     work = machine.make_work(machine.init_params(g))
@@ -94,6 +95,7 @@ def run_ab(n_beta: int, reps: int = REPS, seed: int = 0) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n-beta", type=int, nargs="+", default=[1, 8])
+    parser.add_argument("--alpha", type=int, default=ALPHA, help="hidden units per site: H = alpha * 64")
     parser.add_argument("--reps", type=int, default=REPS)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
@@ -102,7 +104,7 @@ def main(argv=None) -> int:
         return 1
     print(f"device: {torch.cuda.get_device_name(0)}")
     for n_beta in args.n_beta:
-        print(json.dumps(run_ab(n_beta, args.reps, args.seed)), flush=True)
+        print(json.dumps(run_ab(n_beta, args.reps, args.seed, args.alpha)), flush=True)
     return 0
 
 

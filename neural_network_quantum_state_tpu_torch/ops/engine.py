@@ -98,8 +98,8 @@ def memoised(name: str, tensors: tuple, build, *extra):
 
 def kernel_table(w: torch.Tensor) -> torch.Tensor:
     """(N, H, 4) real (Re w, Im w, cos 2 Im w, sin 2 Im w) of complex w, in
-    w's real dtype: the weights as the energy kernel's float32 instances, the
-    megakernel and the sweep's instances with c read them, one 16-byte load
+    w's real dtype: the weights as the energy kernel's float32 instances and
+    the sweep's instances with c read them, one 16-byte load
     per (site, hidden unit) (the float64 instance reads ``kernel_table_f64``).
     The kernels take a flipped unit's cos/sin(Im y - 2 s Im w) by angle
     addition from cos/sin(2 Im w), as the JAX energy kernel's XLA caller
@@ -186,19 +186,69 @@ def _site_term_lo(work: Work) -> tuple[torch.Tensor, torch.Tensor]:
 F64_MAX_RE_W = 43.0
 
 
-def check_f64_range(w: torch.Tensor, what: str = "float64 kernels") -> None:
-    """Raise ``ValueError`` where |Re w| passes ``F64_MAX_RE_W``, the range
-    of the float64 kernels' products (one host sync). Checked once per
-    weight tensor: this thread keeps the last weights that passed on each
-    device, with their version counter (``memoised``)."""
+def _check_range(w: torch.Tensor, limit: float, memo_name: str, what: str, why: str) -> float:
+    """Raise ``ValueError`` where |Re w| passes ``limit`` (one host sync),
+    once per weight tensor: this thread keeps the last weights that passed
+    on each device, with their version counter (``memoised``). Returns the
+    largest |Re w|."""
 
     def check():
-        if w.numel() and float(w.real.abs().amax()) > F64_MAX_RE_W:
-            raise ValueError(f"{what}: |Re w| above {F64_MAX_RE_W}, where the float64 kernels' products of factors "
-                             "|c + u e^(4 s w)|^2 leave the double range")
-        return True
+        amax = float(w.real.abs().amax()) if w.numel() else 0.0
+        if amax > limit:
+            raise ValueError(f"{what}: |Re w| above {limit}, where {why}")
+        return amax
 
-    memoised("f64_range", (w,), check)
+    return memoised(memo_name, (w,), check)
+
+
+def check_f64_range(w: torch.Tensor, what: str = "float64 kernels") -> None:
+    """Raise ``ValueError`` where |Re w| passes ``F64_MAX_RE_W``, the range
+    of the float64 kernels' products, once per weight tensor."""
+    _check_range(w, F64_MAX_RE_W, "f64_range", what,
+                 "the float64 kernels' products of factors |c + u e^(4 s w)|^2 leave the double range")
+
+
+# The float32 factor-form megakernel's range (csrc/sweep_energy.cu): its table
+# e^{4 s w} stays inside the float32 range (e^80 < 2^127) for every |Re w|
+# up to F32_MAX_RE_W, and check_f32_range refuses weights past it before it
+# launches; up to F32_PAIR_RE_W two factors |c + u e^{4 s w}|^2 multiply
+# inside the float32 range, and the kernel takes its factors in pairs.
+F32_MAX_RE_W, F32_PAIR_RE_W = 20.0, 5.0
+
+
+def check_f32_range(w: torch.Tensor, what: str = "float32 factor-form kernel") -> float:
+    """Raise ``ValueError`` where |Re w| passes ``F32_MAX_RE_W``, the range
+    of the float32 table e^{4 s w}, once per weight tensor; returns the
+    largest |Re w|."""
+    return _check_range(w, F32_MAX_RE_W, "f32_range", what, "the float32 table e^(4 s w) leaves the float32 range")
+
+
+def sweep_table_f32(work: Work) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """What the megakernel (``csrc/sweep_energy.cu``) reads of `work`
+    (complex64, c None) besides w and a: G (N, 2, H) complex64, e^{4 s w_ij}
+    for s = +1 (``[:, 0]``) and s = -1 (``[:, 1]``), the table of both its
+    phases; the per-site factors (N, 2, 4) float32 (Re m, Im m, |m|^2, k)
+    with e^{-2 s (a_i + sum_j w_ij)} = m 2^k, |m| in [2^-1/2, 2^1/2], k an
+    integer, for the same two signs; and whether every |Re w| is at most
+    ``F32_PAIR_RE_W`` (the kernel then takes its factors in pairs, each pair
+    with its power of two, else each factor with its own). The tables are
+    computed in float64 from w and a and rounded once. Checks the weights'
+    range first (``check_f32_range``), and builds all three once per (w, a)
+    (``memoised``), as ``sweep_table_f64`` does."""
+    w = work.w
+
+    def build():
+        narrow = check_f32_range(w) <= F32_PAIR_RE_W
+        wd = w.to(torch.complex128)
+        g = torch.stack((torch.exp(4.0 * wd), torch.exp(-4.0 * wd)), dim=1).to(torch.complex64)
+        a = _site_term(Work(wd, work.b, None if work.a is None else work.a.to(torch.complex128)))
+        z = torch.stack((-2.0 * a, 2.0 * a), dim=1)  # (N, 2): -2 s a' for s = +1, -1
+        k = torch.round(z.real / math.log(2.0))
+        m = torch.exp(torch.complex(z.real - k * math.log(2.0), z.imag))
+        site = torch.stack((m.real, m.imag, m.real * m.real + m.imag * m.imag, k), dim=-1)
+        return g.contiguous(), site.to(torch.float32).contiguous(), narrow
+
+    return memoised("sweep_table_f32", (w, work.a), build)
 
 
 def sweep_table_f64(work: Work) -> tuple[torch.Tensor, torch.Tensor]:

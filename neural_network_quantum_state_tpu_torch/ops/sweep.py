@@ -153,12 +153,13 @@ def sweep_plain(work: Work, cache: Cache, lnpsi: torch.Tensor, schedule, uniform
 sweep_plain.calls = 0
 
 
-def _kernel(name: str, symbol: str, n_pointers: int, row0: bool, n_tables: int = 0):
-    """The C launch function: pointers, six ints, the stream and, for the
-    sweep's sources, the Philox counter's row offset ``row0``, then
-    ``n_tables`` pointers (the float64 instances' table)."""
+def _kernel(name: str, symbol: str, n_pointers: int, n_tables: int = 0):
+    """The C launch function: pointers, six ints, the stream, one int (the
+    sweep's sources: the Philox counter's row offset ``row0``; the
+    megakernel: its table's range class), then ``n_tables`` pointers (the
+    float64 instances' table)."""
     fn = getattr(build.library(name), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * row0
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_void_p] * n_tables)
     fn.restype = ctypes.c_int
     return fn
@@ -167,8 +168,8 @@ def _kernel(name: str, symbol: str, n_pointers: int, row0: bool, n_tables: int =
 def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_beta: int,
                   swap_uniforms: torch.Tensor | None, extra: tuple = ()):
     """Check the inputs, allocate the outputs and launch ``kernel`` (the
-    sweep kernel, or the fused sweep + energy kernel with its extra table and
-    output pointers); returns (cache, stats (2, K) int32). ``uniforms`` is
+    sweep kernel, or the fused sweep + energy kernel with its table and its
+    extra output pointers); returns (cache, stats (2, K) int32). ``uniforms`` is
     the (n_steps, K) flip block or a ``PhiloxDraws``. The sweep takes float32
     and float64 walkers (``csrc/sweep_f64.cu``; caller uniforms in float64
     too), the megakernel float32 only, as the JAX package's."""
@@ -212,7 +213,7 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
     sa = torch.empty_like(cache.sa)
     stats = torch.empty((2, k), dtype=torch.int32, device=dev)
     symbol = {"sweep": "nqs_sweep_f32", "sweep_energy": "nqs_sweep_offdiag_f32"}[kernel]
-    pointers, after_row0 = list(weights), ()
+    pointers, after_row0, tail = list(weights), (), row0
     if f64:  # its own source; its table of e^{4 s w} and per-site terms (range checked) after row0
         kernel, symbol = "sweep_f64", "nqs_sweep_f64"
         g, a_site = engine.sweep_table_f64(work)
@@ -220,14 +221,16 @@ def launch_sweeps(kernel: str, work: Work, cache: Cache, schedule, uniforms, n_b
     elif kernel == "sweep":  # its instances with c read the energy kernel's table (rbm.cuh sweep_walker)
         table = engine.kernel_table(work.w) if work.c is not None else None
         pointers.append(None if table is None else table.data_ptr())
-    with_row0 = kernel != "sweep_energy"
+    else:  # the megakernel: its table (range checked) before out, its range class in place of row0
+        g, site, narrow = engine.sweep_table_f32(work)
+        extra, tail = (g, site, *extra), int(narrow)
     rc = build.launch(
-        dev, _kernel(kernel, symbol, 12 + len(pointers) + len(extra), with_row0, len(after_row0)),
+        dev, _kernel(kernel, symbol, 12 + len(pointers) + len(extra), len(after_row0)),
         *pointers, cache.spins.data_ptr(), cache.y.data_ptr(), cache.sa.data_ptr(),
         sched.data_ptr(), u_ptr, swap_ptr, key_ptr,
         spins.data_ptr(), y.data_ptr(), sa.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
         *(t.data_ptr() for t in extra), k, n, h, sched.shape[0], n_steps, n_beta,
-        torch.cuda.current_stream(dev).cuda_stream, *((row0,) if with_row0 else ()), *after_row0,
+        torch.cuda.current_stream(dev).cuda_stream, tail, *after_row0,
     )
     build.check_launch(rc, f"{kernel} kernel")
     return Cache(spins=spins, y=y, sa=sa), stats

@@ -6,10 +6,12 @@ version.
 off-diagonal sum of ``ops.energy.offdiag_sum`` on the post-sweep state of
 every walker row, tempered replicas included. A CUDA tensor goes to the
 kernel in ``csrc/sweep_energy.cu`` (float32), one launch in which the state
-never leaves the chip between the two phases; a CPU tensor goes to
-``sweeps_offdiag_plain``, the plain sweep followed by the plain sum on the
-same uniforms. As in the JAX package, both cover the RBM family only (c = 1)
-and refuse output weights c.
+never leaves the chip between the two phases; it reads one table for both,
+``engine.sweep_table_f32``'s e^{4 s w} and per-site factors, and refuses
+weights with |Re w| above ``engine.F32_MAX_RE_W`` before any launch. A CPU
+tensor goes to ``sweeps_offdiag_plain``, the plain sweep followed by the
+plain sum on the same uniforms. As in the JAX package, both cover the RBM
+family only (c = 1) and refuse output weights c.
 
 Replaces ``neural_network_quantum_state_tpu/ops/pallas_sweep_energy.py``
 (``pallas_sweeps_offdiag``).
@@ -47,12 +49,13 @@ sweeps_offdiag_plain.calls = 0
 def sweeps_offdiag_cuda(work: Work, cache: Cache, schedule, uniforms, n_beta: int = 1,
                         swap_uniforms: torch.Tensor | None = None):
     """Launch the megakernel; returns (cache, lnpsi, n_accepted, offdiag
-    (K,) complex64). ln psi of the final states is recomputed with the plain
-    log-cosh, as ``ops.sweep.sweep_cuda`` does."""
+    (K,) complex64). Its table (and the range check before it) comes from
+    ``engine.sweep_table_f32``, once per weight tensor. ln psi of the final
+    states is recomputed with the plain log-cosh, as ``ops.sweep.sweep_cuda``
+    does."""
     _check_rbm_family(work)
     out = torch.empty(cache.spins.shape[0], dtype=torch.complex64, device=cache.spins.device)
-    extra = (engine.kernel_table(work.w), out)
-    cache, stats = launch_sweeps("sweep_energy", work, cache, schedule, uniforms, n_beta, swap_uniforms, extra)
+    cache, stats = launch_sweeps("sweep_energy", work, cache, schedule, uniforms, n_beta, swap_uniforms, (out,))
     sweeps_offdiag_cuda.launches += 1
     lnpsi = engine.cache_log_psi(work, cache)
     return cache, lnpsi, stats[0].sum(dtype=torch.float64), out

@@ -3,7 +3,7 @@
 
     python3 scripts/kernel_ab.py KERNEL [--no-gate] LABEL=CSRC_DIR [LABEL=CSRC_DIR ...]
 
-KERNEL is ``sweep``, ``exchange`` or ``energy``. Builds ``csrc/KERNEL.cu`` of the
+KERNEL is ``sweep``, ``exchange``, ``energy`` or ``sweep_energy``. Builds ``csrc/KERNEL.cu`` of the
 package ("change") and of each given source directory (the exchange kernel:
 ``exchange.cu`` and ``exchange_tempered.cu``, its tempered instances, or,
 where a directory has no ``exchange_tempered.cu``, its ``exchange.cu`` for
@@ -25,7 +25,17 @@ instance with output weights c:
   n_beta = 4 (the tempered instance with its swap phases);
 - ``energy``: ``ops.energy.offdiag_sum_cuda`` on the LITFI flagship's inputs
   (as ``sweep``, weights scaled alike), the float32 instances and the
-  float64 ones (the same inputs in complex128).
+  float64 ones (the same inputs in complex128);
+- ``sweep_energy``: the megakernel A/B's inputs (``megakernel_ab.py``:
+  ``RBMTrSymm(64, alpha)`` at alpha 1, 4 and 8, H = 64, 256 and 512, its
+  init weights, the LITFI chain's Neel start, K=8192, one sweep on caller
+  uniforms) at n_beta = 1 and 8: ``ops.sweep_energy.sweeps_offdiag_cuda``,
+  and beside it in the same rounds its A/B's other arm, the package's sweep
+  kernel then its energy kernel (one case each, timed as the sum of the two
+  kernels' device times a call). A build whose megakernel has the C
+  interface it had before its factor form (the energy kernel's (N, H, 4)
+  table, nothing after the stream: an earlier commit's source) is launched
+  through that interface.
 
 A case whose C function a build does not export (the float64 energy
 instances before their tiled design, ``nqs_offdiag_f64``, read another
@@ -35,13 +45,15 @@ Each build is first held against the plain version on the same stream
 (sweep, exchange: the share of walkers with other decisions, or near the
 log-cosh's branch cut with c, at most 1e-3; y within 1e-5 on the others;
 energy: max|kernel - plain| / max|plain| at most 1e-5 in float32, over the
-walkers away from the cut with c, and 1e-12 in float64 over all), and
+walkers away from the cut with c, and 1e-12 in float64 over all;
+sweep_energy: the sweep's bars, and the sums as the energy's in float32 on
+the walkers with the same decisions), and
 whether its output equals the "change" build's bit for bit (float64
 energy: its relative difference) is printed; with ``--no-gate`` a build
 that disagrees is reported and timed all the same (an ablation, whose
 builds have parts of the kernel taken out, ``energy_f64_ablation.py``).
 Then each is timed by
-``torch.profiler`` (the kernel's device time, mean of 20 launches) in
+``torch.profiler`` (the kernel's device time a call, mean of 20 calls) in
 rounds that alternate the order: the builds, the builds reversed, the
 builds, the builds reversed. Prints the registers and spill bytes of the
 instances the cases run at these widths (``ptxas -v``), one line per
@@ -72,6 +84,8 @@ class Spec(NamedTuple):
     check: Callable  # (case, kernel output, plain output) -> (ok, text)
     same: Callable  # (case, output, the change build's output) -> text
     libraries: tuple = ()  # the package's libraries of the kernel (default: KERNEL alone)
+    timed: tuple = ()  # the kernel names whose device times a call sums (default: the first of entries)
+    on_load: Callable | None = None  # called with a build's source directory once it is loaded
 
 
 def parse_registers(log: str, entries: dict[str, tuple[str, str]]) -> dict[str, str]:
@@ -246,7 +260,96 @@ def energy_spec(torch, g):
     return Spec({"offdiag_kernel": ("c", ""), "offdiag_kernel_f64": ("c", "d")}, ("8", ""), cases, check, same)
 
 
-SPECS = {"sweep": sweep_spec, "exchange": exchange_spec, "energy": energy_spec}
+def _megakernel_before_factor_form(torch, work, cache, sched, u, n_beta, u_swap):
+    """The megakernel through the C interface it had before its factor form
+    (the energy kernel's (N, H, 4) table and out after the stats, nothing
+    after the stream), on caller uniforms; returns what
+    ``sweeps_offdiag_cuda`` returns."""
+    import ctypes
+
+    from neural_network_quantum_state_tpu_torch.ops import build, engine
+
+    k, n = cache.spins.shape
+    fn = build.library("sweep_energy").nqs_sweep_offdiag_f32
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _, weights = engine.kernel_weights(work)
+    spins, y, sa = torch.empty_like(cache.spins), torch.empty_like(cache.y), torch.empty_like(cache.sa)
+    stats = torch.empty((2, k), dtype=torch.int32, device=u.device)
+    out = torch.empty(k, dtype=torch.complex64, device=u.device)
+    rc = build.launch(u.device, fn, *weights, cache.spins.data_ptr(), cache.y.data_ptr(), cache.sa.data_ptr(),
+                      sched.data_ptr(), u.data_ptr(), None if u_swap is None else u_swap.data_ptr(), None,
+                      spins.data_ptr(), y.data_ptr(), sa.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+                      engine.kernel_table(work.w).data_ptr(), out.data_ptr(), k, n, work.w.shape[1],
+                      sched.shape[0], u.shape[0], n_beta, torch.cuda.current_stream(u.device).cuda_stream)
+    build.check_launch(rc, "sweep_energy kernel (before its factor form)")
+    new = engine.Cache(spins=spins, y=y, sa=sa)
+    return new, engine.cache_log_psi(work, new), stats[0].sum(dtype=torch.float64), out
+
+
+def sweep_energy_spec(torch, g):
+    from neural_network_quantum_state_tpu_torch.hamiltonians import LITFIChain
+    from neural_network_quantum_state_tpu_torch.models import RBMTrSymm
+    from neural_network_quantum_state_tpu_torch.ops import energy, engine
+    from neural_network_quantum_state_tpu_torch.ops import sweep as sweep_ops
+    from neural_network_quantum_state_tpu_torch.ops.rng import uniform_block
+    from neural_network_quantum_state_tpu_torch.ops.sweep_energy import sweeps_offdiag_cuda, sweeps_offdiag_plain
+
+    n, k = 64, 8192
+    ham = LITFIChain(n_sites=n, h=-0.5, j=0.866, alpha=2.5, pbc=True)
+    sched = torch.as_tensor(ham.schedule(), dtype=torch.int32, device=g.device)
+    interface = {"before_factor_form": False}
+
+    def on_load(src: Path) -> None:  # the build's C interface, from its source
+        text = (src / "sweep_energy.cu").read_text()
+        interface["before_factor_form"] = re.search(r"nqs_sweep_offdiag_f32\([^)]*\bnarrow\)", text) is None
+
+    def megakernel(work, cache, u, nb, us):
+        if interface["before_factor_form"]:
+            return _megakernel_before_factor_form(torch, work, cache, sched, u, nb, us)
+        return sweeps_offdiag_cuda(work, cache, sched, u, nb, us)
+
+    def two_kernels(work, cache, u, nb, us):
+        c2, l2, acc = sweep_ops.sweep_cuda(work, cache, sched, u, nb, us)
+        return c2, l2, acc, energy.offdiag_sum_cuda(work, c2)
+
+    cases = {}
+    for alpha in (1, 4, 8):
+        machine = RBMTrSymm(n_inputs=n, alpha=alpha, dtype=torch.float32)
+        work = machine.make_work(machine.init_params(g))
+        cache, ln = engine.full_forward(work, ham.init_spins(g, k))
+        for nb in (1, 8):
+            u, us = uniform_block(g, (n, k)), uniform_block(g, (1, 2, k)) if nb > 1 else None
+            args = (work, cache, u, nb, us)
+
+            def plain(w=work, c=cache, l_=ln, u_=u, b=nb, s_=us):
+                return sweeps_offdiag_plain(w, c, l_, sched, u_, b, s_)
+
+            cases[f"H={n * alpha}, n_beta={nb}, megakernel"] = (lambda a=args: megakernel(*a), plain)
+            cases[f"H={n * alpha}, n_beta={nb}, two kernels"] = (lambda a=args: two_kernels(*a), plain)
+
+    def check(case, out, want):
+        (ck, _, _, ok_), (cp, _, _, op) = out, want
+        same = (ck.spins == cp.spins).all(dim=1)
+        share, dy, rel = 1.0 - float(same.double().mean()), float("inf"), float("inf")
+        if bool(same.any()):  # (an ablation may part from the plain version on every walker)
+            dy = float((ck.y[same] - cp.y[same]).abs().max())
+            rel = float((ok_[same] - op[same]).abs().max() / op[same].abs().max())
+        return (share <= MISMATCH_MAX and dy <= Y_ATOL and rel <= ENERGY_RTOL,
+                f"other decisions than the plain version {share:.2e} (max {MISMATCH_MAX:.0e}), max|dy| {dy:.2e} "
+                f"(tol {Y_ATOL:.0e}), sums max|kernel-plain| / max|plain| {rel:.3e} (tol {ENERGY_RTOL:.0e})")
+
+    def same(case, out, ref):
+        def flat(o):
+            return (o[0].spins, o[0].y, o[0].sa, o[3])
+        return f"bitwise equal to change: {all(torch.equal(a, b) for a, b in zip(flat(out), flat(ref)))}"
+
+    # this tree's instances at H = 64, 256, 512 (lanes x words) and an earlier source's (R = ceil(H/32))
+    return Spec({"sweep_energy_kernel": ("t", "")}, ("16x4", "32x8", "32x16", "2", "8", "16"), cases, check, same,
+                timed=("sweep_energy_kernel", "sweep_kernel", "offdiag_kernel"), on_load=on_load)
+
+
+SPECS = {"sweep": sweep_spec, "exchange": exchange_spec, "energy": energy_spec, "sweep_energy": sweep_energy_spec}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -274,7 +377,7 @@ def main(argv: list[str] | None = None) -> int:
     g = make_generator(7, torch.device("cuda"))
     spec = SPECS[kernel](torch, g)
     built = build_all(build, kernel, spec.libraries or (kernel,), sources, spec.entries)
-    timed = next(iter(spec.entries))  # a substring of every instance's name
+    timed = spec.timed or (next(iter(spec.entries)),)  # substrings of the timed kernels' names
 
     def device_ms(fn) -> float:
         fn()
@@ -283,16 +386,18 @@ def main(argv: list[str] | None = None) -> int:
             for _ in range(REPS):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and timed in e.key]
-        return sum(e.self_device_time_total for e in evs) / 1e3 / sum(e.count for e in evs)
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and any(t in e.key for t in timed)]
+        return sum(e.self_device_time_total for e in evs) / 1e3 / REPS
 
-    def load(libs):
-        for name, lib in libs.items():
+    def load(label):
+        for name, lib in built[label][0].items():
             build.load(name, lib)
+        if spec.on_load:
+            spec.on_load(sources[label])
 
     reference, absent = {}, set()
     for label, (libs, regs) in built.items():
-        load(libs)
+        load(label)
         for case, (run, plain) in spec.cases.items():
             try:
                 out = run()
@@ -313,7 +418,7 @@ def main(argv: list[str] | None = None) -> int:
     order = list(built)
     for labels in (order, order[::-1], order, order[::-1]):
         for label in labels:
-            load(built[label][0])
+            load(label)
             for case, (run, _) in spec.cases.items():
                 if (label, case) in absent:
                     continue
