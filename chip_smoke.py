@@ -55,8 +55,12 @@ Phases, each printed with its seconds:
    against the plain tempered exchange at the Hubbard flagship's shape, at
    n_beta = 4 and 8, with and without c (FFNN(64, 64)), on its Philox stream
    (one sweep and 5 in one launch) and on caller uniforms, with the
-   exchange gates and every replica in its sector, and at H = 16, 80 and
-   384; the hot-math chain-rate probe, both bodies at bench.py's size
+   exchange gates by chain (where rows part, the chains whose closest
+   decision in their first parting sweep lies within 4 float32 roundings
+   of its tie, utils/ties.py, are printed with their margins and may be at
+   most 1% of the chains; the other parting chains' rows count against the
+   exchange's 1e-3 of the rows) and every replica in its sector, and at
+   H = 16, 80 and 384; the hot-math chain-rate probe, both bodies at bench.py's size
    (2^22 elements, 32 bodies a chain), against its plain version to a
    relative 1e-5 of the largest |value| (the elements whose energy-body
    chain takes a phase near the branch cut left out, their share bounded);
@@ -193,6 +197,19 @@ Phases, each printed with its seconds:
    (``api.sampler.RBM``, floatType float32, symmType tr) on a copy of the
    flagship checkpoint: one sweep launch per do_mcmc_steps, get_lnpsi
    within 1e-4 of get_lnpsi_for_fixed_spins(get_spinStates());
+15e. the precision anchor (``examples.precision_anchor``): the port's
+   Lanczos ED of the LITFI chain at N = 20 (theta = 2, alpha_J = 2.5) on
+   the host, held to the JAX package's recorded E0
+   (logs/precision_anchor_ed_N20.json) to 1e-8 relative; then
+   RBMTrSymm(20, alpha = 4), K = 8192, trained on the card at the full
+   protocol (500 warm-up sweeps, then 3000 x 2e-2, 3000 x 5e-3 and
+   2000 x 2e-3 SR steps with the float64 solve, seed 11): 1 + 8000 sweep
+   launches and 8000 energy launches, no plain version; the mean energy of
+   the last 1000 steps within 1e-4 relative of the trained state's own
+   <H> (enumeration of its 2^20 configurations in float64, which must not
+   lie below E0); its relative error against E0 printed beside the paper's
+   bar of 1e-4 (met or not: ROADMAP C10) and the recorded JAX error, with
+   the step ms, ED and training seconds;
 16. the device time of each kernel and instance on phase 3's inputs
    (torch.profiler; the sweep and exchange in the main paths' Philox mode,
    and also on caller uniforms), beside the instance's registers and spill
@@ -258,6 +275,12 @@ SWEEP_MISMATCH_MAX = 1e-3  # share of walkers whose decisions differ (near-ties 
 SWEEP_Y_ATOL = 1e-5  # y on walkers with identical decisions
 SWEEP_LNPSI_ATOL = 1e-4  # ln psi on those walkers
 EXCHANGE_MISMATCH_MAX, EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL = 1e-3, 1e-5, 1e-4  # as for the sweep
+# Phase 15e: the precision anchor at N = 20 (examples/precision_anchor.py's full protocol); the port's
+# ED against the JAX package's recorded E0 (logs/precision_anchor_ed_N20.json) to this relative tolerance
+ANCHOR_N, ANCHOR_E0_RTOL = 20, 1e-8
+# the card's tail energy against the exact <H> of the state it trained to (enumeration, float64): the
+# sampling and the float32 energy kernel unbiased to within the paper's bar
+ANCHOR_ENUM_RTOL = 1e-4
 CACHE_ATOL = 2e-4  # y carried through the warm-up's 6400 proposals vs a fresh forward
 TEMPERED_NBETA, CHECK_NBETA = 4, 8  # the tempered flagship's ladder; the phase-3 and A/B ladder
 # Widths off the multiples of 32 (the e2e oracle, the precision anchors,
@@ -835,25 +858,30 @@ def _require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def _compare(label, ck, lk, cp, lp, mismatch_max, y_atol, ln_atol, failures, cut=False):
+def _compare(label, ck, lk, cp, lp, mismatch_max, y_atol, ln_atol, failures, cut=False, exempt=None):
     """Kernel vs plain states from the same inputs and uniforms: the share
     of walkers with other decisions, and y and ln psi on the others. With
     output weights c (cut=True) a walker whose final y has a hidden unit
     near the principal log-cosh's branch cut in either state, where ln psi
     may jump by 2 pi i c_j between them, counts with the other decisions.
-    Appends to `failures`; returns (share, ln_err, mask of agreeing walkers)."""
+    The rows of `exempt` (a (K,) mask: the near-tie chains of a tempered
+    exchange, gated apart) count in neither. Appends to `failures`; returns
+    (share, ln_err, mask of agreeing walkers)."""
     from neural_network_quantum_state_tpu_torch.ops.logcosh import near_branch_cut
 
     differ = (ck.spins != cp.spins).any(dim=1)
-    near = (near_branch_cut(ck.y) | near_branch_cut(cp.y)) & ~differ if cut else differ.new_zeros(differ.shape)
-    same = ~(differ | near)
-    share = float((~same).double().mean())
+    exempt = differ.new_zeros(differ.shape) if exempt is None else exempt
+    differ = differ & ~exempt
+    near = (near_branch_cut(ck.y) | near_branch_cut(cp.y)) & ~differ & ~exempt if cut else differ.new_zeros(differ.shape)
+    same = ~(differ | near | exempt)
+    share = float((differ | near).double().mean())
     y_err = float((ck.y[same] - cp.y[same]).abs().max())
     ln_err = float((lk[same] - lp[same]).abs().max())
     k = differ.shape[0]
     print(f"{label}: walkers with other decisions {int(differ.sum())}" + (f" + near the cut {int(near.sum())}" if cut else "")
-          + f"/{k} = {share:.2e} (max {mismatch_max:.0e}); "
-          f"on the others max|dy| {y_err:.3e} (tol {y_atol:.0e}), max|dlnpsi| {ln_err:.3e} (tol {ln_atol:.0e})")
+          + f"/{k} = {share:.2e} (max {mismatch_max:.0e})" + (f", rows of near-tie chains set apart {int(exempt.sum())}"
+                                                             if bool(exempt.any()) else "")
+          + f"; on the others max|dy| {y_err:.3e} (tol {y_atol:.0e}), max|dlnpsi| {ln_err:.3e} (tol {ln_atol:.0e})")
     if share > mismatch_max:
         failures.append(f"{label}: decision mismatch share {share:.2e}")
     if not (y_err <= y_atol and ln_err <= ln_atol):
@@ -889,6 +917,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from neural_network_quantum_state_tpu_torch import VMC, VMCConfig, megakernel_ab
+    from neural_network_quantum_state_tpu_torch.examples import precision_anchor
     from neural_network_quantum_state_tpu_torch import bench as port_bench
     from neural_network_quantum_state_tpu_torch.hamiltonians import HubbardChain, LITFIChain, TFICheckerBoard, TFITRI
     from neural_network_quantum_state_tpu_torch.models import FFNN, FFNNTrSymm, RBM, RBMSfSymm, RBMTrSymm
@@ -913,6 +942,7 @@ def main() -> int:
     from neural_network_quantum_state_tpu_torch.optim.sr import (
         LAMBDA_MIN, build_s_matrix, force_vector, lambda_schedule, sr_cg_solve, sr_dense_solve, sr_minsr_solve,
     )
+    from neural_network_quantum_state_tpu_torch.utils import ties
     from neural_network_quantum_state_tpu_torch.utils.f32_stress import F32_STRESS, f32_stress_inputs
     from neural_network_quantum_state_tpu_torch.utils.f64_stress import F64_STRESS, f64_stress_inputs
 
@@ -1151,9 +1181,33 @@ def main() -> int:
     multi_draws = ExchangeDraws(philox_key(g), EXCHANGE_MULTI_SWEEPS * n_unit)
     staged_seen = set()  # (with c, W from shared memory) of each exchange comparison
     staged_seen_t = set()  # the same for the tempered instance
+    tie_log = []  # C9: the parting chains of the float32 tempered checks
+
+    def tie_check(label, w_, c_, bonds_, uniforms, n_beta, n_unit_, differ, mismatch_max):
+        """C9's gate of a float32 tempered exchange check whose rows part
+        (``utils/ties.py``): each parting chain's closest decision in its
+        first parting sweep, printed with its margin; the near-tie chains
+        (within ties.NEAR float32 roundings of a tie) fail the check above
+        ties.NEAR_CHAINS_MAX of the chains, the other chains' rows count
+        against `mismatch_max` of the rows in ``_compare``. Returns the mask
+        of the near-tie chains' rows."""
+        chains, n_near, _, _ = ties.find_ties(w_, c_, bonds_, uniforms, n_beta, n_unit_)
+        gate = ties.tie_gate(chains, differ, n_beta, mismatch_max)
+        for ch in chains:
+            print(f"{label}: chain {ch['chain']} apart after sweep {ch['first_sweep']} ({ch['rows_apart_at_end']} rows at "
+                  f"the end), its closest decision's margin {ch['margin']:.3e} against a rounding of dln of "
+                  f"{ch['rounding']:.3e}: {ch['margin_in_roundings']} roundings, "
+                  + ("a near-tie" if ch["near_tie"] else "not a near-tie"))
+        print(f"{label}: rows apart {gate['rows_apart']}, of them in near-tie chains {gate['rows_apart'] - gate['other_rows']}; "
+              f"near-tie chains {gate['near_tie_chains']}/{gate['chains']} (max {ties.NEAR_CHAINS_MAX:.0%}); decisions "
+              f"within {ties.NEAR:g} roundings of a tie on the plain path: {n_near}")
+        tie_log.append({"check": label, "chains": chains, **{k: v for k, v in gate.items() if k != "near_rows"}})
+        if gate["near_tie_chains"] > ties.NEAR_CHAINS_MAX * gate["chains"]:
+            failures.append(f"{label}: {gate['near_tie_chains']} near-tie chains of {gate['chains']}")
+        return gate["near_rows"]
 
     def exchange_vs_plain(label, w_, c_, ln_, bonds_, uniforms, mismatch_max, cut, n_beta=1, swaps=None,
-                          tols=(EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL), n_unit_=None):
+                          tols=(EXCHANGE_Y_ATOL, EXCHANGE_LNPSI_ATOL), n_unit_=None, by_chain=False):
         """Kernel vs plain exchange rounds on the same uniforms (an
         ExchangeDraws, or the (u_sel, u_acc) pair; for n_beta > 1 the
         tempered instance against the plain tempered exchange, in sweeps of
@@ -1162,10 +1216,13 @@ def main() -> int:
         walkers start with the same particle numbers, so a row holds them
         whichever replica's configuration it ends with); `tols` the y and
         ln psi tolerances; `n_unit_` at n_beta = 1 the kernel's sweep (its
-        float64 instances renew their state after each). Returns (share,
-        ln_err, acceptance)."""
+        float64 instances renew their state after each); `by_chain` (the
+        float32 tempered checks at the flagship's shape) gates the rows
+        by chain, as ``tie_check`` says. Returns (share, ln_err,
+        acceptance)."""
         args = (uniforms,) if isinstance(uniforms, ExchangeDraws) else uniforms
         k_, n_ = c_.spins.shape
+        exempt = None
         if c_.spins.dtype == torch.float32:  # the float32 instances' two W branches
             seen = staged_seen if n_beta == 1 else staged_seen_t
             seen.add((w_.c is not None, stages_w(n_, w_.w.shape[1], bonds_.shape[0], w_.c is not None, n_beta)))
@@ -1174,11 +1231,15 @@ def main() -> int:
             ck, lk, rows_k = exchange_cuda(w_, c_, bonds_, *args, **kw)
             cp, lp, rows_p = tempered_exchange_plain(w_, c_, ln_, bonds_, *args, **kw)
             acc_p = rows_p[0].sum()
+            differ = (ck.spins != cp.spins).any(1)
+            if by_chain and bool(differ.any()):  # C9: the gate by chain
+                exempt = tie_check(label, w_, c_, bonds_, uniforms if swaps is None else (*uniforms, swaps),
+                                   n_beta, n_, differ, mismatch_max)
         else:
             ck, lk, rows_k = exchange_cuda(w_, c_, bonds_, *args, n_unit=n_unit_)
             cp, lp, acc_p = exchange_plain(w_, c_, ln_, bonds_, *args)
         acc_k = rows_k[0].sum()
-        share_, ln_err_, _ = _compare(label, ck, lk, cp, lp, mismatch_max, *tols, failures, cut=cut)
+        share_, ln_err_, _ = _compare(label, ck, lk, cp, lp, mismatch_max, *tols, failures, cut=cut, exempt=exempt)
         n_steps = args[0].n_steps if isinstance(uniforms, ExchangeDraws) else args[0].shape[0]
         half = n_ // 2
         kept = all(bool(((ck.spins[:, sl] > 0).sum(1) == (c_.spins[:, sl] > 0).sum(1)).all())
@@ -1250,10 +1311,12 @@ def main() -> int:
                     "philox": "philox", "uniforms": "on caller uniforms",
                     "multi": f"philox, {EXCHANGE_MULTI_SWEEPS} sweeps in one launch"}[mode]
                 tempered_x[(clab, nb, mode)] = exchange_vs_plain(label, w_, c_, ln_, bonds, unif,
-                                                                 EXCHANGE_MISMATCH_MAX, bool(clab), nb, sw)[:2]
+                                                                 EXCHANGE_MISMATCH_MAX, bool(clab), nb, sw,
+                                                                 by_chain=True)[:2]
         xk, _, _ = exchange_cuda(w_, c_, bonds, multi_draws, n_beta=TEMPERED_NBETA, n_unit=n_unit)
         if not sector_ok(xk.spins):
             failures.append(f"exchange tempered{clab}: a replica left its particle sector")
+    print(f"exchange tempered: C9's parting chains: {json.dumps(tie_log)}")
 
     # no visible bias (the kernels read zeros for a): RBMSfSymm, alpha = 4
     smachine = RBMSfSymm(n_inputs=N, alpha=ALPHA, dtype=torch.float32)
@@ -2490,6 +2553,60 @@ def main() -> int:
         return mesh_results
 
     mesh_results = mesh_phase()
+
+    _enter("15e precision anchor", t0)
+    # the paper's accuracy anchor at full protocol (examples/precision_anchor.py):
+    # the port's ED on the host, then RBMTrSymm(20, alpha 4), K = 8192, 500
+    # warm-up sweeps and 8000 mixed-precision SR steps on the card
+    anchor_dir = str(build.BUILD_DIR / "precision_anchor")
+    os.makedirs(anchor_dir, exist_ok=True)
+    jax_anchor = precision_anchor.recorded(ANCHOR_N)
+    _require(jax_anchor is not None and "rel_err" in jax_anchor,
+             f"precision anchor: no JAX record logs/precision_anchor_{{ed,vmc}}_N{ANCHOR_N}.json")
+    t_ed = time.perf_counter()
+    anchor_e0 = precision_anchor.run_ed(ANCHOR_N, anchor_dir)
+    anchor_ed_s = time.perf_counter() - t_ed
+    e0_rel = abs(anchor_e0 - jax_anchor["e0"]) / abs(jax_anchor["e0"])
+    print(f"precision anchor N={ANCHOR_N}: the port's E0 {anchor_e0:.12f} against the recorded {jax_anchor['e0']:.12f}: "
+          f"rel {e0_rel:.2e} (tol {ANCHOR_E0_RTOL:.0e}); ED {anchor_ed_s:.1f} s on the host")
+    _require(e0_rel <= ANCHOR_E0_RTOL, f"precision anchor: E0 off the record by {e0_rel:.2e}")
+    reset_counts()
+    t_train = time.perf_counter()
+    a_machine, a_ham, a_params, _, a_hists, a_warm_s, a_run_s = precision_anchor.train(ANCHOR_N)
+    anchor_s = time.perf_counter() - t_train
+    launches, plain_calls = read_counts()
+    anchor_steps = sum(len(hh) for hh in a_hists)
+    anchor_e = float(np.mean([hh["energy"] for hh in a_hists[-1][-precision_anchor.TAIL:]]))
+    stage_means = [float(np.mean([hh["energy"] for hh in hist[-100:]])) for hist in a_hists]
+    step_ms = 1e3 * a_run_s / anchor_steps
+    anchor_rel = abs(anchor_e - anchor_e0) / abs(anchor_e0)
+    bar_met = anchor_rel <= precision_anchor.BAR
+    print(f"precision anchor N={ANCHOR_N}: card tail energy {anchor_e:.10f} over the last {precision_anchor.TAIL} "
+          f"of {anchor_steps} steps; rel err {anchor_rel:.3e} against the port's E0: the paper's bar "
+          f"{precision_anchor.BAR:.0e} {'met' if bar_met else 'NOT MET (ROADMAP C10)'}; JAX record "
+          f"{jax_anchor['rel_err']:.3e}; step {step_ms:.3f} ms; warm-up {a_warm_s:.2f} s; "
+          f"phase {time.perf_counter() - t_ed:.1f} s; launches {launches}; plain-version calls: {plain_calls}")
+    _require(launches == expect(sweep=1 + anchor_steps, energy=anchor_steps) and plain_calls == 0
+             and anchor_steps == sum(st for st, _ in precision_anchor.STAGES),
+             f"precision anchor: {anchor_steps} steps, launches {launches}, plain-version calls {plain_calls}")
+    path_launches[f"precision anchor N={ANCHOR_N}"] = launches
+    # the card's estimate is the trained state's own energy: <H> of the trained
+    # ansatz by enumeration of its 2^20 configurations in float64, variational
+    anchor_enum = precision_anchor.variational_energy(a_machine, a_ham, a_params)
+    enum_rel = abs(anchor_e - anchor_enum) / abs(anchor_enum)
+    print(f"precision anchor N={ANCHOR_N}: the trained state's <H> by enumeration {anchor_enum:.10f}, "
+          f"{(anchor_enum - anchor_e0) / abs(anchor_e0):.3e} above E0; the card's tail against it {enum_rel:.2e} "
+          f"(tol {ANCHOR_ENUM_RTOL:.0e})")
+    _require(math.isfinite(anchor_e) and enum_rel <= ANCHOR_ENUM_RTOL,
+             f"precision anchor: the card's tail {anchor_e} off the trained state's <H> {anchor_enum} by {enum_rel:.2e}")
+    _require(anchor_enum >= anchor_e0 - 1e-12 * abs(anchor_e0),
+             f"precision anchor: enumerated <H> {anchor_enum} below the ground energy {anchor_e0}")
+    anchor_result = {"n": ANCHOR_N, "e0": anchor_e0, "e0_recorded": jax_anchor["e0"], "e0_rel": e0_rel,
+                     "e_vmc": anchor_e, "rel_err": anchor_rel, "bar": precision_anchor.BAR, "bar_met": bar_met,
+                     "enumerated": anchor_enum, "tail_vs_enumerated": enum_rel, "jax_rel_err": jax_anchor["rel_err"],
+                     "stage_means": stage_means, "step_ms": step_ms, "ed_s": anchor_ed_s,
+                     "train_s": anchor_s}
+    print(f"precision anchor: {json.dumps(anchor_result)}")
 
     _enter("16 kernel device times", t0)
     # the instance each timed call runs: R = ceil(H/32) (exchange: G x U), then c and t

@@ -1605,3 +1605,92 @@ def test_every_mesh_launch_runs_on_its_shards_card(cuda, kind, monkeypatch):
     assert current == order * (len(current) // mesh.size)
     np.testing.assert_allclose(sharded[0], one[0], rtol=1e-6, atol=0)  # the same walkers, sums in another order
     np.testing.assert_allclose(sharded, one, rtol=1e-4, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_beta", [4, 8])
+def test_tempered_exchange_five_sweeps_pass_the_gate_by_chain(cuda, n_beta):
+    """C9: chip_smoke.py phase 3's float32 tempered exchange check (the
+    Hubbard flagship's shapes, 5 sweeps in one launch on the Philox stream)
+    on 12 fresh draws of its inputs, gated by chain (utils/ties.py): the
+    near-tie chains at most 1% of the chains, the other parting chains' rows
+    at most 1e-3 of the rows, y and ln psi on the agreeing rows as in phase 3."""
+    from neural_network_quantum_state_tpu_torch.utils import ties
+
+    l, h, k, sweeps = 32, 64, 4096, 5
+    trap = tuple(float(0.05 * (i - (l - 1) / 2.0) ** 2) for i in range(l)) * 2
+    ham = HubbardChain(n_sites=2 * l, u=4.0, t=1.0, n_up=5, n_down=5, pbc=True, v=trap)
+    machine = RBM(n_inputs=2 * l, n_hiddens=h)
+    bonds = torch.as_tensor(ham.bonds, device=cuda)
+    n_unit = ham.n_unit_steps
+    for seed in range(12):
+        g = make_generator(seed, cuda)
+        work = machine.make_work({name: 10.0 * v for name, v in machine.init_params(g).items()})
+        cache, ln = engine.full_forward(work, ham.init_spins(g, k))
+        draws = ExchangeDraws(philox_key(g), sweeps * n_unit)
+        ck, lk, _ = exchange_ops.exchange_cuda(work, cache, bonds, draws, n_beta=n_beta, n_unit=n_unit)
+        cp, lp, _ = exchange_ops.tempered_exchange_plain(work, cache, ln, bonds, draws, n_beta=n_beta, n_unit=n_unit)
+        differ = (ck.spins != cp.spins).any(1)
+        chains = ties.find_ties(work, cache, bonds, draws, n_beta, n_unit)[0] if bool(differ.any()) else []
+        gate = ties.tie_gate(chains, differ, n_beta, 1e-3)
+        assert gate["passes"], (seed, chains)
+        same = ~(differ | gate["near_rows"])
+        torch.testing.assert_close(ck.y[same], cp.y[same], rtol=0, atol=1e-5)
+        torch.testing.assert_close(lk[same], lp[same], rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_tfi_chain_on_card_matches_the_ports_exact_diagonalization(cuda):
+    """The user-level recipe on the card: RBM(10, 20) on the TFI chain,
+    K = 512, against the port's dense ED (utils/exact.py), rel. err < 1e-4."""
+    from neural_network_quantum_state_tpu_torch.utils.exact import ground_energy, tfi_chain_dense
+
+    n = 10
+    vmc = VMC(RBM(n_inputs=n, n_hiddens=2 * n, dtype=torch.float32), TFIChain(n_sites=n, h=-1.0, j=-1.0),
+              VMCConfig(n_walkers=512, learning_rate=1e-2, seed=7), device=cuda)
+    params, state = vmc.init()
+    state = vmc.warm_up(params, state, 300)
+    launches = sweep_ops.sweep_cuda.launches
+    params, state, history, _ = vmc.run(params, state, 800)
+    assert sweep_ops.sweep_cuda.launches == launches + 800
+    e = float(np.mean([h["energy"] for h in history[-20:]]))
+    e_exact = ground_energy(tfi_chain_dense(n, h=-1.0, j=-1.0))
+    assert abs(e - e_exact) / abs(e_exact) < 1e-4, (e, e_exact)
+
+
+@pytest.mark.gpu
+def test_litfi_chain_on_card_matches_the_ports_lanczos(cuda):
+    """The paper's model on the card: RBMTrSymm(12, alpha 2) on the LITFI
+    chain (theta = 2, alpha_J = 2), against the port's Lanczos ED at the JAX
+    e2e oracle's bar for it (tests/test_e2e.py, 1e-2)."""
+    from neural_network_quantum_state_tpu_torch.utils.exact import litfi_ground_state_lanczos
+
+    n, theta = 12, 2.0
+    ham = LITFIChain(n_sites=n, h=float(-np.cos(theta)), j=float(np.sin(theta)), alpha=2.0, pbc=True)
+    vmc = VMC(RBMTrSymm(n_inputs=n, alpha=2, dtype=torch.float32), ham,
+              VMCConfig(n_walkers=256, learning_rate=2e-2, solver="cg", seed=3), device=cuda)
+    params, state = vmc.init()
+    state = vmc.warm_up(params, state, 200)
+    params, state, history, _ = vmc.run(params, state, 1200)
+    e = float(np.mean([h["energy"] for h in history[-50:]]))
+    e_exact, _ = litfi_ground_state_lanczos(n, theta, 2.0)
+    assert abs(e - e_exact) / abs(e_exact) < 1e-2, (e, e_exact)
+
+
+@pytest.mark.gpu
+def test_precision_anchor_trains_on_card_through_the_kernels(cuda, tmp_path):
+    """examples/precision_anchor.py's stages on the card at a small size:
+    every sampler call one sweep launch, every step one energy launch, no
+    plain version, the tail energy within 1e-2 of the port's ED."""
+    from neural_network_quantum_state_tpu_torch.examples import precision_anchor
+
+    e0 = precision_anchor.run_ed(8, str(tmp_path))
+    sweeps, energies = sweep_ops.sweep_cuda.launches, energy.offdiag_sum_cuda.launches
+    plain = sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls
+    rec = precision_anchor.run_train(8, str(tmp_path), device="cuda", n_walkers=512, warm_sweeps=200,
+                                     stages=((800, 2e-2), (400, 5e-3)), tail=100)
+    assert sweep_ops.sweep_cuda.launches - sweeps == 1 + 1200
+    assert energy.offdiag_sum_cuda.launches - energies == 1200
+    assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain
+    assert abs(rec["e_vmc"] - e0) / abs(e0) < 1e-2
+    assert (tmp_path / "precision_anchor_vmc_N8.json").exists()
