@@ -154,7 +154,15 @@ Phases, each printed with its seconds:
    files (text checkpoint, .state.npz, .metrics.jsonl) under the build
    directory, its launches (one per sampler call of the right instance,
    the float64 energy instance once per float64 step), no plain version,
-   finite energies; its step ms, init + warm-up seconds and peak memory;
+   finite energies; its step ms, init + warm-up seconds and peak memory.
+   The Orbax arm: the flagship again with -ckpt=orbax (100 + 20, saved
+   every 10 as an .orbax directory and no .state.npz), resumed from the
+   .orbax directory for 5 (steps 20..24, lambda as above); then the two
+   committed JAX -ckpt=orbax runs (tests/fixtures/jax_orbax, one device
+   and -mesh=4: OCDBT, zstd chunks, the mesh's walkers in 4 chunks), each
+   read onto the card equal to its text checkpoint to 8 digits (step 5,
+   walkers +-1) and resumed for 3 steps (5..7); the host seconds of every
+   save and load and of decoding each JAX run;
 15c. the measure driver (``drivers.measure.main``, as ``python -m
    neural_network_quantum_state_tpu_torch.drivers.measure`` runs it), each
    run on a copy of a recorded checkpoint under the build directory: (a)
@@ -372,6 +380,14 @@ DRIVER_WARM, DRIVER_STEPS, DRIVER_NREC, DRIVER_RESUME_STEPS = 100, 20, 10, 5
 DRIVER_F64_K, DRIVER_F64_WARM, DRIVER_F64_STEPS = 4096, 100, 10
 DRIVER_HUB_WARM, DRIVER_HUB_STEPS = 100, 5
 DRIVER_TEMPERED_WARM, DRIVER_TEMPERED_STEPS = 50, 3  # both float64 models at n_beta = 4
+# The JAX package's -ckpt=orbax runs committed for phase 15b's Orbax arm
+# (scripts/make_jax_orbax_fixtures.py: LITFI L=16, RBMTrSymm alpha 2, 512
+# walkers, float32, saved at step 5; one device and -mesh=4), each resumed
+# here for JAX_ORBAX_STEPS steps. Their text checkpoints print 8 digits.
+JAX_ORBAX_FIXTURES = "tests/fixtures/jax_orbax"
+JAX_ORBAX_PREFIX = "RBMTrSymmLICH-L16NF2A2T0V1"
+JAX_ORBAX_ARGV = ["-model=LICH", "-ansatz=rbmtrsymm", "-L=16", "-nf=2", "-ns=512"]
+JAX_ORBAX_STEP, JAX_ORBAX_STEPS, JAX_ORBAX_TEXT_RTOL = 5, 3, 1e-7
 # The measure driver's runs (phase 15c), each on a copy of a recorded
 # checkpoint under the build directory (the driver writes its files next to
 # -prefix, and runs/ holds the anchors): (a) the Binder production run
@@ -2193,7 +2209,8 @@ def main() -> int:
         _require(plain_calls == 0, f"train driver {label}: the path called a plain version {plain_calls} times")
         _require(launches == want, f"train driver {label}: launches {launches}, expected {want}")
         text = {"RBM": "Dw.dat", "FFNN": "Dw1.dat"}.get(type(res["machine"]).__name__, "")  # the text checkpoint
-        for suffix in (text, ".state.npz", ".metrics.jsonl"):
+        state = ".orbax" if "-ckpt=orbax" in argv else ".state.npz"  # the structured state, per -ckpt
+        for suffix in (text, state, ".metrics.jsonl"):
             _require(os.path.exists(res["prefix"] + suffix), f"train driver {label}: {res['prefix']}{suffix} missing")
         path_launches[f"train driver {label}"] = launches
         return res, recs
@@ -2210,6 +2227,69 @@ def main() -> int:
     print(f"train driver: lambda at step {DRIVER_STEPS} after the resume {lam_resumed} "
           f"(100 * 0.9^{DRIVER_STEPS + 1} = {100.0 * 0.9 ** (DRIVER_STEPS + 1)})")
     _require(abs(lam_resumed - 100.0 * 0.9 ** (DRIVER_STEPS + 1)) < 1e-3, f"train driver: lambda {lam_resumed}")
+
+    # the Orbax arm: the flagship saved as .orbax and resumed from it, then
+    # the JAX package's -ckpt=orbax runs resumed; every save and load timed
+    # on the host (the driver's own calls, wrapped)
+    from neural_network_quantum_state_tpu_torch.utils import checkpoint as ckpt
+
+    orbax_io = {"save": [], "load": []}
+    driver_io = (train_driver.save_orbax, train_driver.load_orbax)
+
+    def timed(kind, fn):
+        def wrapped(*args, **kwargs):
+            t_io = time.perf_counter()
+            out = fn(*args, **kwargs)
+            orbax_io[kind].append(time.perf_counter() - t_io)
+            return out
+        return wrapped
+
+    train_driver.save_orbax, train_driver.load_orbax = timed("save", ckpt.save_orbax), timed("load", ckpt.load_orbax)
+    try:
+        res, _ = drive_cli("LITFI float32 -ckpt=orbax", "f32_orbax", flagship_argv + [
+            f"-ns={K}", f"-nwarm={DRIVER_WARM}", f"-niter={DRIVER_STEPS}", f"-nrec={DRIVER_NREC}", "-ifprefix=start",
+            "-ckpt=orbax"], range(DRIVER_STEPS), expect(sweep=1 + DRIVER_STEPS, energy=DRIVER_STEPS))
+        _require(os.path.isdir(res["prefix"] + ".orbax") and not os.path.exists(res["prefix"] + ".state.npz"),
+                 "train driver -ckpt=orbax: expected the .orbax directory and no .state.npz")
+        flag_saves = list(orbax_io["save"])
+        _, recs = drive_cli("LITFI float32 -ckpt=orbax resumed", "f32_orbax", flagship_argv + [
+            f"-ns={K}", f"-niter={DRIVER_RESUME_STEPS}", "-ckpt=orbax", f"-resume={os.path.basename(DRIVER_RUN)}"],
+            range(DRIVER_STEPS, DRIVER_STEPS + DRIVER_RESUME_STEPS),
+            expect(sweep=DRIVER_RESUME_STEPS, energy=DRIVER_RESUME_STEPS))
+        _require(len(orbax_io["load"]) == 1, f"train driver -ckpt=orbax: {len(orbax_io['load'])} loads of .orbax")
+        lam_orbax = recs[0]["lam"]
+        print(f"train driver -ckpt=orbax: lambda at step {DRIVER_STEPS} after the resume {lam_orbax}; host seconds "
+              f"of the flagship's saves (8192 x 64 walkers) {[round(x, 4) for x in flag_saves]}, of its load "
+              f"{orbax_io['load'][0]:.4f}")
+        _require(abs(lam_orbax - 100.0 * 0.9 ** (DRIVER_STEPS + 1)) < 1e-3,
+                 f"train driver -ckpt=orbax: lambda {lam_orbax}")
+        # the JAX package's runs: read onto the card with no JAX, then resumed
+        fixture_m = RBMTrSymm(n_inputs=16, alpha=2, dtype=torch.float32)
+        for run in ("one", "mesh4"):
+            src = os.path.join(JAX_ORBAX_FIXTURES, run)
+            _require(os.path.isdir(os.path.join(src, JAX_ORBAX_PREFIX + ".orbax")),
+                     f"{src}/{JAX_ORBAX_PREFIX}.orbax is missing from the checkout")
+            t_io = time.perf_counter()
+            fparams, fstep, fgen, fspins, _ = ckpt.load_orbax(os.path.join(src, JAX_ORBAX_PREFIX + ".orbax"), fixture_m,
+                                                              device="cuda")
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t_io
+            text = ckpt.load_reference_text(fixture_m, os.path.join(src, JAX_ORBAX_PREFIX), device="cuda")
+            rel = max(float(((fparams[k] - text[k]).abs() / text[k].abs().clamp_min(1e-30)).max()) for k in text)
+            print(f"JAX -ckpt=orbax run {run}: decoded in {decode_s:.4f} s on the host; step {fstep}; walkers "
+                  f"{tuple(fspins.shape)}; params against the text checkpoint: largest relative difference {rel:.3e}")
+            _require(fstep == JAX_ORBAX_STEP and fgen is not None and fspins.is_cuda, f"JAX orbax {run}: step {fstep}")
+            _require(bool(((fspins == 1) | (fspins == -1)).all()), f"JAX orbax {run}: walkers not +-1")
+            _require(rel <= JAX_ORBAX_TEXT_RTOL, f"JAX orbax {run}: params off the text checkpoint by {rel:.3e}")
+            dst = run_root / f"jax_orbax_{run}"
+            shutil.copytree(os.path.join(src, JAX_ORBAX_PREFIX + ".orbax"), dst / (JAX_ORBAX_PREFIX + ".orbax"))
+            drive_cli(f"JAX -ckpt=orbax run {run} resumed", f"jax_orbax_{run}", JAX_ORBAX_ARGV + [
+                f"-niter={JAX_ORBAX_STEPS}", "-ckpt=orbax", f"-resume={JAX_ORBAX_PREFIX}"],
+                range(JAX_ORBAX_STEP, JAX_ORBAX_STEP + JAX_ORBAX_STEPS),
+                expect(sweep=JAX_ORBAX_STEPS, energy=JAX_ORBAX_STEPS))
+    finally:
+        train_driver.save_orbax, train_driver.load_orbax = driver_io
+
     drive_cli("LITFI float64", "f64", flagship_argv + [
         "-dtype=float64", f"-ns={DRIVER_F64_K}", f"-nwarm={DRIVER_F64_WARM}", f"-niter={DRIVER_F64_STEPS}",
         "-ifprefix=start"], range(DRIVER_F64_STEPS),

@@ -15,16 +15,18 @@ The options, defaults, file names and stdout lines are the JAX driver's.
 ``-mesh=n`` shards the walkers over ``parallel.make_mesh(n)`` (n shards
 round-robin over the visible cards, or the CPU); ``-resume`` on a mesh
 replicates the restored parameters and re-shards the walkers, and the saved
-``.state.npz`` holds the gathered walkers, so a mesh run and a one-device
-run resume each other. ``-gridmesh=g`` with several grid points runs them
+``.state.npz`` (or ``.orbax``) holds the gathered walkers, so a mesh run and
+a one-device run resume each other. ``-gridmesh=g`` with several grid points runs them
 concurrently in a thread pool, each on its own g-shard submesh
 (``parallel.make_submeshes``: disjoint cards where there are at least g
 times the points of them, shared cards otherwise). It differs in:
 - no compilation cache (PyTorch runs eagerly; the JAX driver's persistent
   XLA cache has no counterpart);
-- ``-ckpt=orbax`` raises NotImplementedError (Orbax is a JAX library); the
-  structured state is ``.state.npz`` with this package's generator state
-  (``utils/checkpoint.py``);
+- the structured state (``.state.npz``, or the ``.orbax`` directory with
+  ``-ckpt=orbax``, written and read without Orbax) holds this package's
+  generator state in place of the JAX key (``utils/checkpoint.py``); a JAX
+  file's key reseeds the generator, so either package resumes the other's
+  runs;
 - ``main(argv=None, device="cuda")`` and ``run_one(..., device="cuda")``
   take the device as a keyword argument (the CPU tests pass "cpu"); no
   CLI option is added. A float64 machine (``-dtype=float64``) runs on the
@@ -57,6 +59,7 @@ from neural_network_quantum_state_tpu_torch.utils.checkpoint import (
     load_orbax,
     load_reference_text,
     save_npz,
+    save_orbax,
     save_reference_text,
 )
 from neural_network_quantum_state_tpu_torch.utils.cli import DriverArgs
@@ -177,9 +180,7 @@ def run_one(model, ansatz, l, nf, args, theta, alpha, ver, device: torch.device 
 
     prefix = checkpoint_prefix(args.find("path"), model, ansatz, n_inputs, nf, ver, **prefix_kw)
     ckpt_fmt = args.find("ckpt").lower()
-    if ckpt_fmt == "orbax":
-        raise NotImplementedError("-ckpt=orbax: Orbax is a JAX library; the PyTorch port writes -ckpt=npz")
-    if ckpt_fmt != "npz":
+    if ckpt_fmt not in ("npz", "orbax"):
         raise ValueError(f"-ckpt must be npz or orbax, got {ckpt_fmt}")
     sd_opt = args.find("solvedtype").lower()
     solve_dtype = None
@@ -223,8 +224,9 @@ def run_one(model, ansatz, l, nf, args, theta, alpha, ver, device: torch.device 
         else:
             rpath = args.find("path") + "/" + resume + ".orbax"
         if rpath.endswith(".orbax"):
-            load_orbax(rpath, machine)  # raises: Orbax is a JAX library
-        params, start_step, generator, spins = load_npz(rpath, machine, device=vmc.device)
+            params, start_step, generator, spins, _extra = load_orbax(rpath, machine, device=vmc.device)
+        else:
+            params, start_step, generator, spins = load_npz(rpath, machine, device=vmc.device)
         if generator is None or spins is None:
             raise ValueError(f"{rpath} lacks RNG/walker state - not a resumable checkpoint")
         if spins.shape[0] != cfg.n_walkers:
@@ -275,11 +277,12 @@ def run_one(model, ansatz, l, nf, args, theta, alpha, ver, device: torch.device 
 
     def save_all(step, params_c, state_c):
         # reference-format text (interoperable with the reference's loaders)
-        # + the structured resume state alongside (.state.npz; a mesh's
-        # walkers gathered in walker order)
+        # + the structured resume state alongside (.state.npz or .orbax per
+        # -ckpt; a mesh's walkers gathered in walker order)
         save_reference_text(machine, params_c, prefix)
-        save_npz(
-            prefix + ".state.npz", machine, params_c, step=step,
+        save = save_orbax if ckpt_fmt == "orbax" else save_npz
+        save(
+            prefix + (".orbax" if ckpt_fmt == "orbax" else ".state.npz"), machine, params_c, step=step,
             generator=state_c.generator, spins=gather(state_c.cache.spins),
         )
 

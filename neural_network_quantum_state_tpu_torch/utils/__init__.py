@@ -1,11 +1,13 @@
 """Utility subsystems: checkpointing, metrics, CLI config, exact reference
-energies (the JAX package's ``utils``, without its Orbax exports)."""
+energies (the JAX package's ``utils``)."""
 
 from neural_network_quantum_state_tpu_torch.utils import checkpoint, cli, exact, metrics
 from neural_network_quantum_state_tpu_torch.utils.checkpoint import (
     load_npz,
+    load_orbax,
     load_reference_text,
     save_npz,
+    save_orbax,
     save_reference_text,
 )
 from neural_network_quantum_state_tpu_torch.utils.cli import DriverArgs
@@ -18,8 +20,10 @@ __all__ = [
     "cli",
     "exact",
     "load_npz",
+    "load_orbax",
     "load_reference_text",
     "metrics",
     "save_npz",
+    "save_orbax",
     "save_reference_text",
 ]

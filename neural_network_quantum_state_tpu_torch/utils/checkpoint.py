@@ -1,6 +1,6 @@
 """Checkpoint / resume (the JAX package's ``utils/checkpoint.py``).
 
-Two formats, each read and written by both packages:
+Three formats, each read and written by both packages:
 
 1. Reference-compatible plain text: C++ iostream complex literals
    ``(re,im)`` separated by whitespace, one file per tensor for RBM/FFNN
@@ -18,13 +18,20 @@ Two formats, each read and written by both packages:
    package's files hold its threefry key in ``__key__`` instead; each
    package's ``load_npz`` reads the other's params, step and spins.
 
-Orbax checkpoints are a JAX library's format: ``save_orbax`` and
-``load_orbax`` raise NotImplementedError.
+3. Orbax ``StandardCheckpointer`` directories (``.orbax``), read and written
+   without Orbax (``utils/orbax_format.py``): ``machine`` (the name as
+   uint8), ``step``, ``params.<name>.re/.im``, ``spins`` and ``extra``.
+   ``load_orbax`` reads either package's directories, the JAX package's
+   OCDBT layout included; ``save_orbax`` writes the plain layout, which the
+   JAX package's ``load_orbax`` reads. This package's random state goes
+   under ``extra`` as ``generator`` and ``generator_device``; a JAX file's
+   threefry key (``key``) reseeds as ``__key__`` does in ``load_npz``.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import re
 from typing import Optional
 
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from neural_network_quantum_state_tpu_torch.models.base import Machine, Params
+from neural_network_quantum_state_tpu_torch.utils import orbax_format
 
 _COMPLEX_RE = re.compile(r"\(([^,()]+),([^,()]+)\)")
 
@@ -177,13 +185,85 @@ def load_npz(path: str, machine: Machine, device: torch.device | str = "cuda"):
 
 
 # ---------------------------------------------------------------------------
-def save_orbax(*args, **kwargs):
-    """Orbax is a JAX library: not ported (use npz)."""
-    raise NotImplementedError("Orbax checkpoints are a JAX library's format; the PyTorch port writes npz "
-                              "(save_npz, -ckpt=npz)")
+_GENERATOR_KEYS = ("generator", "generator_device")
 
 
-def load_orbax(*args, **kwargs):
-    """Orbax is a JAX library: not ported (use npz)."""
-    raise NotImplementedError("Orbax checkpoints are a JAX library's format; the PyTorch port reads npz "
-                              "(load_npz, -ckpt=npz)")
+def _u8(text: str) -> np.ndarray:
+    return np.frombuffer(text.encode(), dtype=np.uint8).copy()
+
+
+def _host_tree(tree: dict) -> dict:
+    """`tree` with its tensors as numpy arrays and its dicts' keys sorted,
+    the order in which JAX flattens a dict."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out[k] = _host_tree(v)
+        else:
+            out[k] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    return out
+
+
+def save_orbax(path: str, machine: Machine, params: Params, step: int = 0,
+               generator: Optional[torch.Generator] = None, spins: Optional[torch.Tensor] = None,
+               extra: Optional[dict] = None) -> str:
+    """Orbax checkpoint directory at `path` (replaced if it exists, written
+    beside it and renamed into place): the tree the JAX package's
+    ``save_orbax`` writes, with the random state of `generator` under
+    ``extra``. Returns the directory's absolute path."""
+    state: dict = {}
+    extra = _host_tree(extra or {})
+    if generator is not None:
+        extra["generator"] = generator.get_state().numpy()
+        extra["generator_device"] = _u8(generator.device.type)
+    # the keys in the order JAX flattens the dict: sorted, a C pair re, im
+    if extra:
+        state["extra"] = dict(sorted(extra.items()))
+    state["machine"] = _u8(type(machine).__name__)
+    state["params"] = {}
+    for name in sorted(dict(machine.param_spec())):
+        p = params[name].detach().cpu()
+        state["params"][name] = {"re": p.real.numpy(), "im": p.imag.numpy()}
+    if spins is not None:
+        state["spins"] = spins.detach().cpu().numpy()
+    state["step"] = np.asarray(step, dtype=np.int64)
+    return orbax_format.write(path, state, force=True)
+
+
+def load_orbax(path: str, machine: Machine, device: torch.device | str = "cuda"):
+    """Returns (params, step, generator | None, spins | None, extra | None),
+    the tensors and the generator on `device`, from either package's Orbax
+    directory. Arrays are cast on the host to the machine's dtype, so a
+    float64 save loads into a float32 machine and back. The generator is
+    restored or reseeded as ``load_npz`` does it; `extra` comes back without
+    the generator's entries (None where nothing else is left)."""
+    state = orbax_format.read(os.path.abspath(path))
+    name = bytes(np.asarray(state["machine"], dtype=np.uint8)).decode()
+    if name != type(machine).__name__:
+        raise ValueError(f"checkpoint is for {name}, not {type(machine).__name__}")
+    real = np.float32 if machine.dtype == torch.float32 else np.float64
+    params = {}
+    for pname, shape in machine.param_spec():
+        leaf = state["params"][pname]
+        re_, im_ = np.asarray(leaf["re"], dtype=real), np.asarray(leaf["im"], dtype=real)
+        if re_.shape != tuple(shape) or im_.shape != tuple(shape):
+            raise ValueError(f"{path}: {pname} has shape {re_.shape}, expected {tuple(shape)}")
+        params[pname] = torch.complex(torch.as_tensor(re_), torch.as_tensor(im_)).to(device)
+    step = int(np.asarray(state["step"]))
+    device = torch.device(device)
+    extra = dict(state.get("extra", {}))
+    generator = None
+    if "generator" in extra:
+        gstate = np.asarray(extra["generator"], dtype=np.uint8)
+        if bytes(np.asarray(extra["generator_device"], dtype=np.uint8)).decode() == device.type:
+            generator = torch.Generator(device=device)
+            generator.set_state(torch.as_tensor(gstate))
+        else:
+            generator = _seeded(device, gstate.tobytes())
+    elif "key" in state:
+        generator = _seeded(device, np.asarray(state["key"], dtype=np.uint32).tobytes())
+    for k in _GENERATOR_KEYS:
+        extra.pop(k, None)
+    spins = torch.as_tensor(np.asarray(state["spins"], dtype=real), device=device) if "spins" in state else None
+    return params, step, generator, spins, extra or None

@@ -7,7 +7,8 @@ files the JAX package writes for the same parameters (carried over with
 values, and both parse the recorded flagship run. Structured npz: each
 package reads the other's params, step and spins; a JAX file's threefry key
 seeds the port's generator deterministically, and a port file restores its
-generator's state. A checkpoint of another machine is refused; Orbax raises.
+generator's state. A checkpoint of another machine is refused. Orbax
+directories: tests/test_torch_orbax.py.
 """
 
 import os
@@ -155,8 +156,3 @@ def test_wrong_machine_is_rejected(tmp_path):
     with pytest.raises(ValueError, match="expected"):
         tck.load_reference_text(m3, str(tmp_path / "m2"), device="cpu")
 
-
-@pytest.mark.parametrize("fn", ["save_orbax", "load_orbax"])
-def test_orbax_raises(fn):
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        getattr(tck, fn)("x.orbax", tmodels.RBM(n_inputs=4, n_hiddens=4))

@@ -7,10 +7,12 @@ Hubbard chain with and without a trap, accumulated dense SR, periodic
 auto-save and structured resume (the step count and the lambda schedule
 continue), ``-nbeta=auto`` and ``-solvedtype``, ``-mesh`` and ``-gridmesh``
 (held to the one-device and the serial run; more in
-``tests/test_torch_mesh_drivers.py``), and what the port does not take
-(``-ckpt=orbax``). The JAX driver runs once in this module: a
-``-niter=0`` warm start of both drivers from the same text checkpoint
-writes the same file, byte for byte, under the same name. The file names
+``tests/test_torch_mesh_drivers.py``), and ``-ckpt=orbax`` (auto-save and
+resume of the ``.orbax`` directory, on one device and on a mesh). The JAX
+driver runs twice in this module: a ``-niter=0`` warm start of both
+drivers from the same text checkpoint writes the same file, byte for byte,
+under the same name, and the port's driver resumes a JAX ``-ckpt=orbax``
+run. The file names
 of every model and ansatz are the JAX driver's.
 """
 
@@ -112,6 +114,54 @@ def test_train_autosave_and_structured_resume(tmp_path):
     assert e2 <= e1 + 0.05
 
 
+def test_train_orbax_autosave_and_resume(tmp_path):
+    """test_drivers.py::test_train_orbax_autosave_and_resume: -ckpt=orbax
+    auto-saves an .orbax directory in place of .state.npz, and -resume
+    restores params, step, generator and walkers from it, so the step count
+    and lambda continue."""
+    common = ["-model=CH", "-ansatz=rbmtrsymm", "-L=8", "-nf=2", "-ns=128", "-nwarm=60", "-lr=2e-2",
+              "-dtype=float64", f"-path={tmp_path}", "-rsd=1e-12", "-nrec=25", "-ckpt=orbax"]
+    res = _main(common + ["-niter=60"])
+    prefix = res[0]["prefix"]
+    assert os.path.isdir(prefix + ".orbax") and not os.path.exists(prefix + ".state.npz")
+    res2 = _main(common + ["-niter=40", f"-resume={os.path.basename(prefix)}"])
+    hist2 = res2[0]["history"]
+    assert hist2[0]["step"] == 60 and hist2[-1]["step"] == 99
+    recs = [json.loads(line) for line in open(prefix + ".metrics.jsonl")]
+    lam_by_step = {r["step"]: r["lam"] for r in recs}
+    assert abs(lam_by_step[60] - 100.0 * 0.9**61) < 1e-3
+    names = sorted(os.path.basename(prefix) + s for s in ("", ".metrics.jsonl", ".orbax"))
+    assert sorted(os.listdir(tmp_path)) == names  # no .state.npz, no temporary directory left
+
+
+def test_train_orbax_sharded_roundtrip_on_mesh(tmp_path):
+    """test_drivers.py::test_train_orbax_sharded_roundtrip_on_mesh: a -mesh=4
+    run saves the gathered walkers and a mesh-resumed run re-shards them."""
+    common = ["-model=CH", "-ansatz=rbmtrsymm", "-L=8", "-nf=2", "-ns=128", "-nwarm=40", "-lr=2e-2",
+              "-dtype=float64", f"-path={tmp_path}", "-rsd=1e-12", "-nrec=20", "-ckpt=orbax", "-mesh=4"]
+    prefix = os.path.basename(_main(common + ["-niter=20"])[0]["prefix"])
+    res2 = _main(common + ["-niter=10", f"-resume={prefix}"])
+    assert res2[0]["history"][0]["step"] == 20
+    assert np.isfinite(res2[0]["history"][-1]["energy"])
+
+
+def test_port_resumes_a_jax_orbax_run(tmp_path):
+    """The JAX driver's -ckpt=orbax run (OCDBT, zstd) resumed by the port's
+    driver: the step count and lambda continue, the walkers are the saved
+    ones and the generator is seeded from the JAX key."""
+    common = ["-model=CH", "-ansatz=rbmtrsymm", "-L=8", "-nf=2", "-ns=64", "-nwarm=20", "-lr=2e-2",
+              "-dtype=float64", f"-path={tmp_path}", "-rsd=1e-12", "-nrec=5", "-ckpt=orbax"]
+    prefix = j_train.main(common + ["-niter=10"])[0]["prefix"]
+    assert os.path.isdir(prefix + ".orbax")
+    res = _main(common + ["-niter=5", f"-resume={prefix}.orbax"])
+    hist = res[0]["history"]
+    assert [h["step"] for h in hist] == list(range(10, 15))
+    recs = [json.loads(line) for line in open(prefix + ".metrics.jsonl")]
+    lam_by_step = {r["step"]: r["lam"] for r in recs}
+    assert abs(lam_by_step[10] - 100.0 * 0.9**11) < 1e-3
+    assert np.isfinite([h["energy"] for h in hist]).all()
+
+
 def test_resume_refuses_another_walker_count(tmp_path):
     """A structured checkpoint resumes only with its own walker count."""
     common = ["-model=CH", "-ansatz=rbmtrsymm", "-L=8", "-nf=2", "-nwarm=5", "-dtype=float64", f"-path={tmp_path}"]
@@ -142,20 +192,16 @@ def test_nbeta_auto_and_solvedtype(argv, tmp_path, capsys):
 
 @pytest.mark.parametrize(
     "extra",
-    [["-mesh=4"], ["-gridmesh=2", "-theta=1.8,2.2"], ["-ckpt=orbax"]],
-    ids=["mesh", "gridmesh", "orbax"],
+    [["-mesh=4"], ["-gridmesh=2", "-theta=1.8,2.2"]],
+    ids=["mesh", "gridmesh"],
 )
 def test_unported_options_raise(extra, tmp_path):
-    """-ckpt=orbax raises (Orbax is a JAX library). -mesh and -gridmesh are
-    ported: a -mesh=4 run takes the one-device run's steps, and -gridmesh=2
-    the serial grid's, each point to 1e-10 (in float64, with the same seed);
-    a mesh whose shards the walkers do not divide is refused."""
+    """-mesh and -gridmesh are ported: a -mesh=4 run takes the one-device
+    run's steps, and -gridmesh=2 the serial grid's, each point to 1e-10 (in
+    float64, with the same seed); a mesh whose shards the walkers do not
+    divide is refused."""
     base = ["-model=LICH", "-ansatz=rbmtrsymm", "-L=8", "-nf=2", "-ns=64", "-niter=2", "-nwarm=2",
             "-dtype=float64"]
-    if extra == ["-ckpt=orbax"]:
-        with pytest.raises(NotImplementedError, match="Orbax"):
-            _main(base + [f"-path={tmp_path}", *extra])
-        return
     plain = [a for a in extra if not a.startswith(("-mesh", "-gridmesh"))]
     for sub in ("one", "mesh"):
         (tmp_path / sub).mkdir()

@@ -1694,3 +1694,37 @@ def test_precision_anchor_trains_on_card_through_the_kernels(cuda, tmp_path):
     assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain
     assert abs(rec["e_vmc"] - e0) / abs(e0) < 1e-2
     assert (tmp_path / "precision_anchor_vmc_N8.json").exists()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run", ["one", "mesh4"])
+def test_jax_orbax_fixtures_resume_on_card(cuda, run, tmp_path):
+    """The committed JAX -ckpt=orbax runs (``tests/fixtures/jax_orbax``, one
+    device and -mesh=4) read with no JAX onto the card, to their text
+    checkpoint's 8 digits, and resumed there by the train driver: the steps
+    continue, one sweep and one energy launch per step, no plain call."""
+    import shutil
+    from pathlib import Path
+
+    from neural_network_quantum_state_tpu_torch.drivers import train
+    from neural_network_quantum_state_tpu_torch.utils.checkpoint import load_orbax, load_reference_text
+
+    prefix = "RBMTrSymmLICH-L16NF2A2T0V1"
+    src = Path(__file__).resolve().parent / "fixtures" / "jax_orbax" / run
+    m = RBMTrSymm(n_inputs=16, alpha=2, dtype=torch.float32)
+    params, step, gen, spins, _ = load_orbax(str(src / (prefix + ".orbax")), m, device=cuda)
+    assert step == 5 and gen.device.type == "cuda" and spins.is_cuda and spins.shape == (512, 16)
+    assert set(spins.unique().tolist()) == {-1.0, 1.0}
+    text = load_reference_text(m, str(src / prefix), device="cpu")
+    for name, p in params.items():
+        assert p.is_cuda
+        np.testing.assert_allclose(p.cpu().numpy(), text[name].numpy(), rtol=1e-7, atol=0)
+    shutil.copytree(src / (prefix + ".orbax"), tmp_path / (prefix + ".orbax"))
+    sweeps, energies = sweep_ops.sweep_cuda.launches, energy.offdiag_sum_cuda.launches
+    plain = sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls
+    res = train.main(["-model=LICH", "-ansatz=rbmtrsymm", "-L=16", "-nf=2", "-ns=512", "-niter=3", "-nrec=0",
+                      "-ckpt=orbax", f"-path={tmp_path}", f"-resume={prefix}"])
+    assert [h["step"] for h in res[0]["history"]] == [5, 6, 7]
+    assert sweep_ops.sweep_cuda.launches - sweeps == 3 and energy.offdiag_sum_cuda.launches - energies == 3
+    assert sweep_ops.sweep_plain.calls + energy.offdiag_sum_plain.calls == plain
+    assert load_orbax(str(tmp_path / (prefix + ".orbax")), m, device=cuda)[1] == 8
